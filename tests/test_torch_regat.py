@@ -1,0 +1,90 @@
+"""The port's whole model (implicit relations, BUTD fusion) against the JAX
+package's `apply_regat(train=False)` on the CPU, with the JAX parameters
+carried across: with `impl="pallas"` (B1 in interpret mode, one launch per
+direction) and `impl="jnp"` (both directions folded into one 2H-head jnp
+computation).
+
+Tolerance: atol/rtol 1e-4 on the logits, looser than the 1e-5 of the single
+ops because sums run in another order through the stacked f32 matmuls
+(GRU, relation, fusion, classifier). The argmax must be identical.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tf_vqa_regat_tpu.config import Config
+from tf_vqa_regat_tpu.models.regat import apply_regat, init_regat
+from tf_vqa_regat_tpu_torch import config as tconfig
+from tf_vqa_regat_tpu_torch.models.regat import ReGAT
+from tf_vqa_regat_tpu_torch.params import flatten_tree, load_jax_arrays
+
+CFG = Config(
+    num_hid=64, relation_dim=96, num_heads=4, nongt_dim=10, imp_pos_emb_dim=64,
+    fusion="butd", relation_type="implicit", adaptive=True, num_rois=16,
+    residual_connection=True,
+)
+PORT_CFG = tconfig.Config(
+    **{f.name: getattr(CFG, f.name) for f in dataclasses.fields(tconfig.Config)}
+)
+NTOKEN, V_DIM, NUM_ANS, B = 25, 32, 11, 6
+TOL = dict(atol=1e-4, rtol=1e-4)
+
+
+def _batch(seed):
+    """Random features and boxes; box counts 1-16, with one padded slot
+    (num_boxes 0) as the serve engine makes; questions padded after 9 tokens."""
+    rng = np.random.RandomState(seed)
+    R = CFG.resolved_num_rois()
+    num_boxes = rng.randint(1, R + 1, size=B).astype(np.int32)
+    num_boxes[2] = 0
+    roi_ok = (np.arange(R)[None, :] < num_boxes[:, None])[..., None]
+    xy = rng.rand(B, R, 2) * 450
+    wh = rng.rand(B, R, 2) * 190 + 4
+    question = rng.randint(0, NTOKEN, size=(B, 14)).astype(np.int32)
+    question[:, 9:] = NTOKEN
+    return {
+        "features": (rng.randn(B, R, V_DIM) * roi_ok).astype(np.float32),
+        "bb": (np.concatenate([xy, xy + wh], -1) * roi_ok).astype(np.float32),
+        "question": question,
+        "num_boxes": num_boxes,
+    }
+
+
+@pytest.fixture(scope="module")
+def models():
+    params = init_regat(jax.random.PRNGKey(0), CFG, NTOKEN, V_DIM, NUM_ANS)
+    port = ReGAT(PORT_CFG, NTOKEN, V_DIM, NUM_ANS, torch.Generator().manual_seed(0))
+    load_jax_arrays(port, flatten_tree(jax.tree.map(np.asarray, params)))
+    return params, port.eval()
+
+
+@pytest.mark.parametrize("impl", ["pallas", "jnp"])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_logits_match_apply_regat(models, impl, seed):
+    params, port = models
+    batch = _batch(seed)
+    jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+    jbatch["norm_bb"] = jnp.zeros(batch["bb"].shape[:2] + (6,), jnp.float32)
+    jbatch["valid"] = jnp.asarray(batch["num_boxes"] > 0)
+    want = np.asarray(apply_regat(params, CFG, jbatch, NTOKEN, train=False, impl=impl))
+    with torch.inference_mode():
+        got = port({k: torch.from_numpy(v) for k, v in batch.items()}).numpy()
+    assert got.shape == (B, NUM_ANS) and np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, **TOL)
+    np.testing.assert_array_equal(got.argmax(-1), want.argmax(-1))
+
+
+def test_unported_families_and_training_raise():
+    with pytest.raises(NotImplementedError, match="explicit relations"):
+        ReGAT(PORT_CFG.replace(relation_type="spatial"), NTOKEN, V_DIM, NUM_ANS)
+    with pytest.raises(NotImplementedError, match="BAN and MuTAN"):
+        ReGAT(PORT_CFG.replace(fusion="ban"), NTOKEN, V_DIM, NUM_ANS)
+    model = ReGAT(PORT_CFG, NTOKEN, V_DIM, NUM_ANS)
+    batch = {k: torch.from_numpy(v) for k, v in _batch(0).items()}
+    with pytest.raises(NotImplementedError, match="training"):
+        model.train()(batch)

@@ -1,0 +1,144 @@
+"""Configuration of the port: the reference's argparse surface with the JSON
+overlay (JSON overrides defaults, flags given on the command line win), as
+tf_vqa_regat_tpu/config.py has it, so `--config configs/*.json` parses the
+same way in both packages.
+
+The port carries its own copy so that it runs without the JAX package. It
+holds the reference's flags (reference main.py:14-97), every key the JSON
+configs use, and the extensions the port implements; a flag of a feature not
+ported yet is rejected by the parser instead of being accepted and ignored.
+Each field keeps the JAX package's name, type and default (a CPU test
+checks), and later slices add the fields of what they port.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import sys
+from typing import Any, List, Optional
+
+
+@dataclasses.dataclass
+class Config:
+    # --- reference contract (reference main.py:14-97) ---
+    epochs: int = 20
+    base_lr: float = 1e-3
+    lr_decay_start: int = 15
+    lr_decay_rate: float = 0.25
+    lr_decay_step: int = 2
+    grad_clip: float = 0.25
+    batch_size: int = 8
+    output: str = "saved_models/"
+    seed: int = 42
+    checkpoint: str = ""
+    dataset: str = "vqa"  # vqa | vqa_cp
+    data_folder: str = "./data"
+    use_both: bool = False
+    use_vg: bool = False
+    adaptive: bool = False
+    relation_type: str = "implicit"  # spatial | semantic | implicit
+    fusion: str = "mutan"  # ban | butd | mutan
+    tfidf: bool = False
+    op: str = "c"
+    num_hid: int = 1024
+    imp_pos_emb_dim: int = 64
+    spa_label_num: int = 11
+    sem_label_num: int = 15
+    dir_num: int = 2
+    relation_dim: int = 1024
+    nongt_dim: int = 20
+    num_heads: int = 16
+    num_steps: int = 1
+    residual_connection: bool = False
+    label_bias: bool = False
+    dropout: float = 0.2
+    print_freq: int = 500
+    mode: str = "train"  # serve (ported) | train | eval | ensemble_eval | export_h5 | predict
+    lr_decay_based_on_val: bool = False  # in the reference's JSON, unused by its model
+
+    # --- keys of the JSON configs beyond the reference (BAN / MuTAN) ---
+    ban_glimpse: int = 4
+    mutan_rank: int = 15
+    mutan_gamma: int = 2
+
+    # --- extensions the port implements ---
+    # Static roi padding; 0 = 36 for the fixed layout, 100 adaptive.
+    num_rois: int = 0
+    # --mode serve: port, fixed batch sizes, straggler wait.
+    serve_port: int = 8000
+    serve_batch_sizes: str = "1,8,32"
+    serve_max_delay_ms: float = 5.0
+    # Generated in-memory data with the real shapes instead of the dataset.
+    synthetic: bool = False
+    synthetic_val_size: int = 1024
+
+    def __post_init__(self) -> None:
+        sizes = [x for x in self.serve_batch_sizes.split(",") if x.strip()]
+        if not sizes or any(int(x) <= 0 for x in sizes):
+            raise ValueError(
+                f"--serve_batch_sizes needs >=1 positive sizes, got "
+                f"{self.serve_batch_sizes!r}"
+            )
+        if self.serve_max_delay_ms < 0:
+            raise ValueError(
+                f"--serve_max_delay_ms must be >= 0, got {self.serve_max_delay_ms}"
+            )
+
+    def resolved_num_rois(self) -> int:
+        if self.num_rois > 0:
+            return self.num_rois
+        return 100 if self.adaptive else 36
+
+    @property
+    def word_dim(self) -> int:
+        return 600 if "c" in self.op else 300
+
+    def replace(self, **kw: Any) -> "Config":
+        return dataclasses.replace(self, **kw)
+
+
+_BOOL_FLAGS = {f.name for f in dataclasses.fields(Config) if f.type in ("bool", bool)}
+
+
+def build_arg_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(description="ReGAT, PyTorch port")
+    for f in dataclasses.fields(Config):
+        name = "--" + f.name
+        if f.name in _BOOL_FLAGS:
+            # `--flag` sets True, `--no-flag` clears a default-True field.
+            parser.add_argument(name, action=argparse.BooleanOptionalAction, default=f.default)
+        else:
+            parser.add_argument(name, type=type(f.default), default=f.default)
+    parser.add_argument("--config", type=str, default=None, help="JSON config file")
+    return parser
+
+
+def parse_with_config(argv: Optional[List[str]] = None) -> Config:
+    """JSON values override defaults; flags present on the command line win
+    (reference config/parser.py:13-23)."""
+    if argv is None:
+        argv = sys.argv[1:]
+    args = build_arg_parser().parse_args(argv)
+    if args.config is not None:
+        with open(args.config) as fh:
+            config_args = json.load(fh)
+        override_keys = set()
+        for a in argv:
+            if not a.startswith("--"):
+                continue
+            k = a[2:].split("=")[0]
+            if k.startswith("no-"):
+                k = k[3:]
+            override_keys.add(k)
+        known = {f.name for f in dataclasses.fields(Config)}
+        for k, v in config_args.items():
+            if k in override_keys:
+                continue
+            if k not in known:
+                raise ValueError(f"Unknown config key in JSON: {k!r}")
+            setattr(args, k, v)
+    d = vars(args)
+    d.pop("config", None)
+    return Config(**d)

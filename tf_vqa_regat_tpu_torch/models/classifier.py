@@ -1,0 +1,20 @@
+"""Answer classifier (counterpart of tf_vqa_regat_tpu/models/classifier.py):
+WN-Dense(in -> hid) -> relu -> (train-only dropout) -> WN-Dense(-> answers),
+f32 logits."""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from tf_vqa_regat_tpu_torch.ops.weight_norm import WNLinear
+
+
+class Classifier(nn.Module):
+    def __init__(self, in_dim: int, hid_dim: int, out_dim: int, generator: torch.Generator):
+        super().__init__()
+        self.fc1 = WNLinear(in_dim, hid_dim, generator)
+        self.fc2 = WNLinear(hid_dim, out_dim, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.fc2(torch.relu(self.fc1(x)))

@@ -1,0 +1,43 @@
+"""BUTD fusion (counterpart of the BUTD half of
+tf_vqa_regat_tpu/models/fusion.py).
+
+Every FullyConnected inside BUTD is a plain weight-normed linear with no
+activation (a reference quirk the JAX package keeps on purpose). The softmax
+over rois masks padded rois at -1e9 and runs in f32.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from tf_vqa_regat_tpu_torch.ops.weight_norm import FCNet
+
+
+class BUTD(nn.Module):
+    def __init__(self, v_dim: int, q_dim: int, hidden_dim: int, generator: torch.Generator):
+        super().__init__()
+
+        def lin(i, o):
+            return FCNet([i, o], generator, activation=None)
+
+        self.v2attention = lin(v_dim, hidden_dim)
+        self.q2attention = lin(q_dim, hidden_dim)
+        self.linear = lin(hidden_dim, 1)
+        self.visual_embed = lin(v_dim, hidden_dim)
+        self.question_embed = lin(q_dim, hidden_dim)
+
+    def forward(
+        self,
+        visual: torch.Tensor,  # [b, R, v_dim]
+        question: torch.Tensor,  # [b, q_dim]
+        roi_mask: torch.Tensor,  # [b, R] bool
+    ) -> torch.Tensor:  # joint embedding [b, hidden]
+        joint = self.v2attention(visual) * self.q2attention(question)[:, None, :]
+        logits = self.linear(joint)  # [b, R, 1]
+        logits = torch.where(
+            roi_mask[..., None], logits, torch.full_like(logits, -1e9)
+        )
+        weights = torch.softmax(logits, dim=1)
+        weighted_visual = torch.sum(weights * visual, dim=1)
+        return self.visual_embed(weighted_visual) * self.question_embed(question)

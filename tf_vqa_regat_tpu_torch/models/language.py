@@ -1,0 +1,59 @@
+"""Language stack: word embedding, GRU question encoder, question
+self-attention (counterpart of tf_vqa_regat_tpu/models/language.py).
+
+The GRU runs once; the sequence feeds the self-attention and the last state
+the fusion. The self-attention softmaxes over the SEQUENCE axis per example
+(the PyTorch original's semantics; the TF reference's batch-axis softmax is
+the JAX package's `ref_compat_q_att`, not ported).
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+from torch import nn
+
+from tf_vqa_regat_tpu_torch.ops.embedding import Embedding
+from tf_vqa_regat_tpu_torch.ops.gru import GRU
+from tf_vqa_regat_tpu_torch.ops.weight_norm import FCNet
+
+
+class WordEmbedding(nn.Module):
+    """`emb` [ntoken+1, 300]; with `op` containing 'c' a second table `emb_`
+    whose output is concatenated (600-d)."""
+
+    def __init__(self, ntoken: int, emb_dim: int, op: str, generator: torch.Generator):
+        super().__init__()
+        self.emb = Embedding(ntoken + 1, emb_dim, generator)
+        self.emb_ = Embedding(ntoken + 1, emb_dim, generator) if "c" in op else None
+
+    def forward(self, question: torch.Tensor, padding_idx: int) -> torch.Tensor:
+        emb = self.emb(question, padding_idx)
+        if self.emb_ is not None:
+            emb = torch.cat([emb, self.emb_(question, padding_idx)], dim=-1)
+        return emb
+
+
+class QuestionEmbedding(nn.Module):
+    def __init__(self, in_dim: int, num_hid: int, generator: torch.Generator):
+        super().__init__()
+        self.gru = GRU(in_dim, num_hid, generator)
+
+    def forward(self, w_emb: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(all hidden states [b, T, h], last state [b, h])."""
+        seq = self.gru(w_emb)
+        return seq, seq[:, -1]
+
+
+class QuestionSelfAttention(nn.Module):
+    def __init__(self, num_hid: int, generator: torch.Generator):
+        super().__init__()
+        self.linear1 = FCNet([num_hid, num_hid], generator, activation=None)
+        self.linear2 = FCNet([num_hid, 1], generator, activation=None)
+
+    def forward(self, q_seq: torch.Tensor) -> torch.Tensor:
+        """[b, T, h] -> pooled [b, h]."""
+        logits = self.linear2(torch.tanh(self.linear1(q_seq)))[..., 0]
+        weights = torch.softmax(logits, dim=-1)  # [b, T]
+        return torch.einsum("bt,bth->bh", weights, q_seq)

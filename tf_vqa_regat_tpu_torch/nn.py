@@ -1,0 +1,61 @@
+"""Initialisers and dropout (counterpart of tf_vqa_regat_tpu/nn.py).
+
+Initialisers follow Keras' defaults, as the JAX package's do, and draw from an
+explicit `torch.Generator` on the CPU, so one seed gives one model on every
+machine. The numbers differ from JAX's for the same seed (another PRNG):
+tests carry parameters across with `params.py` instead.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Sequence
+
+import torch
+
+
+def glorot_uniform(shape: Sequence[int], generator: torch.Generator) -> torch.Tensor:
+    """Keras' default Dense kernel init; fans from the first and last dims."""
+    limit = math.sqrt(6.0 / (shape[0] + shape[-1]))
+    u = torch.rand(tuple(shape), generator=generator, dtype=torch.float32)
+    return (2.0 * u - 1.0) * limit
+
+
+def orthogonal(shape: Sequence[int], generator: torch.Generator) -> torch.Tensor:
+    """Keras' default GRU recurrent kernel init: Q of a QR of a normal matrix,
+    signs fixed by R's diagonal."""
+    rows, cols = shape
+    a = torch.randn(max(rows, cols), min(rows, cols), generator=generator)
+    q, r = torch.linalg.qr(a)
+    q = q * torch.sign(torch.diagonal(r))
+    return (q.T if rows < cols else q).contiguous()
+
+
+def normal(
+    shape: Sequence[int], generator: torch.Generator, stddev: float = 0.05
+) -> torch.Tensor:
+    """Keras' 'random_normal' initializer (stddev 0.05)."""
+    return stddev * torch.randn(tuple(shape), generator=generator)
+
+
+def dropout(
+    x: torch.Tensor,
+    rate: float,
+    train: bool,
+    generator: Optional[torch.Generator] = None,
+) -> torch.Tensor:
+    """Inverted dropout with the JAX package's 8-bit scheme (nn.py:52-77):
+    the drop probability quantises to t/256 and the scale uses the quantised
+    value, so E[dropout(x)] == x exactly. Identity unless `train`."""
+    if not train or rate <= 0.0:
+        return x
+    if generator is None:
+        raise ValueError("dropout in train mode needs a torch.Generator")
+    if rate >= 1.0:
+        return torch.zeros_like(x)
+    t = min(255, max(1, int(round(rate * 256.0))))
+    bits = torch.randint(
+        0, 256, x.shape, generator=generator, dtype=torch.uint8,
+        device=generator.device,
+    ).to(x.device)
+    return torch.where(bits >= t, x * (256.0 / (256 - t)), torch.zeros_like(x))

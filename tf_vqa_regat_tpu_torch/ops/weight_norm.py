@@ -1,0 +1,63 @@
+"""Weight-normed dense layers and the FCNet MLP (counterpart of
+tf_vqa_regat_tpu/ops/weight_norm.py).
+
+The kernel is ``g * v / ||v||_F`` with a SCALAR g and the norm over the whole
+tensor (the reference's WeightNorm, not torch's per-column weight_norm), g
+initialised to the norm of the fresh kernel. Kernels are kept in the JAX
+layout [in, out], so parameters carry across leaf for leaf. FCNet puts the
+(train-only) dropout before each dense and the activation after it; this
+slice serves, so no dropout runs here.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import torch
+from torch import nn
+
+from tf_vqa_regat_tpu_torch.nn import glorot_uniform
+
+_ACTS = {"relu": torch.relu, None: lambda x: x}
+
+
+def wn_scale(v: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """g / ||v||_F, with the JAX package's +1e-12 under the root."""
+    return g * torch.rsqrt(torch.sum(v * v) + 1e-12)
+
+
+class WNLinear(nn.Module):
+    """Parameters `v` [in, out], scalar `g`, `b` [out]."""
+
+    def __init__(self, in_dim: int, out_dim: int, generator: torch.Generator):
+        super().__init__()
+        v = glorot_uniform((in_dim, out_dim), generator)
+        self.v = nn.Parameter(v)
+        self.g = nn.Parameter(torch.linalg.vector_norm(v))
+        self.b = nn.Parameter(torch.zeros(out_dim))
+
+    def kernel(self) -> torch.Tensor:
+        return self.v * wn_scale(self.v, self.g)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.matmul(x, self.kernel()) + self.b
+
+
+class FCNet(nn.Module):
+    """Weight-normed MLP over a dim list, e.g. [in, hidden, out] (reference
+    fc.py:11-50); the activation follows every layer."""
+
+    def __init__(
+        self, dims: Sequence[int], generator: torch.Generator,
+        activation: Optional[str] = "relu",
+    ):
+        super().__init__()
+        self.layers = nn.ModuleList(
+            WNLinear(dims[i], dims[i + 1], generator) for i in range(len(dims) - 1)
+        )
+        self.act = _ACTS[activation]
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for layer in self.layers:
+            x = self.act(layer(x))
+        return x
