@@ -86,5 +86,7 @@ def test_unported_families_and_training_raise():
         ReGAT(PORT_CFG.replace(fusion="ban"), NTOKEN, V_DIM, NUM_ANS)
     model = ReGAT(PORT_CFG, NTOKEN, V_DIM, NUM_ANS)
     batch = {k: torch.from_numpy(v) for k, v in _batch(0).items()}
-    with pytest.raises(NotImplementedError, match="training"):
+    # a train forward with dropout on draws its masks from the step's
+    # generator, and raises without one
+    with pytest.raises(ValueError, match="needs a torch.Generator"):
         model.train()(batch)

@@ -178,8 +178,10 @@ def test_device_flag_and_unported_modes():
     assert split_device_flag(["--mode", "serve", "--device", "cpu"]) == ("cpu", ["--mode", "serve"])
     assert split_device_flag(["--device=cuda:1"]) == ("cuda:1", [])
     assert split_device_flag([])[0] == "cuda"
-    with pytest.raises(NotImplementedError, match="training"):
-        build_server(["--mode", "train", "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="persistence and the other modes"):
+        build_server(["--mode", "predict", "--device", "cpu"])
+    with pytest.raises(ValueError, match="builds --mode serve"):
+        build_server(["--mode", "train", "--fusion", "butd", "--device", "cpu"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             build_server(FLAGS + ["--checkpoint", "x.npz", "--device", "cuda"])
@@ -192,6 +194,7 @@ def test_port_imports_no_jax_and_no_h5py():
         "import sys\n"
         "import tf_vqa_regat_tpu_torch.main, tf_vqa_regat_tpu_torch.serve\n"
         "import tf_vqa_regat_tpu_torch.ops.kernels.implicit_attention\n"
+        "import tf_vqa_regat_tpu_torch.train.loop\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "          ('jax', 'jaxlib', 'orbax', 'h5py', 'tf_vqa_regat_tpu'))\n"
         "print(bad)\n"

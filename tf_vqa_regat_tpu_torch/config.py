@@ -55,7 +55,7 @@ class Config:
     label_bias: bool = False
     dropout: float = 0.2
     print_freq: int = 500
-    mode: str = "train"  # serve (ported) | train | eval | ensemble_eval | export_h5 | predict
+    mode: str = "train"  # train | eval | serve (ported) | ensemble_eval | export_h5 | predict
     lr_decay_based_on_val: bool = False  # in the reference's JSON, unused by its model
 
     # --- keys of the JSON configs beyond the reference (BAN / MuTAN) ---
@@ -66,12 +66,15 @@ class Config:
     # --- extensions the port implements ---
     # Static roi padding; 0 = 36 for the fixed layout, 100 adaptive.
     num_rois: int = 0
+    # Eval batch size; 0 = the reference's batch_size // 4.
+    eval_batch: int = 0
     # --mode serve: port, fixed batch sizes, straggler wait.
     serve_port: int = 8000
     serve_batch_sizes: str = "1,8,32"
     serve_max_delay_ms: float = 5.0
     # Generated in-memory data with the real shapes instead of the dataset.
     synthetic: bool = False
+    synthetic_train_size: int = 4096
     synthetic_val_size: int = 1024
 
     def __post_init__(self) -> None:
@@ -85,6 +88,9 @@ class Config:
             raise ValueError(
                 f"--serve_max_delay_ms must be >= 0, got {self.serve_max_delay_ms}"
             )
+
+    def resolved_eval_batch(self) -> int:
+        return self.eval_batch if self.eval_batch > 0 else max(self.batch_size // 4, 1)
 
     def resolved_num_rois(self) -> int:
         if self.num_rois > 0:

@@ -1,11 +1,14 @@
-// Fused implicit graph attention, one direction, forward (eval) only.
+// Fused implicit graph attention, one direction, forward: an eval variant and
+// a train variant that also stores the post-relu pos weights.
 //
 // Replaces the Pallas TPU kernel
-// tf_vqa_regat_tpu/ops/pallas/implicit_attention.py::_kernel_v3 (save_pwr=False)
-// and computes the same function for every query row:
+// tf_vqa_regat_tpu/ops/pallas/implicit_attention.py::_kernel_v3, both
+// save_pwr=False (eval) and save_pwr=True (train), and computes the same
+// function for every query row:
 //
 //   pe[m, p]   = sin|cos(pos[m, g(p)] * freq[p])            (optional keep-mask)
-//   bias[h, m] = log(max(relu(sum_p pe[m, p] W[p, h] + b[h]), 1e-6)) + mask[m]
+//   pwr[h, m]  = relu(sum_p pe[m, p] W[p, h] + b[h])        (stored if train)
+//   bias[h, m] = log(max(pwr[h, m], 1e-6)) + mask[m]
 //   aff[h, m]  = q[h] . k[m, h] * scale + bias[h, m]
 //   w[h, m]    = exp(aff - max over ALL h, m) / (sum_m exp(...) + 1e-30)
 //   out[h, :]  = sum_m w[h, m] vw[m, h, :]
@@ -15,18 +18,23 @@
 // against that max gets all-zero weights, and a fully masked row (every key
 // at -9e15) gets uniform weights.
 //
-// What bounds it on an H100: at the serve shapes (R=100, H=16, dh=o=64,
-// n=20, P=64) a query row needs ~62k FMAs and 1,280 sin/cos, and each
-// example's K and VW (2 x 80 KB) are read by all R of its rows. So the kernel
-// is bound by L1/L2 traffic on K and VW and by latency at small batch, far
-// below both the FP32 and the HBM roofline. What the design does about it:
-// the TPU kernel's block-diagonal K/VW scratch, block-scattered pos-FC kernel
-// and segment-sum matmuls (MXU padding that costs H x the FLOPs) are gone;
-// each (row, head, key) is computed directly, one block per query row, with
-// the row's q, sinusoid embedding, transposed pos-FC weights and affinities in
-// shared memory, so the [b, R, n, P] embedding and the [b, R, H, n] bias never
-// reach device memory. K and VW are read through L1/L2; staging them once per
-// tile of rows in shared memory is later work.
+// What bounds it on an H100: at the serve and train shapes (R=100, H=16,
+// dh=o=64, n=20, P=64) a query row needs ~62k FMAs and 1,280 sin/cos, and
+// each example's K and VW (2 x 80 KB) are read by all R of its rows. So the
+// kernel is bound by L1/L2 traffic on K and VW and by latency at small batch,
+// far below both the FP32 and the HBM roofline. What the design does about
+// it: the TPU kernel's block-diagonal K/VW scratch, block-scattered pos-FC
+// kernel and segment-sum matmuls (MXU padding that costs H x the FLOPs) are
+// gone; each (row, head, key) is computed directly, one block per query row,
+// with the row's q, sinusoid embedding, transposed pos-FC weights and
+// affinities in shared memory, so the [b, R, n, P] embedding and the
+// [b, R, H, n] bias never reach device memory. K and VW are read through
+// L1/L2; staging them once per tile of rows in shared memory is later work.
+//
+// The train variant (a non-null `pwr`) differs in one 4-byte store per
+// (row, head, key) from the lane that already holds the value: H x n floats
+// per row, 33 MB per direction at b=256, written once and read by the
+// backward. Nothing else changes; the eval launches pass null.
 //
 // Accuracy: the sinusoid arguments reach ~700 rad, so this file uses sinf /
 // cosf / logf / expf and must not be built with --use_fast_math.
@@ -62,6 +70,7 @@ __global__ void __launch_bounds__(kThreads) implicit_attention_kernel(
     const uint8_t* __restrict__ keep,  // [b, R, n, P] keep-mask, or null
     float inv_keep, float scale,
     float* __restrict__ out,           // [b, R, H, o]
+    float* __restrict__ pwr,           // [b, R, H, n] post-relu pos weights, or null
     int R, int n, int H, int dh, int o, int P) {
   extern __shared__ float smem[];
   float* s_q = smem;               // [H * dh]
@@ -115,8 +124,9 @@ __global__ void __launch_bounds__(kThreads) implicit_attention_kernel(
     dot = warp_sum(dot);
     pw = warp_sum(pw);
     if (lane == 0) {
-      const float pwr = fmaxf(pw + b_pos[h], 0.f);
-      const float bias = logf(fmaxf(pwr, 1e-6f)) + mrow_ex[m];
+      const float relu_pw = fmaxf(pw + b_pos[h], 0.f);
+      if (pwr) pwr[row * H * n + pair] = relu_pw;
+      const float bias = logf(fmaxf(relu_pw, 1e-6f)) + mrow_ex[m];
       s_aff[pair] = dot * scale + bias;
     }
   }
@@ -174,11 +184,12 @@ size_t regat_implicit_attention_smem_bytes(int n, int H, int dh, int P) {
 }
 
 // Launches the kernel on `stream` and returns cudaGetLastError() (0 = launched).
+// `pwr` null: the eval variant; non-null: the train variant.
 int regat_implicit_attention_fwd(
     const float* q, const float* k, const float* vw, const float* pm,
     const float* w_pos, const float* b_pos, const float* mrow,
     const float* freq, const uint8_t* keep, float inv_keep, float scale,
-    float* out, int b, int R, int n, int H, int dh, int o, int P,
+    float* out, float* pwr, int b, int R, int n, int H, int dh, int o, int P,
     void* stream) {
   const size_t smem = regat_implicit_attention_smem_bytes(n, H, dh, P);
   if (smem > 48 * 1024) {
@@ -189,7 +200,7 @@ int regat_implicit_attention_fwd(
   }
   const dim3 grid(R, b);
   implicit_attention_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      q, k, vw, pm, w_pos, b_pos, mrow, freq, keep, inv_keep, scale, out, R, n,
+      q, k, vw, pm, w_pos, b_pos, mrow, freq, keep, inv_keep, scale, out, pwr, R, n,
       H, dh, o, P);
   return (int)cudaGetLastError();
 }

@@ -1,22 +1,32 @@
-"""Device-resident image tables and the on-device gather (counterpart of
+"""Device-resident tables and the on-device gather (counterpart of
 tf_vqa_regat_tpu/data/device_store.py: `build_image_arrays` for the adaptive
-layout and `gather_image_features`).
+layout, `build_entry_arrays`, `DeviceStore.epoch_indices`, `gather_batch`
+and `gather_image_features`).
 
-The split's feature and box tables are uploaded once, at f32; a request then
-ships only token ids and an image index, and its rows are gathered on the
-device, clipped to the table and zeroed past the example's box count.
+The split's feature and box tables are uploaded once, at f32; a request or a
+train step then ships only indices, and its rows are gathered on the device,
+clipped to the table and zeroed past the example's box count. The entry
+tables (image index, question tokens, soft targets packed to MAX_LABELS)
+live there too, so a batch is assembled from a [B] index vector.
 bf16 and int8 tables are ROADMAP Queue A item 3; the normalised-box table
 comes with the spatial relations, which read it (item 4).
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, Iterator, Tuple
 
 import numpy as np
 import torch
 
-from tf_vqa_regat_tpu_torch.data.synthetic import SyntheticDataset
+from tf_vqa_regat_tpu_torch.data.ordering import epoch_perm_rng
+from tf_vqa_regat_tpu_torch.data.synthetic import EntryTable, SyntheticDataset
+
+MAX_LABELS = 16  # VQA soft targets have <= 10 answers
+
+
+def _put(a: np.ndarray, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device=device, dtype=dtype)
 
 
 class ImageStore:
@@ -24,13 +34,108 @@ class ImageStore:
     `img_len` [num_images] int64, all on `device`."""
 
     def __init__(self, ds: SyntheticDataset, device: torch.device):
-        def put(a, dtype):
-            return torch.from_numpy(np.ascontiguousarray(a)).to(device=device, dtype=dtype)
+        self.features = _put(ds.features, torch.float32, device)
+        self.bb = _put(ds.bb, torch.float32, device)
+        self.img_start = _put(ds.pos_boxes[:, 0], torch.int64, device)
+        self.img_len = _put(ds.pos_boxes[:, 1] - ds.pos_boxes[:, 0], torch.int64, device)
 
-        self.features = put(ds.features, torch.float32)
-        self.bb = put(ds.bb, torch.float32)
-        self.img_start = put(ds.pos_boxes[:, 0], torch.int64)
-        self.img_len = put(ds.pos_boxes[:, 1] - ds.pos_boxes[:, 0], torch.int64)
+
+def pack_soft_targets(ent: EntryTable, num_ans: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Ragged soft targets -> [N, MAX_LABELS] labels (int32, -1 = empty) and
+    scores (f32). Raises, as the JAX packer does, on an entry with more than
+    MAX_LABELS answers (truncating would drop score mass) or with a repeated
+    answer label (the add-scatter would count it twice)."""
+    N = len(ent.question_ids)
+    labels = np.full((N, MAX_LABELS), -1, np.int32)
+    scores = np.zeros((N, MAX_LABELS), np.float32)
+    if N == 0 or len(ent.labels) == 0:
+        return labels, scores
+    counts = np.diff(ent.label_offsets).astype(np.int64)
+    if int(counts.max()) > MAX_LABELS:
+        raise ValueError(
+            f"an entry has {int(counts.max())} answer labels > MAX_LABELS="
+            f"{MAX_LABELS}; truncating would drop soft-target score mass"
+        )
+    rows = np.repeat(np.arange(N, dtype=np.int64), counts)
+    key = rows * np.int64(num_ans) + ent.labels
+    if len(np.unique(key)) != len(key):
+        raise ValueError(
+            "duplicate answer labels within an entry: the add-scatter would "
+            "count their scores twice"
+        )
+    cols = np.arange(len(ent.labels), dtype=np.int64) - np.repeat(
+        ent.label_offsets[:-1].astype(np.int64), counts
+    )
+    labels[rows, cols] = ent.labels
+    scores[rows, cols] = ent.scores
+    return labels, scores
+
+
+class DeviceStore:
+    """One split on `device`: its image tables (`images`) and its entry
+    tables `entry_img` [N], `questions` [N, 14], `labels` and `scores`
+    [N, MAX_LABELS]."""
+
+    def __init__(self, ds: SyntheticDataset, device: torch.device):
+        ent = ds.entries
+        labels, scores = pack_soft_targets(ent, ds.num_ans)
+        self.images = ImageStore(ds, device)
+        self.entry_img = _put(ent.image_index, torch.int64, device)
+        self.questions = _put(ent.q_tokens, torch.int64, device)
+        self.labels = _put(labels, torch.int64, device)
+        self.scores = _put(scores, torch.float32, device)
+        self.num_entries = len(ent.question_ids)
+        self.num_ans = ds.num_ans
+        self.padding_idx = ds.padding_idx
+
+    def steps_per_epoch(self, batch_size: int) -> int:
+        return -(-self.num_entries // batch_size)
+
+    def epoch_indices(
+        self, epoch: int, batch_size: int, shuffle: bool, seed: int
+    ) -> Iterator[np.ndarray]:
+        """Index batches [batch_size] int32 on the host, the last padded with
+        -1 (invalid): the epoch's seeded permutation, or entry order."""
+        n = self.num_entries
+        order = epoch_perm_rng(seed, epoch).permutation(n) if shuffle else np.arange(n)
+        for start in range(0, n, batch_size):
+            idx = order[start : start + batch_size].astype(np.int32)
+            if len(idx) < batch_size:
+                idx = np.concatenate([idx, np.full(batch_size - len(idx), -1, np.int32)])
+            yield idx
+
+
+def gather_batch(
+    store: DeviceStore, idx: torch.Tensor, num_rois: int
+) -> Dict[str, torch.Tensor]:
+    """The batch for index vector `idx` [B] (on the store's device, -1 =
+    padded slot): features, bb, question, the dense soft targets
+    [B, num_ans], num_boxes and valid. A padded slot has no boxes, a
+    question of padding tokens and a zero target."""
+    B = idx.shape[0]
+    valid = idx >= 0
+    safe = torch.where(valid, idx, torch.zeros_like(idx)).long()
+    img = store.entry_img[safe]
+    n_box = torch.where(
+        valid,
+        torch.clamp(store.images.img_len[img], max=num_rois),
+        torch.zeros_like(img),
+    )
+    features, bb = gather_image_features(store.images, img, n_box, num_rois)
+    q = store.questions[safe]
+    question = torch.where(valid[:, None], q, torch.full_like(q, store.padding_idx))
+    labels, scores = store.labels[safe], store.scores[safe]
+    lab_ok = (labels >= 0) & valid[:, None]
+    target = torch.zeros((B, store.num_ans), dtype=torch.float32, device=idx.device)
+    target.scatter_add_(
+        1,
+        torch.where(lab_ok, labels, torch.zeros_like(labels)),
+        torch.where(lab_ok, scores, torch.zeros_like(scores)),
+    )
+    return {
+        "features": features, "bb": bb, "question": question, "target": target,
+        "num_boxes": n_box, "valid": valid,
+    }
 
 
 def gather_image_features(

@@ -4,17 +4,27 @@ f32 logits."""
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 from torch import nn
 
+from tf_vqa_regat_tpu_torch.nn import dropout
 from tf_vqa_regat_tpu_torch.ops.weight_norm import WNLinear
 
 
 class Classifier(nn.Module):
-    def __init__(self, in_dim: int, hid_dim: int, out_dim: int, generator: torch.Generator):
+    def __init__(
+        self, in_dim: int, hid_dim: int, out_dim: int, generator: torch.Generator,
+        drop_rate: float = 0.0,
+    ):
         super().__init__()
         self.fc1 = WNLinear(in_dim, hid_dim, generator)
         self.fc2 = WNLinear(hid_dim, out_dim, generator)
+        self.drop_rate = drop_rate
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc2(torch.relu(self.fc1(x)))
+    def forward(
+        self, x: torch.Tensor, generator: Optional[torch.Generator] = None
+    ) -> torch.Tensor:
+        x = dropout(torch.relu(self.fc1(x)), self.drop_rate, self.training, generator)
+        return self.fc2(x)

@@ -2,21 +2,29 @@
 tf_vqa_regat_tpu/models/fusion.py).
 
 Every FullyConnected inside BUTD is a plain weight-normed linear with no
-activation (a reference quirk the JAX package keeps on purpose). The softmax
-over rois masks padded rois at -1e9 and runs in f32.
+activation and no dropout (a reference quirk the JAX package keeps on
+purpose); the one dropout, in training, is on the attention product. The
+softmax over rois masks padded rois at -1e9 and runs in f32.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 from torch import nn
 
+from tf_vqa_regat_tpu_torch.nn import dropout
 from tf_vqa_regat_tpu_torch.ops.weight_norm import FCNet
 
 
 class BUTD(nn.Module):
-    def __init__(self, v_dim: int, q_dim: int, hidden_dim: int, generator: torch.Generator):
+    def __init__(
+        self, v_dim: int, q_dim: int, hidden_dim: int, generator: torch.Generator,
+        drop_rate: float = 0.0,
+    ):
         super().__init__()
+        self.drop_rate = drop_rate
 
         def lin(i, o):
             return FCNet([i, o], generator, activation=None)
@@ -32,8 +40,10 @@ class BUTD(nn.Module):
         visual: torch.Tensor,  # [b, R, v_dim]
         question: torch.Tensor,  # [b, q_dim]
         roi_mask: torch.Tensor,  # [b, R] bool
+        generator: Optional[torch.Generator] = None,
     ) -> torch.Tensor:  # joint embedding [b, hidden]
         joint = self.v2attention(visual) * self.q2attention(question)[:, None, :]
+        joint = dropout(joint, self.drop_rate, self.training, generator)
         logits = self.linear(joint)  # [b, R, 1]
         logits = torch.where(
             roi_mask[..., None], logits, torch.full_like(logits, -1e9)

@@ -2,18 +2,21 @@
 self-attention (counterpart of tf_vqa_regat_tpu/models/language.py).
 
 The GRU runs once; the sequence feeds the self-attention and the last state
-the fusion. The self-attention softmaxes over the SEQUENCE axis per example
+the fusion. In training, dropout at the `drop_rate` given (the config's
+`dropout`) follows the word embedding, precedes q_att's first FCNet and
+follows the pooled vector (language.py:89, :125, :146). The self-attention softmaxes over the SEQUENCE axis per example
 (the PyTorch original's semantics; the TF reference's batch-axis softmax is
 the JAX package's `ref_compat_q_att`, not ported).
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
 
+from tf_vqa_regat_tpu_torch.nn import dropout
 from tf_vqa_regat_tpu_torch.ops.embedding import Embedding
 from tf_vqa_regat_tpu_torch.ops.gru import GRU
 from tf_vqa_regat_tpu_torch.ops.weight_norm import FCNet
@@ -23,16 +26,23 @@ class WordEmbedding(nn.Module):
     """`emb` [ntoken+1, 300]; with `op` containing 'c' a second table `emb_`
     whose output is concatenated (600-d)."""
 
-    def __init__(self, ntoken: int, emb_dim: int, op: str, generator: torch.Generator):
+    def __init__(
+        self, ntoken: int, emb_dim: int, op: str, generator: torch.Generator,
+        drop_rate: float = 0.0,
+    ):
         super().__init__()
         self.emb = Embedding(ntoken + 1, emb_dim, generator)
         self.emb_ = Embedding(ntoken + 1, emb_dim, generator) if "c" in op else None
+        self.drop_rate = drop_rate
 
-    def forward(self, question: torch.Tensor, padding_idx: int) -> torch.Tensor:
+    def forward(
+        self, question: torch.Tensor, padding_idx: int,
+        generator: Optional[torch.Generator] = None,
+    ) -> torch.Tensor:
         emb = self.emb(question, padding_idx)
         if self.emb_ is not None:
             emb = torch.cat([emb, self.emb_(question, padding_idx)], dim=-1)
-        return emb
+        return dropout(emb, self.drop_rate, self.training, generator)
 
 
 class QuestionEmbedding(nn.Module):
@@ -47,13 +57,19 @@ class QuestionEmbedding(nn.Module):
 
 
 class QuestionSelfAttention(nn.Module):
-    def __init__(self, num_hid: int, generator: torch.Generator):
+    def __init__(self, num_hid: int, generator: torch.Generator, drop_rate: float = 0.0):
         super().__init__()
-        self.linear1 = FCNet([num_hid, num_hid], generator, activation=None)
+        self.linear1 = FCNet(
+            [num_hid, num_hid], generator, activation=None, drop_rate=drop_rate
+        )
         self.linear2 = FCNet([num_hid, 1], generator, activation=None)
+        self.drop_rate = drop_rate
 
-    def forward(self, q_seq: torch.Tensor) -> torch.Tensor:
+    def forward(
+        self, q_seq: torch.Tensor, generator: Optional[torch.Generator] = None
+    ) -> torch.Tensor:
         """[b, T, h] -> pooled [b, h]."""
-        logits = self.linear2(torch.tanh(self.linear1(q_seq)))[..., 0]
+        logits = self.linear2(torch.tanh(self.linear1(q_seq, generator)))[..., 0]
         weights = torch.softmax(logits, dim=-1)  # [b, T]
-        return torch.einsum("bt,bth->bh", weights, q_seq)
+        pooled = torch.einsum("bt,bth->bh", weights, q_seq)
+        return dropout(pooled, self.drop_rate, self.training, generator)

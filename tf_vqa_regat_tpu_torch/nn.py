@@ -1,9 +1,14 @@
-"""Initialisers and dropout (counterpart of tf_vqa_regat_tpu/nn.py).
+"""Initialisers, dropout and the per-step generator (counterpart of
+tf_vqa_regat_tpu/nn.py).
 
 Initialisers follow Keras' defaults, as the JAX package's do, and draw from an
 explicit `torch.Generator` on the CPU, so one seed gives one model on every
-machine. The numbers differ from JAX's for the same seed (another PRNG):
-tests carry parameters across with `params.py` instead.
+machine. Dropout draws its bits on the tensor's device from the step's
+generator (`step_generator`, the counterpart of `RngGen` over
+`fold_in(base_rng, step)`), so a step's masks depend only on the seed, the
+step and the order of the draws. The numbers differ from JAX's for the same
+seed (another PRNG): tests carry parameters across with `params.py`, and
+check masks by placement and keep rate.
 """
 
 from __future__ import annotations
@@ -38,6 +43,34 @@ def normal(
     return stddev * torch.randn(tuple(shape), generator=generator)
 
 
+def step_generator(base_seed: int, step: int, device) -> torch.Generator:
+    """A generator on `device` seeded from (base_seed, step): one per train
+    step, as the JAX step folds the step into its base key."""
+    g = torch.Generator(device=device)
+    g.manual_seed(((base_seed & 0xFFFFFFFF) << 32) | (step & 0xFFFFFFFF))
+    return g
+
+
+def drop_threshold(rate: float) -> int:
+    """The JAX package's quantised drop probability t/256, t in [1, 255]."""
+    return min(255, max(1, int(round(rate * 256.0))))
+
+
+def keep_mask(
+    shape: Sequence[int], rate: float, generator: Optional[torch.Generator],
+    device: torch.device,
+) -> torch.Tensor:
+    """Bool keep-mask: one uint8 draw per element on `device`, kept where it
+    is >= t (nn.py:74-77). Raises without a generator, or when the generator
+    lives on another device."""
+    if generator is None:
+        raise ValueError("dropout in train mode needs a torch.Generator")
+    bits = torch.randint(
+        0, 256, tuple(shape), generator=generator, dtype=torch.uint8, device=device
+    )
+    return bits >= drop_threshold(rate)
+
+
 def dropout(
     x: torch.Tensor,
     rate: float,
@@ -53,9 +86,6 @@ def dropout(
         raise ValueError("dropout in train mode needs a torch.Generator")
     if rate >= 1.0:
         return torch.zeros_like(x)
-    t = min(255, max(1, int(round(rate * 256.0))))
-    bits = torch.randint(
-        0, 256, x.shape, generator=generator, dtype=torch.uint8,
-        device=generator.device,
-    ).to(x.device)
-    return torch.where(bits >= t, x * (256.0 / (256 - t)), torch.zeros_like(x))
+    keep = keep_mask(x.shape, rate, generator, x.device)
+    scale = 256.0 / (256 - drop_threshold(rate))
+    return torch.where(keep, x * scale, torch.zeros_like(x))

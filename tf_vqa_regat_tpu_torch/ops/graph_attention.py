@@ -8,14 +8,21 @@ weight-normed kernel (softmax @ (V @ W) == (softmax @ V) @ W, so the
 (ops/kernels/implicit_attention.py) builds the geometry bias from the
 position matrix and attends; the shared output bias is added last. On a CUDA
 tensor that is one kernel launch per direction.
+
+In training, dropout at `drop_rate` precedes the Q and K projections
+(FCNet), and the sinusoid embedding's uint8 keep-mask [b, R, n, P] is drawn
+here with the step's generator and handed to the kernel, as the JAX fused
+branch draws it (graph_attention.py:155-170).
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 from torch import nn
 
-from tf_vqa_regat_tpu_torch.nn import glorot_uniform
+from tf_vqa_regat_tpu_torch.nn import glorot_uniform, keep_mask
 from tf_vqa_regat_tpu_torch.ops.kernels.implicit_attention import (
     fused_implicit_graph_attention,
 )
@@ -45,12 +52,17 @@ class GraphSelfAttention(nn.Module):
 
     def __init__(
         self, hidden_dim: int, num_heads: int, pos_emb_dim: int,
-        generator: torch.Generator,
+        generator: torch.Generator, drop_rate: float = 0.0,
     ):
         super().__init__()
         self.num_heads = num_heads
-        self.query = FCNet([hidden_dim, hidden_dim], generator, activation=None)
-        self.key = FCNet([hidden_dim, hidden_dim], generator, activation=None)
+        self.drop_rate = drop_rate
+        self.query = FCNet(
+            [hidden_dim, hidden_dim], generator, activation=None, drop_rate=drop_rate
+        )
+        self.key = FCNet(
+            [hidden_dim, hidden_dim], generator, activation=None, drop_rate=drop_rate
+        )
         self.out = GroupedProjection(hidden_dim, num_heads, generator)
         self.pair_pos_fc = FCNet([pos_emb_dim, num_heads], generator, activation=None)
 
@@ -59,16 +71,22 @@ class GraphSelfAttention(nn.Module):
         roi: torch.Tensor,  # [b, R, D]
         pos_mat: torch.Tensor,  # [b, R, n, 4]
         key_mask: torch.Tensor,  # [b, n] bool
+        generator: Optional[torch.Generator] = None,
     ) -> torch.Tensor:  # [b, R, D]
         b, R, D = roi.shape
         n = pos_mat.shape[2]
         H = self.num_heads
         trunc = roi[:, :n]
-        q = self.query(roi).view(b, R, H, D // H)
-        k = self.key(trunc).view(b, n, H, D // H)
+        q = self.query(roi, generator).view(b, R, H, D // H)
+        k = self.key(trunc, generator).view(b, n, H, D // H)
         vw = torch.einsum("bnd,hdo->bnho", trunc, self.out.kernel()).contiguous()
         layer = self.pair_pos_fc.layers[0]
+        drop_rate, dropmask = 0.0, None
+        if self.training and self.drop_rate > 0.0:
+            drop_rate = self.drop_rate
+            shape = (b, R, n, layer.v.shape[0])
+            dropmask = keep_mask(shape, drop_rate, generator, roi.device).view(torch.uint8)
         out = fused_implicit_graph_attention(
-            q, k, vw, pos_mat, layer.kernel(), layer.b, key_mask
+            q, k, vw, pos_mat, layer.kernel(), layer.b, key_mask, drop_rate, dropmask
         )
         return out.reshape(b, R, D) + self.out.b

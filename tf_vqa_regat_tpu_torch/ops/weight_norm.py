@@ -5,8 +5,7 @@ The kernel is ``g * v / ||v||_F`` with a SCALAR g and the norm over the whole
 tensor (the reference's WeightNorm, not torch's per-column weight_norm), g
 initialised to the norm of the fresh kernel. Kernels are kept in the JAX
 layout [in, out], so parameters carry across leaf for leaf. FCNet puts the
-(train-only) dropout before each dense and the activation after it; this
-slice serves, so no dropout runs here.
+(train-only) dropout before each dense and the activation after it.
 """
 
 from __future__ import annotations
@@ -16,7 +15,7 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
-from tf_vqa_regat_tpu_torch.nn import glorot_uniform
+from tf_vqa_regat_tpu_torch.nn import dropout, glorot_uniform
 
 _ACTS = {"relu": torch.relu, None: lambda x: x}
 
@@ -45,19 +44,24 @@ class WNLinear(nn.Module):
 
 class FCNet(nn.Module):
     """Weight-normed MLP over a dim list, e.g. [in, hidden, out] (reference
-    fc.py:11-50); the activation follows every layer."""
+    fc.py:11-50): dropout at `drop_rate` before every layer in training, the
+    activation after it."""
 
     def __init__(
         self, dims: Sequence[int], generator: torch.Generator,
-        activation: Optional[str] = "relu",
+        activation: Optional[str] = "relu", drop_rate: float = 0.0,
     ):
         super().__init__()
         self.layers = nn.ModuleList(
             WNLinear(dims[i], dims[i + 1], generator) for i in range(len(dims) - 1)
         )
         self.act = _ACTS[activation]
+        self.drop_rate = drop_rate
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(
+        self, x: torch.Tensor, generator: Optional[torch.Generator] = None
+    ) -> torch.Tensor:
         for layer in self.layers:
+            x = dropout(x, self.drop_rate, self.training, generator)
             x = self.act(layer(x))
         return x

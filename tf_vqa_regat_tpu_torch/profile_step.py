@@ -1,0 +1,95 @@
+"""Where a train step's time goes on the card: the full-width model of
+configs/butd_vqa.json at its batch size (256), one batch of the synthetic
+train split, traced with torch.profiler.
+
+    python -m tf_vqa_regat_tpu_torch.profile_step [--steps 5] [--trace out.json]
+
+Prints, for the traced steps: the step time on the host clock with and
+without the profiler, the device's busy time (sum of kernel times) and idle
+share, kernels launched per step, the shares of B1 (both variants) and of
+the GEMMs, and the kernels that took the most time. Needs a CUDA device;
+TF32 is off, as in chip_smoke.py.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import re
+import subprocess
+import time
+
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+from tf_vqa_regat_tpu_torch.config import parse_with_config
+from tf_vqa_regat_tpu_torch.data.store import DeviceStore, gather_batch
+from tf_vqa_regat_tpu_torch.main import build_dataset
+from tf_vqa_regat_tpu_torch.models.regat import ReGAT, trainable_mask
+from tf_vqa_regat_tpu_torch.train.optim import Adamax, make_lr_schedule
+from tf_vqa_regat_tpu_torch.train.step import train_step
+
+CONFIG = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                      "configs", "butd_vqa.json")
+GEMM = re.compile(r"gemm|xmma|cutlass|gemv", re.IGNORECASE)
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--steps", type=int, default=5)
+    ap.add_argument("--trace", default="", help="write a Chrome trace here")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_step needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device("cuda", 0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+
+    cfg = parse_with_config(["--config", CONFIG, "--synthetic", "--mode", "train"])
+    ds = build_dataset(cfg, "train")
+    store = DeviceStore(ds, device)
+    idx = next(store.epoch_indices(0, cfg.batch_size, True, cfg.seed))
+    batch = gather_batch(store, torch.from_numpy(idx).to(device), cfg.resolved_num_rois())
+    model = ReGAT(cfg, ds.ntoken, ds.v_dim, ds.num_ans).to(device)
+    opt = Adamax(model, trainable_mask(model, False), make_lr_schedule(
+        cfg.base_lr, 16, cfg.lr_decay_rate, cfg.lr_decay_step), cfg.grad_clip)
+
+    def steps(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            train_step(model, opt, batch, opt.count, cfg.seed)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / n
+
+    steps(3)  # warm-up: builds the kernel, fills the allocator's cache
+    plain_ms = steps(args.steps)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        traced_ms = steps(args.steps)
+    if args.trace:
+        prof.export_chrome_trace(args.trace)
+
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy = {e.key: (e.self_device_time_total / 1e3 / args.steps, e.count / args.steps)
+            for e in kernels}
+    total = sum(ms for ms, _ in busy.values())
+    b1 = sum(ms for k, (ms, _) in busy.items() if "implicit_attention" in k)
+    gemm = sum(ms for k, (ms, _) in busy.items() if GEMM.search(k))
+    print(f"train step b={cfg.batch_size} at the butd_vqa.json widths, f32, TF32 off, on {smi}")
+    print(f"host ms/step: {plain_ms:.3f} (no profiler), {traced_ms:.3f} (profiled)")
+    print(f"device busy ms/step: {total:.3f}; idle share of the profiled step: "
+          f"{1 - total / traced_ms:.3f}, of the unprofiled step: {max(0.0, 1 - total / plain_ms):.3f}")
+    print(f"kernels per step: {sum(c for _, c in busy.values()):.0f}; B1 share of busy "
+          f"{b1 / total:.3f} ({b1:.3f} ms); GEMM share {gemm / total:.3f} ({gemm:.3f} ms)")
+    print("top kernels (ms/step, launches/step, name):")
+    for k, (ms, c) in sorted(busy.items(), key=lambda kv: -kv[1][0])[:15]:
+        print(f"  {ms:9.3f} {c:6.0f}  {k[:110]}")
+
+
+if __name__ == "__main__":
+    main()
