@@ -5,7 +5,8 @@
 
 Phases, each of which fails the run (non-zero exit, no result line):
   1. the card: name and power limit (nvidia-smi), torch and CUDA versions;
-  2. build every CUDA kernel of the serve and train paths from csrc/ (timed);
+  2. build every CUDA kernel of the port from csrc/, one nvcc per source,
+     all started together (timed);
   3. B1's eval variant against its plain PyTorch version on the card, at the
      serve shapes (b = 1, 8, 32; R=100, H=16, dh=o=64, n=20, P=64), with key
      masks from random box counts in 10-100, one fully masked example and
@@ -18,30 +19,48 @@ Phases, each of which fails the run (non-zero exit, no result line):
      the `ImplicitAttention` Function (kernel forward, transcribed backward)
      against torch autograd of the plain version; forward and
      forward+backward times, timed as in 3;
-  5. one train step at the full widths of configs/butd_vqa.json and b=256:
-     loss and per-leaf gradients of the kernel path against the plain path
-     (same parameters, batch and dropout masks), 2 train-variant launches
-     per forward; then the step's split into forward, backward and
-     optimizer (CUDA events, median of 10 steps);
-  6. the entry point: `--mode train --synthetic --epochs 1` at the config's
-     widths and batch size 256 (16 steps of the 4,096-question synthetic
-     split, then an eval pass): finite, falling loss, median step time;
-     train- and eval-variant launches over the run, 2 per forward pass;
-  7. `--mode eval` on the written .npz: its loss equals the training run's
-     last `eval_loss` (metrics.jsonl) to rel 1e-6;
-  8. `--mode serve` of that .npz, built by `main.build_server` as the entry
+  5. B2 (both softmax modes: v2's global max, v1's per head) against its
+     plain version at b = 1, 8, 32, 256 (R=100, H=16, dh=o=64, n=20), with
+     adjacency from the spatial labels of random boxes, an empty adjacency
+     row, a fully padded example, a row whose other heads underflow, and the
+     bias shared across heads [b, R, 1, n] as well as per head [b, R, H, n];
+     times of the kernel, the plain version and, as the library yardstick,
+     torch's scaled_dot_product_attention with a float mask on tensors
+     already laid out for it;
+  6. B2's gradients: dq, dk, dvw and dbias through the `GraphAttention`
+     Function against torch autograd of the plain version at b = 32, 256;
+  7. one train step at the full widths and b=256 of each of
+     configs/butd_vqa.json, spatial_vqa.json and semantic_vqa.json: loss and
+     per-leaf gradients of the kernel path against the plain path (same
+     parameters, batch and dropout masks), 2 launches of the family's kernel
+     per forward; then the step's split into forward, backward and optimizer
+     (CUDA events, median of 10 steps). The spatial batch's edge labels,
+     built on the card, are held to build_spatial_graph on the CPU;
+  8. the entry point, per family: `--mode train --synthetic --epochs 1` at
+     the config's widths and batch size 256 (16 steps of the 4,096-question
+     synthetic split for implicit and spatial, 6 of a 1,536-question split
+     for semantic, then an eval pass): finite, falling loss, median step
+     time; kernel launches over the run, 2 per forward pass, and none of the
+     other family's kernel;
+  9. `--mode eval` on the written .npz: its loss equals the training run's
+     last `eval_loss` (metrics.jsonl) to rel 1e-6, 2 launches per pass;
+ 10. `--mode serve` of that .npz, built by `main.build_server` as the entry
      point builds it, serving HTTP in a thread: /healthz, single and batch
-     /predict, an unknown image (404); the eval variant's launches over
-     those requests must be 2 per forward pass (one per direction), and one
-     batch's logits must match the same model run with the plain versions.
-Counts of launches are set to 0 just before each path of 6-8 runs and read
-just after it; the comparison launches of 3-5 do not count.
-Then it prints {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
+     /predict, an unknown image (404); the launches over those requests must
+     be 2 per forward pass (one per direction), and one batch's logits must
+     match the same model run with the plain versions.
+Counts of launches are set to 0 just before each path of 8-10 runs and read
+just after it; the comparison launches of 3-7 do not count.
+Then it prints {"kernels": [...]} (each kernel's time, plain and library
+times, and its bound on an H100 SXM: the larger of the bytes it must move
+over 3.35 TB/s and its f32 operations over 67 TFLOP/s, from this run's
+inputs) and, last, {"ok": true, "device": {...}}.
 It imports nothing of JAX and nothing of the JAX package (tf_vqa_regat_tpu).
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -53,6 +72,7 @@ import threading
 import time
 import urllib.error
 import urllib.request
+from concurrent.futures import ThreadPoolExecutor
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 # Stated tolerances (f32 throughout; TF32 is switched off below):
@@ -76,20 +96,40 @@ PWR_ATOL = 1e-4
 #   pwr sits just above its 1e-6 floor.
 GRAD_RTOL = 1e-3
 POS_GRAD_RTOL = 1e-2
+# - B2 vs its plain version, relative to the largest |output|: the same
+#   64-term dots summed in another order; no log or clamp magnifies them.
+GRAPH_RTOL = 1e-4
+# - B2's gradients, Function vs autograd of the plain version, relative to
+#   each tensor's largest magnitude: both recompute the weights from the
+#   same inputs with plain ops; only the order of the sums differs.
+GRAPH_GRAD_RTOL = 1e-4
 # - one full-width train step, kernel path vs plain path: the loss, and each
-#   trainable leaf's gradient relative to that leaf's largest magnitude. The
-#   leaves trainable_mask freezes (biases feeding a softmax) have a true
-#   gradient of zero, so both paths give rounding noise there: they are held
-#   to the largest gradient of all leaves instead. On an H100 the worst
-#   trainable leaf was a pos-FC scale `g` at 6.3e-3 (the 1/pwr magnification
-#   of the forward's difference, as for dW_pos above).
+#   trainable leaf's gradient relative to that leaf's largest magnitude.
+#   Leaves with a true gradient of zero give rounding noise on both paths,
+#   so they are held to the largest gradient of all leaves instead: the
+#   leaves trainable_mask freezes (biases feeding a softmax), and the
+#   explicit edge-label FC's bias (`v_relation.gatt.bias.layers.0.b`), which
+#   adds one constant to every edge key of a row (softmax shift invariance;
+#   JAX leaves it trainable). On an H100 the worst trainable leaf was a
+#   pos-FC scale `g` at 6.3e-3 (the 1/pwr magnification of the forward's
+#   difference, as for dW_pos above).
 LOSS_RTOL = 1e-4
 STEP_GRAD_RTOL = 2e-2
 # - --mode eval on the trained .npz against the training run's last eval.
 EVAL_LOSS_RTOL = 1e-6
+# - spatial edge labels built on the card vs build_spatial_graph on the CPU:
+#   a label may differ only where its angle, from the function's own f32 sine
+#   and cosine, lies within this of a sector boundary (the card's asin/acos
+#   may differ from the CPU's by an ulp).
+SECTOR_EPS = 1e-5
 SERVE_SHAPES = dict(R=100, H=16, dh=64, o=64, n=20, P=64)
 GRAD_ARGS = ("q", "k", "vw", "w_pos", "b_pos")
 KERNEL_ARGS = ("q", "k", "vw", "pos_mat", "w_pos", "b_pos", "key_mask")
+CONFIGS = {"implicit": "butd_vqa.json", "spatial": "spatial_vqa.json",
+           "semantic": "semantic_vqa.json"}
+# H100 SXM peaks (NVIDIA's data sheet): HBM rate, f32 outside the tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS_PER_S = 67e12
 
 
 def fail(msg: str) -> None:
@@ -119,6 +159,53 @@ def median_ms_interleaved(fns, reps=25, calls=10, warmup=3):
             end.synchronize()
             times[i].append(start.elapsed_time(end) / calls)
     return [statistics.median(t) for t in times]
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(moved_bytes: int, flops: float) -> dict:
+    """The least time an H100 SXM could take: bytes over the HBM rate or f32
+    operations over the f32 peak, whichever is larger."""
+    by_bytes = moved_bytes / HBM_BYTES_PER_S * 1e3
+    by_ops = flops / F32_FLOPS_PER_S * 1e3
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "bytes": moved_bytes, "flops": flops}
+
+
+def reset_counts() -> None:
+    from tf_vqa_regat_tpu_torch.ops.kernels import graph_attention as ga
+    from tf_vqa_regat_tpu_torch.ops.kernels import implicit_attention as ia
+
+    ia.KERNEL.launches = ia.KERNEL.train_launches = 0
+    ga.KERNEL.launches = ga.KERNEL.per_head_launches = 0
+
+
+def counts() -> dict:
+    from tf_vqa_regat_tpu_torch.ops.kernels import graph_attention as ga
+    from tf_vqa_regat_tpu_torch.ops.kernels import implicit_attention as ia
+
+    return {"B1 eval": ia.KERNEL.launches, "B1 train": ia.KERNEL.train_launches,
+            "B2": ga.KERNEL.launches, "B2 per-head": ga.KERNEL.per_head_launches}
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """The model's attention through the plain PyTorch versions (autograd
+    differentiates them), for the kernel path vs plain path comparisons."""
+    from tf_vqa_regat_tpu_torch.ops import graph_attention
+    from tf_vqa_regat_tpu_torch.ops.kernels import graph_attention as ga
+    from tf_vqa_regat_tpu_torch.ops.kernels import implicit_attention as ia
+
+    graph_attention.fused_implicit_graph_attention = ia.implicit_attention_plain
+    graph_attention.fused_graph_attention = ga.graph_attention_plain
+    try:
+        yield
+    finally:
+        graph_attention.fused_implicit_graph_attention = ia.fused_implicit_graph_attention
+        graph_attention.fused_graph_attention = ga.fused_graph_attention
 
 
 def kernel_inputs(b, device, seed):
@@ -153,6 +240,13 @@ def kernel_inputs(b, device, seed):
     )
 
 
+def implicit_flops(b):
+    """f32 operations of one B1 call: per (row, head, key) the q.k dot, the
+    pos-FC dot and the weighted sum of vw."""
+    s = SERVE_SHAPES
+    return 2.0 * b * s["R"] * s["H"] * s["n"] * (s["dh"] + s["P"] + s["o"])
+
+
 def check_kernels(device):
     """Kernel vs plain at b = 1, 8, 32. Returns per-b rows."""
     import torch
@@ -178,7 +272,8 @@ def check_kernels(device):
              lambda: ia.implicit_attention_plain(*args)]
         )
         row = dict(b=b, max_abs_err=err, underflow_heads_max=zero_heads,
-                   fully_masked_err=masked_err, ms=ms, plain_ms=plain_ms)
+                   fully_masked_err=masked_err, ms=ms, plain_ms=plain_ms,
+                   **bound(nbytes(*args, got), implicit_flops(b)))
         print("kernel implicit_attention", json.dumps(row), flush=True)
         if err > KERNEL_ATOL:
             fail(f"kernel vs plain max abs diff {err} > {KERNEL_ATOL} at b={b}")
@@ -245,8 +340,10 @@ def check_train_kernel(device):
             [lambda: fwd_bwd(ia.fused_implicit_graph_attention),
              lambda: fwd_bwd(ia.implicit_attention_plain)], reps=21, calls=3,
         )
+        moved = nbytes(*(x[k] for k in KERNEL_ARGS), dropmask, out_k, pwr_k)
         row = dict(b=b, **err, fwd_ms=fwd_ms, fwd_plain_ms=fwd_plain_ms,
-                   fwd_bwd_ms=bwd_ms, fwd_bwd_plain_ms=bwd_plain_ms)
+                   fwd_bwd_ms=bwd_ms, fwd_bwd_plain_ms=bwd_plain_ms,
+                   **bound(moved, implicit_flops(b)))
         print("kernel implicit_attention train", json.dumps(row), flush=True)
         limits = [("out", KERNEL_ATOL), ("pwr", PWR_ATOL), ("function_out", 0.0),
                   ("dq", GRAD_RTOL), ("dk", GRAD_RTOL), ("dvw", GRAD_RTOL),
@@ -258,34 +355,263 @@ def check_train_kernel(device):
     return rows
 
 
-def full_width_config(extra=()):
+def graph_inputs(b, device, seed):
+    """Inputs of one direction of B2 at the model's shapes, the bias built
+    as the model builds it: spatial labels of random boxes (direction 0),
+    a random label bias, non-edges and padded keys at -9e15. Example 0 has
+    all 100 boxes; its row 3 has no edge (uniform weights over the valid
+    keys), row 7 has every edge and a head 0 that outscores the others by
+    ~500 (they underflow), row 9 has every edge in head 0 and none in the
+    other heads of the per-head bias. With b > 1 the last example is padded."""
+    import torch
+
+    from tf_vqa_regat_tpu_torch.ops.graph_attention import explicit_bias
+    from tf_vqa_regat_tpu_torch.ops.kernels.implicit_attention import NEG_INF
+    from tf_vqa_regat_tpu_torch.ops.spatial_graph import (
+        broadcast_adj_labels,
+        build_spatial_graph,
+    )
+
+    s = SERVE_SHAPES
+    R, H, dh, o, n = s["R"], s["H"], s["dh"], s["o"], s["n"]
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def randn(*shape, scale=1.0):
+        return scale * torch.randn(*shape, generator=g, device=device)
+
+    num_boxes = torch.randint(10, 101, (b,), generator=g, device=device)
+    num_boxes[0] = R
+    if b > 1:
+        num_boxes[-1] = 0
+    roi_ok = (torch.arange(R, device=device)[None, :] < num_boxes[:, None])[..., None]
+    xy = torch.rand(b, R, 2, generator=g, device=device) * torch.tensor([448.0, 336.0], device=device)
+    wh = torch.rand(b, R, 2, generator=g, device=device) * torch.tensor([192.0, 144.0], device=device) + 4
+    bb = torch.where(roi_ok, torch.cat([xy, xy + wh], -1), 0.0)
+    size = torch.tensor([640.0, 480.0], device=device)
+    norm_bb = torch.where(roi_ok, torch.cat([bb / size.repeat(2), (wh + 1) / size], -1), 0.0)
+    labels = build_spatial_graph(bb, norm_bb)
+    labels[0, 3] = 0
+    labels[0, 7, :n] = 4
+    labels[0, 9, :n] = 4
+    adj_mask = broadcast_adj_labels(labels, 11)[:, :, :n].sum(-1)
+    key_mask = torch.arange(n, device=device)[None, :] < num_boxes[:, None]
+    shared = explicit_bias(adj_mask, randn(b, R, n, scale=0.5), key_mask)
+    per_head = shared + randn(b, R, H, n, scale=0.1)
+    per_head[0, 9, 1:] = NEG_INF
+    q, k = randn(b, R, H, dh), randn(b, n, H, dh)
+    k[0, :, 0, :] = 8.0
+    q[0, 7, 0, :] = 8.0
+    return dict(q=q, k=k, vw=randn(b, n, H, o), shared=shared, per_head=per_head.contiguous())
+
+
+def graph_flops(b):
+    """f32 operations of one B2 call: per (row, head, key) the q.k dot and
+    the weighted sum of vw."""
+    s = SERVE_SHAPES
+    return 2.0 * b * s["R"] * s["H"] * s["n"] * (s["dh"] + s["o"])
+
+
+def check_graph_kernel(device):
+    """B2 in both modes vs its plain version at b = 1, 8, 32, 256, with the
+    shared and the per-head bias, and the degenerate rows of graph_inputs.
+    Returns per-b rows (times with the shared bias, as the model passes it)."""
+    import torch
+    import torch.nn.functional as F
+
+    from tf_vqa_regat_tpu_torch.ops.kernels import graph_attention as ga
+
+    rows = []
+    for b in (1, 8, 32, 256):
+        x = graph_inputs(b, device, seed=200 + b)
+        q, k, vw = x["q"], x["k"], x["vw"]
+        row = dict(b=b)
+        for per_head in (False, True):
+            mode = "v1" if per_head else "v2"
+            for which in ("shared", "per_head"):
+                got = ga.fused_graph_attention(q, k, vw, x[which], per_head)
+                want = ga.graph_attention_plain(q, k, vw, x[which], per_head)
+                torch.cuda.synchronize()
+                if not torch.isfinite(got).all():
+                    fail(f"B2 {mode} output not finite at b={b}, {which} bias")
+                err = (got - want).abs().max().item()
+                tol = GRAPH_RTOL * want.abs().max().item()
+                # degenerate rows, against what they must be
+                uniform = vw[0].mean(0)
+                checks = {"empty_row": (got[0, 3] - uniform).abs().max().item()}
+                if b > 1:
+                    checks["padded"] = (got[-1] - vw[-1].mean(0)).abs().max().item()
+                if per_head:
+                    under = (got[0, 9, 1:] - uniform[1:]).abs().max().item() if which == "per_head" else 0.0
+                else:
+                    under = max(got[0, 7, 1:].abs().max().item(),
+                                got[0, 9, 1:].abs().max().item() if which == "per_head" else 0.0)
+                row[f"{mode}_{which}_err"] = err
+                row[f"{mode}_{which}_underflow"] = under
+                row[f"{mode}_{which}_degenerate"] = checks
+                if not err <= tol:
+                    fail(f"B2 {mode} vs plain max abs diff {err} > {tol} at b={b}, {which} bias")
+                if any(not v <= tol for v in checks.values()):
+                    fail(f"B2 {mode}: degenerate rows {checks} not uniform at b={b}, {which} bias")
+                if per_head and not under <= tol:
+                    fail(f"B2 v1: heads without edges not uniform ({under}) at b={b}")
+                if not per_head and under != 0.0:
+                    fail(f"B2 v2: underflowing heads are not zero ({under}) at b={b}, {which} bias")
+        # the library yardstick: one SDPA call, float mask, head-major layout
+        qs, ks, vs = (t.permute(0, 2, 1, 3).contiguous() for t in (q, k, vw))
+        mask = x["shared"].permute(0, 2, 1, 3)  # [b, 1, R, n], broadcast over heads
+        sdpa = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask).permute(0, 2, 1, 3)
+        row["sdpa_vs_v1_plain"] = (
+            sdpa - ga.graph_attention_plain(q, k, vw, x["shared"], True)).abs().max().item()
+        times = median_ms_interleaved([
+            lambda: ga.fused_graph_attention(q, k, vw, x["shared"]),
+            lambda: ga.graph_attention_plain(q, k, vw, x["shared"]),
+            lambda: ga.fused_graph_attention(q, k, vw, x["shared"], True),
+            lambda: ga.graph_attention_plain(q, k, vw, x["shared"], True),
+            lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask),
+            lambda: ga.fused_graph_attention(q, k, vw, x["per_head"]),
+        ])
+        for key, t in zip(("ms", "plain_ms", "v1_ms", "v1_plain_ms", "sdpa_ms",
+                           "per_head_bias_ms"), times):
+            row[key] = t
+        out_bytes = nbytes(q) // q.shape[3] * vw.shape[3]
+        row.update(bound(nbytes(q, k, vw, x["shared"]) + out_bytes, graph_flops(b)))
+        row["per_head_bias_bound_ms"] = bound(
+            nbytes(q, k, vw, x["per_head"]) + out_bytes, graph_flops(b))["bound_ms"]
+        print("kernel graph_attention", json.dumps(row), flush=True)
+        rows.append(row)
+    return rows
+
+
+def check_graph_grads(device):
+    """dq, dk, dvw, dbias through `GraphAttention` (kernel forward) vs torch
+    autograd of the plain version at b = 32 and 256, with the model's shared
+    bias. Returns per-b rows."""
+    import torch
+
+    from tf_vqa_regat_tpu_torch.ops.kernels import graph_attention as ga
+
+    names = ("q", "k", "vw", "shared")
+    rows = []
+    for b in (32, 256):
+        x = graph_inputs(b, device, seed=300 + b)
+        G = torch.randn(x["q"].shape, generator=torch.Generator(device=device).manual_seed(b),
+                        device=device)
+
+        def fwd_bwd(fn):
+            leaves = [x[n].clone().requires_grad_() for n in names]
+            out = fn(*leaves)
+            return out.detach(), torch.autograd.grad((out * G).sum(), leaves)
+
+        out_k, grads_k = fwd_bwd(ga.fused_graph_attention)
+        out_p, grads_p = fwd_bwd(ga.graph_attention_plain)
+        with torch.no_grad():
+            direct = ga.KERNEL(*(x[n] for n in names))
+        torch.cuda.synchronize()
+        row = {"b": b, "function_out": (out_k - direct).abs().max().item()}
+        for n, gk, gp in zip(("dq", "dk", "dvw", "dbias"), grads_k, grads_p):
+            if not torch.isfinite(gk).all():
+                fail(f"B2 gradient {n} not finite at b={b}")
+            row[n] = max_rel(gk, gp)
+        row["fwd_bwd_ms"], row["fwd_bwd_plain_ms"] = median_ms_interleaved(
+            [lambda: fwd_bwd(ga.fused_graph_attention),
+             lambda: fwd_bwd(ga.graph_attention_plain)], reps=21, calls=3)
+        print("kernel graph_attention gradients", json.dumps(row), flush=True)
+        if row["function_out"] != 0.0:
+            fail(f"B2 Function forward differs from the launch at b={b}")
+        for n in ("dq", "dk", "dvw", "dbias"):
+            if not row[n] <= GRAPH_GRAD_RTOL:
+                fail(f"B2 gradient {n} differs by rel {row[n]} > {GRAPH_GRAD_RTOL} at b={b}")
+        rows.append(row)
+    return rows
+
+
+def full_width_config(family, extra=()):
     from tf_vqa_regat_tpu_torch.config import parse_with_config
 
     return parse_with_config(
-        ["--config", os.path.join(REPO, "configs", "butd_vqa.json"), "--synthetic",
-         *extra]
+        ["--config", os.path.join(REPO, "configs", CONFIGS[family]), "--synthetic", *extra]
     )
 
 
-def check_train_step(device):
-    """One train step at the full widths, b=256: kernel path vs plain path,
-    then the step's forward / backward / optimizer split. Returns the split
-    (median ms)."""
+def _sector_distance(sn: float, cs: float, lower: bool) -> float:
+    """Distance (rad, float64) from the nearest multiple of pi/4 of the
+    labelling angle for a pair with sine `sn` and cosine `cs`, by its own
+    formulas (quadrants; the lower triangle's reverse-edge formula)."""
+    if sn >= 0 and cs >= 0:
+        angle = math.asin(sn)
+    elif sn < 0 and cs >= 0:
+        angle = math.asin(sn) + 2 * math.pi
+    elif sn >= 0:
+        angle = math.acos(cs)
+    else:
+        angle = -math.acos(max(-1.0, min(1.0, sn))) + 2 * math.pi
+    if lower:
+        angle = 2 * math.pi - angle if sn >= 0 else angle - math.pi
+    step = math.pi / 4
+    return abs(angle / step - round(angle / step)) * step
+
+
+def sector_distances(bb, e, i, j):
+    """(from build_spatial_graph's own f32 sine and cosine, from the boxes in
+    float64): distances of the angle that labels pair (i, j) of example e
+    from a sector boundary. The first is what one ulp of asin/acos can flip:
+    both devices get the same f32 sine and cosine (their divisions and
+    square roots round alike), and near +-pi/2 one ulp of the sine moves the
+    angle by up to ~3.5e-4 rad, so the second may be much larger."""
+    import torch
+
+    a, c = (i, j) if i < j else (j, i)
+    out = []
+    for dtype in (torch.float32, torch.float64):
+        box = bb[e].to(dtype)
+        cx, cy = 0.5 * (box[:, 0] + box[:, 2]), 0.5 * (box[:, 1] + box[:, 3])
+        y, x = cy[a] - cy[c], cx[a] - cx[c]
+        d = torch.clamp(torch.sqrt(y**2 + x**2), min=1e-12)
+        out.append(_sector_distance((y / d).item(), (x / d).item(), i > j))
+    return tuple(out)
+
+
+def check_spatial_labels(batch):
+    """build_spatial_graph on the card vs on the CPU over one batch: every
+    mismatch must be a sector label within SECTOR_EPS of a boundary."""
+    from tf_vqa_regat_tpu_torch.ops.spatial_graph import build_spatial_graph
+
+    gpu = build_spatial_graph(batch["bb"], batch["norm_bb"]).cpu()
+    bb_cpu = batch["bb"].cpu()
+    cpu = build_spatial_graph(bb_cpu, batch["norm_bb"].cpu())
+    bad = (gpu != cpu).nonzero().tolist()
+    dist = []
+    for e, i, j in bad:
+        sector = all(4 <= int(t[e, i, j]) <= 11 for t in (gpu, cpu))
+        dist.append(sector_distances(bb_cpu, e, i, j) if sector else (math.inf, math.inf))
+    print(f"spatial labels, card vs CPU over {gpu.numel()} pairs: {len(bad)} differ "
+          f"(distances to a sector boundary, from the function's f32 sine/cosine "
+          f"and from the boxes: {dist} rad); label counts "
+          f"{gpu.flatten().bincount(minlength=13).tolist()}", flush=True)
+    if any(not d <= SECTOR_EPS for d, _ in dist):
+        fail(f"spatial labels differ away from a sector boundary: {bad} {dist}")
+    return len(bad)
+
+
+def check_train_step(device, family):
+    """One train step at the full widths of the family's config, b=256:
+    kernel path vs plain path, then the step's forward / backward /
+    optimizer split. Returns the split (median ms)."""
     import torch
 
     from tf_vqa_regat_tpu_torch.data.store import DeviceStore, gather_batch
     from tf_vqa_regat_tpu_torch.main import build_dataset
     from tf_vqa_regat_tpu_torch.models.regat import ReGAT, trainable_mask
-    from tf_vqa_regat_tpu_torch.ops import graph_attention
-    from tf_vqa_regat_tpu_torch.ops.kernels import implicit_attention as ia
     from tf_vqa_regat_tpu_torch.train.optim import Adamax, make_lr_schedule
     from tf_vqa_regat_tpu_torch.train.step import train_forward
 
-    cfg = full_width_config(["--mode", "train"])
+    cfg = full_width_config(family, ["--mode", "train"])
     ds = build_dataset(cfg, "train")
     store = DeviceStore(ds, device)
     idx = next(store.epoch_indices(0, cfg.batch_size, True, cfg.seed))
     batch = gather_batch(store, torch.from_numpy(idx).to(device), cfg.resolved_num_rois())
+    if family == "spatial":
+        check_spatial_labels(batch)
     model = ReGAT(cfg, ds.ntoken, ds.v_dim, ds.num_ans).to(device)
     params = list(model.parameters())
 
@@ -293,34 +619,35 @@ def check_train_step(device):
         loss, _ = train_forward(model, batch, 0, cfg.seed)
         return loss.detach(), torch.autograd.grad(loss, params)
 
-    ia.KERNEL.train_launches = 0
+    reset_counts()
     loss_k, grads_k = loss_and_grads()
-    launches = ia.KERNEL.train_launches
-    graph_attention.fused_implicit_graph_attention = ia.implicit_attention_plain
-    try:
+    launches = counts()
+    with plain_kernels():
         loss_p, grads_p = loss_and_grads()
-    finally:
-        graph_attention.fused_implicit_graph_attention = ia.fused_implicit_graph_attention
     torch.cuda.synchronize()
     trainable = trainable_mask(model, False)
+    zero_grad = {n for n, t in trainable.items() if not t}
+    zero_grad.add("v_relation.gatt.bias.layers.0.b")
     top = max(g.abs().max() for g in grads_p)
     errs = {
-        n: max_rel(a, b) if trainable[n] else ((a - b).abs().max() / top).item()
+        n: ((a - b).abs().max() / top).item() if n in zero_grad else max_rel(a, b)
         for (n, _), a, b in zip(model.named_parameters(), grads_k, grads_p)
     }
     worst = max(errs, key=errs.get)
     loss_err = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
-    print(f"train step b={cfg.batch_size} kernel vs plain: loss {loss_k.item()} vs "
+    print(f"{family} train step b={cfg.batch_size} kernel vs plain: loss {loss_k.item()} vs "
           f"{loss_p.item()} (rel {loss_err}), worst leaf {worst} rel {errs[worst]}, "
-          f"train-variant launches per forward {launches}", flush=True)
+          f"launches per forward {json.dumps(launches)}", flush=True)
     if not all(torch.isfinite(g).all() for g in grads_k):
-        fail("train step: a gradient is not finite")
-    if launches != 2:
-        fail(f"train step: {launches} train-variant launches per forward, expected 2")
+        fail(f"{family} train step: a gradient is not finite")
+    kernel = "B1 train" if family == "implicit" else "B2"
+    if launches[kernel] != 2 or sum(launches.values()) != 2:
+        fail(f"{family} train step: launches per forward {launches}, expected 2 of {kernel}")
     if not loss_err <= LOSS_RTOL:
-        fail(f"train step: loss differs by rel {loss_err} > {LOSS_RTOL}")
+        fail(f"{family} train step: loss differs by rel {loss_err} > {LOSS_RTOL}")
     if not errs[worst] <= STEP_GRAD_RTOL:
-        fail(f"train step: {worst} gradient differs by rel {errs[worst]} > {STEP_GRAD_RTOL}")
+        fail(f"{family} train step: {worst} gradient differs by rel {errs[worst]} > "
+             f"{STEP_GRAD_RTOL}")
 
     opt = Adamax(model, trainable, make_lr_schedule(
         cfg.base_lr, 16, cfg.lr_decay_rate, cfg.lr_decay_step), cfg.grad_clip)
@@ -341,18 +668,27 @@ def check_train_step(device):
     return {k: statistics.median(v) for k, v in split.items()}
 
 
-def check_entry_point(tmp, smi):
+def expected_launches(family, passes, train_passes=0):
+    """Launch counts of a path with `passes` eval forward passes and
+    `train_passes` train forward passes: 2 per pass, of the family's kernel."""
+    want = {"B1 eval": 0, "B1 train": 0, "B2": 0, "B2 per-head": 0}
+    if family == "implicit":
+        want["B1 eval"], want["B1 train"] = 2 * passes, 2 * train_passes
+    else:
+        want["B2"] = 2 * (passes + train_passes)
+    return want
+
+
+def check_entry_point(tmp, smi, family, extra=()):
     """`--mode train` then `--mode eval` through `main.main`, at the config's
-    widths. Returns (npz path, {variant: launches} of the train run, median
-    step ms)."""
+    widths. Returns (npz path, launches of the train run, median step ms)."""
     import torch
 
     from tf_vqa_regat_tpu_torch import main as port_main
-    from tf_vqa_regat_tpu_torch.ops.kernels import implicit_attention as ia
     from tf_vqa_regat_tpu_torch.train import loop
 
-    argv = ["--config", os.path.join(REPO, "configs", "butd_vqa.json"), "--synthetic",
-            "--output", tmp, "--device", "cuda", "--print_freq", "4"]
+    argv = ["--config", os.path.join(REPO, "configs", CONFIGS[family]), "--synthetic",
+            "--output", tmp, "--device", "cuda", "--print_freq", "4", *extra]
     real_step, records = loop.train_step, []
 
     def timed_step(*args, **kw):
@@ -364,44 +700,44 @@ def check_entry_point(tmp, smi):
         return m
 
     loop.train_step = timed_step
-    ia.KERNEL.launches = ia.KERNEL.train_launches = 0  # the train path starts here
+    reset_counts()  # the train path starts here
     t0 = time.perf_counter()
     try:
         path = port_main.main(argv + ["--mode", "train", "--epochs", "1"])
     finally:
         loop.train_step = real_step
     wall = time.perf_counter() - t0
-    launches = {"train": ia.KERNEL.train_launches, "eval": ia.KERNEL.launches}
+    launches = counts()
     torch.cuda.synchronize()
     step_ms = [ev[0].elapsed_time(ev[1]) for ev, _ in records]
     losses = [float(loss) for _, loss in records]
     with open(os.path.join(tmp, "metrics.jsonl")) as fh:
         last = [json.loads(line) for line in fh][-1]
-    print(f"--mode train: {len(losses)} steps in {wall:.1f} s (run, set-up included); "
-          f"median step {statistics.median(step_ms)} ms (CUDA events) on {smi}, "
-          f"TF32 off; losses {losses}; launches {launches}; last metrics "
+    print(f"{family} --mode train: {len(losses)} steps in {wall:.1f} s (run, set-up "
+          f"included); median step {statistics.median(step_ms)} ms (CUDA events) on {smi}, "
+          f"TF32 off; losses {losses}; launches {json.dumps(launches)}; last metrics "
           f"{json.dumps(last)}", flush=True)
-    cfg = full_width_config()
+    cfg = full_width_config(family, extra)
     if len(losses) != -(-cfg.synthetic_train_size // cfg.batch_size):
-        fail(f"--mode train took {len(losses)} steps")
+        fail(f"{family} --mode train took {len(losses)} steps")
     if not all(map(math.isfinite, losses)) or not losses[-1] < losses[0]:
-        fail(f"--mode train: loss not finite or not falling: {losses}")
+        fail(f"{family} --mode train: loss not finite or not falling: {losses}")
     eval_passes = -(-cfg.synthetic_val_size // cfg.resolved_eval_batch())
-    if launches != {"train": 2 * len(losses), "eval": 2 * eval_passes}:
-        fail(f"--mode train: launches {launches} for {len(losses)} train and "
+    if launches != expected_launches(family, eval_passes, len(losses)):
+        fail(f"{family} --mode train: launches {launches} for {len(losses)} train and "
              f"{eval_passes} eval forward passes")
 
-    ia.KERNEL.launches = ia.KERNEL.train_launches = 0  # the eval path starts here
+    reset_counts()  # the eval path starts here
     score, loss = port_main.main(argv + ["--mode", "eval", "--checkpoint", path])
-    eval_launches = (ia.KERNEL.launches, ia.KERNEL.train_launches)
+    eval_launches = counts()
     rel = abs(loss - last["eval_loss"]) / abs(last["eval_loss"])
-    print(f"--mode eval on {os.path.basename(path)}: score {score} loss {loss} vs the "
-          f"training run's {last['eval_loss']} (rel {rel}); launches (eval, train) "
-          f"{eval_launches}", flush=True)
+    print(f"{family} --mode eval on {os.path.basename(path)}: score {score} loss {loss} vs "
+          f"the training run's {last['eval_loss']} (rel {rel}); launches "
+          f"{json.dumps(eval_launches)}", flush=True)
     if not rel <= EVAL_LOSS_RTOL:
-        fail(f"--mode eval loss differs from the training run's by rel {rel}")
-    if eval_launches != (2 * eval_passes, 0):
-        fail(f"--mode eval: launches (eval, train) {eval_launches}")
+        fail(f"{family} --mode eval loss differs from the training run's by rel {rel}")
+    if eval_launches != expected_launches(family, eval_passes):
+        fail(f"{family} --mode eval: launches {eval_launches} for {eval_passes} passes")
     return path, launches, statistics.median(step_ms)
 
 
@@ -415,23 +751,21 @@ def http(url, body=None):
         return e.code, json.loads(e.read())
 
 
-def check_serve(ckpt):
-    """--mode serve of `ckpt` at the butd_vqa.json widths. Returns (launches,
-    forward passes, logits max abs diff)."""
+def check_serve(ckpt, family):
+    """--mode serve of `ckpt` at the family config's widths. Returns
+    (launches, forward passes, logits max abs diff)."""
     import torch
 
     from tf_vqa_regat_tpu_torch.config import parse_with_config
     from tf_vqa_regat_tpu_torch.main import build_dataset, build_server
-    from tf_vqa_regat_tpu_torch.ops import graph_attention
-    from tf_vqa_regat_tpu_torch.ops.kernels import implicit_attention as ia
 
-    argv = ["--config", os.path.join(REPO, "configs", "butd_vqa.json"), "--mode",
+    argv = ["--config", os.path.join(REPO, "configs", CONFIGS[family]), "--mode",
             "serve", "--synthetic", "--serve_port", "0"]
     cfg = parse_with_config(argv)
     ds = build_dataset(cfg)
     t0 = time.perf_counter()
     server, batcher, engine = build_server(argv + ["--checkpoint", ckpt, "--device", "cuda"])
-    print(f"server built and warmed in {time.perf_counter() - t0:.1f} s "
+    print(f"{family} server built and warmed in {time.perf_counter() - t0:.1f} s "
           f"(batch sizes {list(engine.batch_sizes)})", flush=True)
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
@@ -444,7 +778,7 @@ def check_serve(ckpt):
         ids = sorted(engine.img_index)[:12]
         questions = ["what color is the car ?", "how many people are on the left ?",
                      "is the man on the dog ?", "what is the woman in ?"]
-        ia.KERNEL.launches = ia.KERNEL.train_launches = 0  # the serve path starts here
+        reset_counts()  # the serve path starts here
         code, health = http(url + "/healthz")
         if code != 200 or health.get("status") != "ok":
             fail(f"/healthz: {code} {health}")
@@ -460,9 +794,7 @@ def check_serve(ckpt):
             fail(f"/predict batch: {code} {body}")
         answers += body
         code, missing = http(url + "/predict", {"question": "what ?", "image_id": 10**9})
-        launches, passes = ia.KERNEL.launches, forwards[0]
-        if ia.KERNEL.train_launches:
-            fail(f"serving launched the train variant {ia.KERNEL.train_launches} times")
+        launches, passes = counts(), forwards[0]
         print(f"/healthz {json.dumps(health)}", flush=True)
         print(f"/predict answers {json.dumps(answers)}", flush=True)
         print(f"/predict unknown image: {code} {json.dumps(missing)}", flush=True)
@@ -471,8 +803,9 @@ def check_serve(ckpt):
         for a in answers:
             if a.get("answer") not in ds.label2ans or not 0.0 < a["confidence"] < 1.0:
                 fail(f"bad answer {a}")
-        print(f"kernel launches {launches} over {passes} forward passes", flush=True)
-        if passes == 0 or launches != 2 * passes:
+        print(f"{family} kernel launches {json.dumps(launches)} over {passes} forward "
+              f"passes", flush=True)
+        if passes == 0 or launches != expected_launches(family, passes):
             fail(f"expected 2 launches per forward pass, got {launches} for {passes}")
 
         # One batch of 8 through the whole model: kernel path vs plain path.
@@ -481,18 +814,15 @@ def check_serve(ckpt):
         img = torch.tensor([engine.img_index[i] for i in ids[:8]], device=dev)
         valid = torch.ones(8, dtype=torch.bool, device=dev)
         got = engine.logits(toks, img, valid)
-        graph_attention.fused_implicit_graph_attention = ia.implicit_attention_plain
-        try:
+        with plain_kernels():
             want = engine.logits(toks, img, valid)
-        finally:
-            graph_attention.fused_implicit_graph_attention = ia.fused_implicit_graph_attention
         torch.cuda.synchronize()
         if got.shape != (8, ds.num_ans) or not torch.isfinite(got).all():
             fail(f"logits {tuple(got.shape)} not finite or not [8, {ds.num_ans}]")
         logits_err = (got - want).abs().max().item()
         scale = want.abs().max().item()
         same_argmax = bool((got.argmax(-1) == want.argmax(-1)).all())
-        print(f"logits kernel vs plain: max abs diff {logits_err}, largest |logit| "
+        print(f"{family} logits kernel vs plain: max abs diff {logits_err}, largest |logit| "
               f"{scale} (tol {LOGITS_RTOL} of it), argmax equal {same_argmax}", flush=True)
         if not logits_err <= LOGITS_RTOL * scale or not same_argmax:
             fail("served logits disagree with the plain path")
@@ -508,7 +838,8 @@ def check_serve(ckpt):
                 engine.infer(qs, im)
                 runs.append((time.perf_counter() - t0) * 1e3)
             latency[B] = statistics.median(runs[3:])
-        print(f"engine.infer median ms by batch size {json.dumps(latency)}", flush=True)
+        print(f"{family} engine.infer median ms by batch size {json.dumps(latency)}",
+              flush=True)
     finally:
         hook.remove()
         server.shutdown()
@@ -516,6 +847,25 @@ def check_serve(ckpt):
         server.server_close()
         thread.join(timeout=10)
     return launches, passes, logits_err
+
+
+def build_kernels():
+    """Build every CUDA source of the port, one nvcc each, all at once."""
+    from tf_vqa_regat_tpu_torch.ops.kernels import build
+    from tf_vqa_regat_tpu_torch.ops.kernels import graph_attention as ga
+    from tf_vqa_regat_tpu_torch.ops.kernels import implicit_attention as ia
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        libs = list(pool.map(build.build, (ia.SOURCE, ga.SOURCE)))
+    ia.KERNEL.lib()
+    ga.KERNEL.lib()
+    print(f"built {[os.path.relpath(so, REPO) for so in libs]} in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    for so in libs:
+        log = so.with_suffix(".log")
+        if log.exists():
+            print(log.read_text().strip(), flush=True)
 
 
 def main() -> None:
@@ -538,51 +888,77 @@ def main() -> None:
     print(smi.stdout.strip().splitlines()[0], flush=True)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}", flush=True)
-
-    from tf_vqa_regat_tpu_torch.ops.kernels import build
-    from tf_vqa_regat_tpu_torch.ops.kernels import implicit_attention as ia
-
-    t0 = time.perf_counter()
-    so = build.build(ia.SOURCE)
-    ia.KERNEL.lib()
-    print(f"built {os.path.relpath(so, REPO)} in {time.perf_counter() - t0:.1f} s", flush=True)
-    log = so.with_suffix(".log")
-    if log.exists():
-        print(log.read_text().strip(), flush=True)
+    build_kernels()
 
     device = torch.device("cuda", 0)
     smi_line = smi.stdout.strip().splitlines()[0]
     rows = check_kernels(device)
     train_rows = check_train_kernel(device)
-    split = check_train_step(device)
-    print(f"train step split at b=256, median ms (CUDA events, TF32 off) on {smi_line}: "
-          f"{json.dumps(split)}", flush=True)
-    with tempfile.TemporaryDirectory() as tmp:
-        ckpt, train_launches, step_ms = check_entry_point(tmp, smi_line)
-        serve_launches, _, _ = check_serve(ckpt)
+    graph_rows = check_graph_kernel(device)
+    check_graph_grads(device)
+    for family in CONFIGS:
+        split = check_train_step(device, family)
+        print(f"{family} train step split at b=256, median ms (CUDA events, TF32 off) on "
+              f"{smi_line}: {json.dumps(split)}", flush=True)
+    launches = {}
+    for family, extra in (("implicit", ()), ("spatial", ()),
+                          ("semantic", ("--synthetic_train_size", "1536"))):
+        with tempfile.TemporaryDirectory() as tmp:
+            ckpt, train_launches, _ = check_entry_point(tmp, smi_line, family, extra)
+            serve_launches, _, _ = check_serve(ckpt, family)
+        launches[family] = (train_launches, serve_launches)
 
     if any(m.split(".")[0] in ("jax", "jaxlib", "tf_vqa_regat_tpu") for m in sys.modules):
         fail("JAX or the JAX package was imported")
-    source = "tf_vqa_regat_tpu_torch/csrc/implicit_attention.cu"
-    big, train_big = rows[-1], train_rows[-1]
+    b1_source = "tf_vqa_regat_tpu_torch/csrc/implicit_attention.cu"
+    b2_source = "tf_vqa_regat_tpu_torch/csrc/graph_attention.cu"
+    big, train_big, graph_big = rows[-1], train_rows[-1], graph_rows[-1]
+    bound_keys = ("bound_ms", "bound_by")
+    b2_launches = sum(tr["B2"] + sv["B2"] for tr, sv in (launches["spatial"], launches["semantic"]))
     print(json.dumps({"kernels": [{
         "name": "implicit_attention",
         "route": "cuda",
-        "source": source,
+        "source": b1_source,
         "replaces": "tf_vqa_regat_tpu/ops/pallas/implicit_attention.py:99",
-        "launches": serve_launches,
+        "launches": launches["implicit"][1]["B1 eval"],
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": big["ms"],
         "plain_ms": big["plain_ms"],
+        **{k: big[k] for k in bound_keys},
+        "library_ms": None,
     }, {
         "name": "implicit_attention_train",
         "route": "cuda",
-        "source": source,
+        "source": b1_source,
         "replaces": "tf_vqa_regat_tpu/ops/pallas/implicit_attention.py:208",
-        "launches": train_launches["train"],
+        "launches": launches["implicit"][0]["B1 train"],
         "max_abs_err": max(max(r["out"], r["pwr"]) for r in train_rows),
         "ms": train_big["fwd_ms"],
         "plain_ms": train_big["fwd_plain_ms"],
+        **{k: train_big[k] for k in bound_keys},
+        "library_ms": None,
+    }, {
+        "name": "graph_attention",
+        "route": "cuda",
+        "source": b2_source,
+        "replaces": "tf_vqa_regat_tpu/ops/pallas/graph_attention.py:66",
+        "launches": b2_launches,
+        "max_abs_err": max(max(r["v2_shared_err"], r["v2_per_head_err"]) for r in graph_rows),
+        "ms": graph_big["ms"],
+        "plain_ms": graph_big["plain_ms"],
+        **{k: graph_big[k] for k in bound_keys},
+        "library_ms": graph_big["sdpa_ms"],
+    }, {
+        "name": "graph_attention_per_head",
+        "route": "cuda",
+        "source": b2_source,
+        "replaces": "tf_vqa_regat_tpu/ops/pallas/graph_attention.py:43",
+        "launches": sum(tr["B2 per-head"] + sv["B2 per-head"] for tr, sv in launches.values()),
+        "max_abs_err": max(max(r["v1_shared_err"], r["v1_per_head_err"]) for r in graph_rows),
+        "ms": graph_big["v1_ms"],
+        "plain_ms": graph_big["v1_plain_ms"],
+        **{k: graph_big[k] for k in bound_keys},
+        "library_ms": graph_big["sdpa_ms"],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

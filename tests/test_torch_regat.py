@@ -80,8 +80,8 @@ def test_logits_match_apply_regat(models, impl, seed):
 
 
 def test_unported_families_and_training_raise():
-    with pytest.raises(NotImplementedError, match="explicit relations"):
-        ReGAT(PORT_CFG.replace(relation_type="spatial"), NTOKEN, V_DIM, NUM_ANS)
+    with pytest.raises(NotImplementedError, match="BAN and MuTAN"):
+        ReGAT(PORT_CFG.replace(fusion="mutan"), NTOKEN, V_DIM, NUM_ANS)
     with pytest.raises(NotImplementedError, match="BAN and MuTAN"):
         ReGAT(PORT_CFG.replace(fusion="ban"), NTOKEN, V_DIM, NUM_ANS)
     model = ReGAT(PORT_CFG, NTOKEN, V_DIM, NUM_ANS)

@@ -1,20 +1,21 @@
 """Device-resident tables and the on-device gather (counterpart of
 tf_vqa_regat_tpu/data/device_store.py: `build_image_arrays` for the adaptive
 layout, `build_entry_arrays`, `DeviceStore.epoch_indices`, `gather_batch`
-and `gather_image_features`).
+and `gather_image_features`, `gather_adj`).
 
 The split's feature and box tables are uploaded once, at f32; a request or a
 train step then ships only indices, and its rows are gathered on the device,
 clipped to the table and zeroed past the example's box count. The entry
 tables (image index, question tokens, soft targets packed to MAX_LABELS)
-live there too, so a batch is assembled from a [B] index vector.
-bf16 and int8 tables are ROADMAP Queue A item 3; the normalised-box table
-comes with the spatial relations, which read it (item 4).
+live there too, so a batch is assembled from a [B] index vector. A semantic
+split also carries its per-image edge labels as an int8 table, gathered into
+the batch's `adj_label`. bf16 and int8 feature tables are ROADMAP Queue A
+item 3.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Iterator, Tuple
+from typing import Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -30,14 +31,19 @@ def _put(a: np.ndarray, dtype: torch.dtype, device: torch.device) -> torch.Tenso
 
 
 class ImageStore:
-    """`features` [T, v] and `bb` [T, 4] f32, per-image `img_start` and
-    `img_len` [num_images] int64, all on `device`."""
+    """`features` [T, v], `norm_bb` [T, 6] and `bb` [T, 4] f32, per-image
+    `img_start` and `img_len` [num_images] int64, and for a semantic split
+    `adj` [num_images, 100, 100] int8 (else None), all on `device`."""
 
     def __init__(self, ds: SyntheticDataset, device: torch.device):
         self.features = _put(ds.features, torch.float32, device)
+        self.norm_bb = _put(ds.normalized_bb, torch.float32, device)
         self.bb = _put(ds.bb, torch.float32, device)
         self.img_start = _put(ds.pos_boxes[:, 0], torch.int64, device)
         self.img_len = _put(ds.pos_boxes[:, 1] - ds.pos_boxes[:, 0], torch.int64, device)
+        self.adj = (
+            None if ds.semantic_adj is None else _put(ds.semantic_adj, torch.int8, device)
+        )
 
 
 def pack_soft_targets(ent: EntryTable, num_ans: int) -> Tuple[np.ndarray, np.ndarray]:
@@ -109,9 +115,10 @@ def gather_batch(
     store: DeviceStore, idx: torch.Tensor, num_rois: int
 ) -> Dict[str, torch.Tensor]:
     """The batch for index vector `idx` [B] (on the store's device, -1 =
-    padded slot): features, bb, question, the dense soft targets
-    [B, num_ans], num_boxes and valid. A padded slot has no boxes, a
-    question of padding tokens and a zero target."""
+    padded slot): features, norm_bb, bb, question, the dense soft targets
+    [B, num_ans], num_boxes, valid and, when the store has edge labels,
+    adj_label. A padded slot has no boxes, a question of padding tokens, a
+    zero target and no edges."""
     B = idx.shape[0]
     valid = idx >= 0
     safe = torch.where(valid, idx, torch.zeros_like(idx)).long()
@@ -121,7 +128,7 @@ def gather_batch(
         torch.clamp(store.images.img_len[img], max=num_rois),
         torch.zeros_like(img),
     )
-    features, bb = gather_image_features(store.images, img, n_box, num_rois)
+    features, norm_bb, bb = gather_image_features(store.images, img, n_box, num_rois)
     q = store.questions[safe]
     question = torch.where(valid[:, None], q, torch.full_like(q, store.padding_idx))
     labels, scores = store.labels[safe], store.scores[safe]
@@ -132,10 +139,29 @@ def gather_batch(
         torch.where(lab_ok, labels, torch.zeros_like(labels)),
         torch.where(lab_ok, scores, torch.zeros_like(scores)),
     )
-    return {
-        "features": features, "bb": bb, "question": question, "target": target,
-        "num_boxes": n_box, "valid": valid,
+    batch = {
+        "features": features, "norm_bb": norm_bb, "bb": bb, "question": question,
+        "target": target, "num_boxes": n_box, "valid": valid,
     }
+    if store.images.adj is not None:
+        batch["adj_label"] = gather_adj(store.images, img, num_rois, valid)
+    return batch
+
+
+def gather_adj(
+    store: ImageStore, img: torch.Tensor, num_rois: int, valid: Optional[torch.Tensor] = None
+) -> torch.Tensor:
+    """[B, num_rois, num_rois] int32 edge labels of images `img`, cut or
+    zero-padded to num_rois; rows of padded slots (`valid` False) are zero.
+    Rows past an example's box count keep their labels, as JAX's do: the key
+    mask handles them downstream."""
+    A = store.adj.shape[1]
+    k = min(A, num_rois)
+    adj = torch.zeros((img.shape[0], num_rois, num_rois), dtype=torch.int32, device=img.device)
+    adj[:, :k, :k] = store.adj[img][:, :k, :k].to(torch.int32)
+    if valid is not None:
+        adj = torch.where(valid[:, None, None], adj, torch.zeros_like(adj))
+    return adj
 
 
 def gather_image_features(
@@ -143,8 +169,8 @@ def gather_image_features(
     img: torch.Tensor,  # [B] image indices
     n_box: torch.Tensor,  # [B] valid box count per example (0 = fully padded)
     num_rois: int,
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(features, bb), each [B, num_rois, ...]."""
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(features, norm_bb, bb), each [B, num_rois, ...]."""
     r = torch.arange(num_rois, device=img.device)
     rows = store.img_start[img][:, None] + r[None, :]  # [B, R]
     roi_ok = (r[None, :] < n_box[:, None])[..., None]
@@ -154,4 +180,4 @@ def gather_image_features(
         out = tab[rows]
         return torch.where(roi_ok, out, torch.zeros_like(out))
 
-    return take(store.features), take(store.bb)
+    return take(store.features), take(store.norm_bb), take(store.bb)

@@ -6,13 +6,14 @@ It draws the same numbers in the same order from `np.random.RandomState`, so
 a seed gives the JAX package's split array for array (a CPU test checks).
 It exists because the port runs without the JAX package, and fixtures.py
 imports h5py at module top, which the GPU machine may not have. Adaptive
-layout only: 10-100 rois per image, 2048-d features, 3,129 answers.
+layout only: 10-100 rois per image, 2048-d features, 3,129 answers; with
+`semantic`, a per-image [100, 100] table of semantic edge labels 0-15 too.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List
+from typing import List, Optional
 
 import numpy as np
 
@@ -72,6 +73,7 @@ class SyntheticDataset:
     num_ans: int
     label2ans: List[str]
     dictionary: Dictionary
+    semantic_adj: Optional[np.ndarray] = None  # [num_images, 100, 100] int32
 
     @property
     def ntoken(self) -> int:
@@ -92,6 +94,7 @@ def synthetic_dataset(
     v_dim: int = 2048,
     num_ans: int = 3129,
     seed: int = 0,
+    semantic: bool = False,
     name: str = "train",
 ) -> SyntheticDataset:
     rng = np.random.RandomState(seed)
@@ -109,6 +112,9 @@ def synthetic_dataset(
         norms[off : off + c] = nb
         pos[i] = (off, off + c)
         off += c
+    semantic_adj = None
+    if semantic:  # drawn here, between the boxes and the answers, as JAX does
+        semantic_adj = rng.randint(0, 16, size=(num_images, 100, 100)).astype(np.int32)
 
     n_lab = rng.randint(1, 4, size=num_questions)
     offsets = np.zeros(num_questions + 1, np.int64)
@@ -138,4 +144,5 @@ def synthetic_dataset(
         num_ans=num_ans,
         label2ans=["ans%d" % i for i in range(num_ans)],
         dictionary=d,
+        semantic_adj=semantic_adj,
     )

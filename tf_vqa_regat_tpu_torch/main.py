@@ -10,8 +10,8 @@ configs (counterpart of main.py):
 and no visible GPU the run fails; it never moves to the CPU on its own.
 `--device cpu` runs every kernel's plain PyTorch version.
 
-Ported so far: `--mode train`, `eval` and `serve` on `--synthetic` data.
-Training writes `{output}/{relation_type}-{fusion}-pretrained_model.npz`
+Ported so far: `--mode train`, `eval` and `serve` on `--synthetic` data, for
+implicit, spatial and semantic relations with BUTD fusion. Training writes `{output}/{relation_type}-{fusion}-pretrained_model.npz`
 (params.py), which eval and serve read. Other modes raise
 NotImplementedError naming the ROADMAP item that ports them.
 """
@@ -69,7 +69,8 @@ def resolve_device(name: str) -> torch.device:
 def build_dataset(cfg: Config, name: str = "val") -> SyntheticDataset:
     """The JAX entry point's synthetic split: `val` (seed + 1,
     synthetic_val_size questions), which eval and serve read, or `train`
-    (seed, synthetic_train_size questions)."""
+    (seed, synthetic_train_size questions); with per-image semantic edge
+    labels when the relation type is semantic."""
     if not cfg.synthetic:
         raise NotImplementedError(
             "real VQA features are not ported yet (ROADMAP Queue A item 6, "
@@ -85,7 +86,8 @@ def build_dataset(cfg: Config, name: str = "val") -> SyntheticDataset:
         else (cfg.synthetic_val_size, cfg.seed + 1)
     )
     return synthetic_dataset(
-        num_images=max(size // 8, 8), num_questions=size, seed=seed, name=name
+        num_images=max(size // 8, 8), num_questions=size, seed=seed,
+        semantic=cfg.relation_type == "semantic", name=name,
     )
 
 

@@ -1,5 +1,6 @@
-"""The ReGAT network for implicit relations with BUTD fusion (counterpart of
-tf_vqa_regat_tpu/models/regat.py: `init_regat` + `apply_regat`).
+"""The ReGAT network with BUTD fusion, for implicit, spatial and semantic
+relations (counterpart of tf_vqa_regat_tpu/models/regat.py: `init_regat` +
+`apply_regat` with impl="pallas").
 
 Submodules carry the names of the JAX parameter pytree, so state-dict keys
 are the pytree paths with '/' written as '.' (params.py). The same forward
@@ -16,6 +17,9 @@ The batch is a dict of tensors on the model's device:
   bb        [b, R, 4]     float32   raw boxes
   question  [b, 14]       int       token ids (pad = ntoken)
   num_boxes [b]           int       valid roi count per example
+  norm_bb   [b, R, 6]     float32   normalised boxes (spatial, without adj_label)
+  adj_label [b, R, R]     int       edge labels (semantic; spatial builds its
+                                    own from the boxes when it is absent)
 """
 
 from __future__ import annotations
@@ -33,24 +37,30 @@ from tf_vqa_regat_tpu_torch.models.language import (
     QuestionSelfAttention,
     WordEmbedding,
 )
-from tf_vqa_regat_tpu_torch.models.relation import ImplicitRelationEncoder
+from tf_vqa_regat_tpu_torch.models.relation import (
+    ExplicitRelationEncoder,
+    ImplicitRelationEncoder,
+)
 from tf_vqa_regat_tpu_torch.ops.position import position_matrix
+from tf_vqa_regat_tpu_torch.ops.spatial_graph import (
+    broadcast_adj_labels,
+    build_spatial_graph,
+)
+
+RELATION_TYPES = ("implicit", "spatial", "semantic")
 
 
 def check_supported(cfg: Config) -> None:
-    """Raise for a family outside this slice, naming the ROADMAP item that
-    ports it. (Flags of features not ported at all, such as bf16, are not in
-    the port's Config: the parser rejects them.)"""
-    unsupported = {
-        "relation_type": (cfg.relation_type != "implicit",
-                          "ROADMAP Queue A item 4, explicit relations"),
-        "fusion": (cfg.fusion != "butd", "ROADMAP Queue A item 5, BAN and MuTAN"),
-    }
-    for flag, (bad, item) in unsupported.items():
-        if bad:
-            raise NotImplementedError(
-                f"--{flag} {getattr(cfg, flag)!r} is not ported yet ({item})"
-            )
+    """Raise for a family outside the port so far, naming the ROADMAP item
+    that ports it. (Flags of features not ported at all, such as bf16, are
+    not in the port's Config: the parser rejects them.)"""
+    if cfg.relation_type not in RELATION_TYPES:
+        raise ValueError(f"unknown relation_type {cfg.relation_type!r}")
+    if cfg.fusion != "butd":
+        raise NotImplementedError(
+            f"--fusion {cfg.fusion!r} is not ported yet (ROADMAP Queue A item 5, "
+            f"BAN and MuTAN)"
+        )
 
 
 class ReGAT(nn.Module):
@@ -63,16 +73,27 @@ class ReGAT(nn.Module):
         g = generator if generator is not None else torch.Generator().manual_seed(cfg.seed)
         self.padding_idx = ntoken
         self.nongt_dim = cfg.nongt_dim
+        self.relation_type = cfg.relation_type
         drop = cfg.dropout
         graph_drop = 0.2 if drop > 0 else 0.0
         self.w_emb = WordEmbedding(ntoken, 300, cfg.op, g, drop)
         self.q_emb = QuestionEmbedding(cfg.word_dim, cfg.num_hid, g)
         self.q_att = QuestionSelfAttention(cfg.num_hid, g, drop)
-        self.v_relation = ImplicitRelationEncoder(
-            v_dim, cfg.num_hid, cfg.relation_dim, cfg.dir_num,
-            cfg.imp_pos_emb_dim, cfg.num_heads, cfg.num_steps,
-            cfg.residual_connection, g, graph_drop,
-        )
+        if cfg.relation_type == "implicit":
+            self.v_relation = ImplicitRelationEncoder(
+                v_dim, cfg.num_hid, cfg.relation_dim, cfg.dir_num,
+                cfg.imp_pos_emb_dim, cfg.num_heads, cfg.num_steps,
+                cfg.residual_connection, g, graph_drop,
+            )
+        else:
+            self.label_num = (
+                cfg.spa_label_num if cfg.relation_type == "spatial" else cfg.sem_label_num
+            )
+            self.v_relation = ExplicitRelationEncoder(
+                v_dim, cfg.num_hid, cfg.relation_dim, cfg.dir_num, self.label_num,
+                cfg.num_heads, cfg.num_steps, cfg.nongt_dim, cfg.residual_connection,
+                cfg.label_bias, g, graph_drop,
+            )
         self.joint_emb = BUTD(cfg.relation_dim, cfg.num_hid, cfg.num_hid, g, graph_drop)
         self.classifier = Classifier(cfg.num_hid, cfg.num_hid * 2, num_ans, g, drop)
 
@@ -90,8 +111,18 @@ class ReGAT(nn.Module):
         w_emb = self.w_emb(batch["question"], self.padding_idx, generator)
         q_seq, q_last = self.q_emb(w_emb)
         q_vec = self.q_att(q_seq, generator)
-        pos_mat = position_matrix(batch["bb"], self.nongt_dim)
-        v_emb = self.v_relation(features, pos_mat, q_vec, roi_mask, generator)
+        if self.relation_type == "implicit":
+            pos_mat = position_matrix(batch["bb"], self.nongt_dim)
+            v_emb = self.v_relation(features, pos_mat, q_vec, roi_mask, generator)
+        else:
+            adj_label = batch.get("adj_label")
+            if adj_label is None:
+                if self.relation_type != "spatial":
+                    raise ValueError("semantic relation requires adj_label in the batch")
+                # spatial edges are a function of the boxes: built in the step
+                adj_label = build_spatial_graph(batch["bb"], batch["norm_bb"])
+            adj = broadcast_adj_labels(adj_label, self.label_num)
+            v_emb = self.v_relation(features, adj, q_vec, roi_mask, generator)
         joint = self.joint_emb(v_emb, q_last, roi_mask, generator)
         return self.classifier(joint, generator)
 
@@ -101,7 +132,10 @@ def trainable_mask(model: ReGAT, emb2_trainable: bool) -> Dict[str, bool]:
     `trainable_mask` (regat.py:246-283). Frozen are the second word-embedding
     table (until a TF-IDF init, not ported, unfreezes it) and the biases that
     feed a softmax directly, whose true gradient is zero: q_att's scoring
-    bias, each direction's key bias and BUTD's attention bias."""
+    bias, each direction's key bias and BUTD's attention bias. The explicit
+    edge-label FC's bias (`v_relation.gatt.bias.layers.0.b`) also has a true
+    gradient of zero (it shifts every edge key alike) but stays trainable,
+    as JAX leaves it."""
     frozen = {
         "q_att.linear2.layers.%d.b" % (len(model.q_att.linear2.layers) - 1),
         "joint_emb.linear.layers.%d.b" % (len(model.joint_emb.linear.layers) - 1),

@@ -1,13 +1,18 @@
-"""One direction of implicit graph self-attention (counterpart of
-tf_vqa_regat_tpu/ops/graph_attention.py, `graph_attention_apply` on its
-fused-kernel branch).
+"""One direction of graph self-attention (counterpart of
+tf_vqa_regat_tpu/ops/graph_attention.py, `graph_attention_apply` with
+impl="pallas").
 
 Per direction: Q and K weight-normed FCNets; V projected FIRST by the grouped
 weight-normed kernel (softmax @ (V @ W) == (softmax @ V) @ W, so the
-[b, R, H, D] attended values never exist); then the fused implicit attention
-(ops/kernels/implicit_attention.py) builds the geometry bias from the
-position matrix and attends; the shared output bias is added last. On a CUDA
-tensor that is one kernel launch per direction.
+[b, R, H, D] attended values never exist); then one fused kernel attends, and
+the shared output bias is added last. On a CUDA tensor that is one kernel
+launch per direction:
+- implicit (a position matrix, `pair_pos_fc`): the fused implicit attention
+  (ops/kernels/implicit_attention.py, B1) builds the geometry bias itself;
+- explicit (an adjacency mask and an edge-label bias, no `pair_pos_fc`):
+  the bias is combined here in JAX's order (zeros [b, R, 1, n], + label
+  bias, adjacency -> -9e15, + key mask), shared across heads, and the fused
+  masked attention (ops/kernels/graph_attention.py, B2) attends.
 
 In training, dropout at `drop_rate` precedes the Q and K projections
 (FCNet), and the sinusoid embedding's uint8 keep-mask [b, R, n, P] is drawn
@@ -23,7 +28,9 @@ import torch
 from torch import nn
 
 from tf_vqa_regat_tpu_torch.nn import glorot_uniform, keep_mask
+from tf_vqa_regat_tpu_torch.ops.kernels.graph_attention import fused_graph_attention
 from tf_vqa_regat_tpu_torch.ops.kernels.implicit_attention import (
+    NEG_INF,
     fused_implicit_graph_attention,
 )
 from tf_vqa_regat_tpu_torch.ops.weight_norm import FCNet, wn_scale
@@ -48,7 +55,7 @@ class GroupedProjection(nn.Module):
 
 class GraphSelfAttention(nn.Module):
     """Parameters as the JAX `graph_attention_init` pytree: `query`, `key`,
-    `out`, `pair_pos_fc`."""
+    `out` and, when `pos_emb_dim` > 0 (implicit), `pair_pos_fc`."""
 
     def __init__(
         self, hidden_dim: int, num_heads: int, pos_emb_dim: int,
@@ -64,22 +71,30 @@ class GraphSelfAttention(nn.Module):
             [hidden_dim, hidden_dim], generator, activation=None, drop_rate=drop_rate
         )
         self.out = GroupedProjection(hidden_dim, num_heads, generator)
-        self.pair_pos_fc = FCNet([pos_emb_dim, num_heads], generator, activation=None)
+        self.pair_pos_fc = (
+            FCNet([pos_emb_dim, num_heads], generator, activation=None)
+            if pos_emb_dim > 0 else None
+        )
 
     def forward(
         self,
         roi: torch.Tensor,  # [b, R, D]
-        pos_mat: torch.Tensor,  # [b, R, n, 4]
+        pos_mat: Optional[torch.Tensor],  # [b, R, n, 4] (implicit), or None
         key_mask: torch.Tensor,  # [b, n] bool
         generator: Optional[torch.Generator] = None,
+        adj_mask: Optional[torch.Tensor] = None,  # [b, R, n], > 0 = edge (explicit)
+        label_bias: Optional[torch.Tensor] = None,  # [b, R, n] (explicit)
     ) -> torch.Tensor:  # [b, R, D]
         b, R, D = roi.shape
-        n = pos_mat.shape[2]
+        n = key_mask.shape[1]
         H = self.num_heads
         trunc = roi[:, :n]
         q = self.query(roi, generator).view(b, R, H, D // H)
         k = self.key(trunc, generator).view(b, n, H, D // H)
         vw = torch.einsum("bnd,hdo->bnho", trunc, self.out.kernel()).contiguous()
+        if pos_mat is None:
+            out = fused_graph_attention(q, k, vw, explicit_bias(adj_mask, label_bias, key_mask))
+            return out.reshape(b, R, D) + self.out.b
         layer = self.pair_pos_fc.layers[0]
         drop_rate, dropmask = 0.0, None
         if self.training and self.drop_rate > 0.0:
@@ -90,3 +105,16 @@ class GraphSelfAttention(nn.Module):
             q, k, vw, pos_mat, layer.kernel(), layer.b, key_mask, drop_rate, dropmask
         )
         return out.reshape(b, R, D) + self.out.b
+
+
+def explicit_bias(
+    adj_mask: torch.Tensor, label_bias: torch.Tensor, key_mask: torch.Tensor
+) -> torch.Tensor:
+    """[b, R, 1, n] f32, shared across heads, built in the JAX order
+    (graph_attention.py:180, 218-227) so that the mask values round alike:
+    a non-edge valid key sits at -9e15, a padded key at -9e15 more."""
+    bias = torch.zeros(label_bias.shape[:2] + (1, label_bias.shape[2]),
+                       dtype=torch.float32, device=label_bias.device)
+    bias = bias + label_bias[:, :, None, :]
+    bias = torch.where((adj_mask > 0)[:, :, None, :], bias, NEG_INF)
+    return bias + torch.where(key_mask[:, None, None, :], 0.0, NEG_INF)

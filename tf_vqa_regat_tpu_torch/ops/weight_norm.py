@@ -4,7 +4,8 @@ tf_vqa_regat_tpu/ops/weight_norm.py).
 The kernel is ``g * v / ||v||_F`` with a SCALAR g and the norm over the whole
 tensor (the reference's WeightNorm, not torch's per-column weight_norm), g
 initialised to the norm of the fresh kernel. Kernels are kept in the JAX
-layout [in, out], so parameters carry across leaf for leaf. FCNet puts the
+layout [in, out], so parameters carry across leaf for leaf; a layer built
+with `use_bias=False` has no `b`, as the JAX pytree has none. FCNet puts the
 (train-only) dropout before each dense and the activation after it.
 """
 
@@ -26,20 +27,23 @@ def wn_scale(v: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
 
 
 class WNLinear(nn.Module):
-    """Parameters `v` [in, out], scalar `g`, `b` [out]."""
+    """Parameters `v` [in, out], scalar `g` and, with `use_bias`, `b` [out]."""
 
-    def __init__(self, in_dim: int, out_dim: int, generator: torch.Generator):
+    def __init__(
+        self, in_dim: int, out_dim: int, generator: torch.Generator, use_bias: bool = True
+    ):
         super().__init__()
         v = glorot_uniform((in_dim, out_dim), generator)
         self.v = nn.Parameter(v)
         self.g = nn.Parameter(torch.linalg.vector_norm(v))
-        self.b = nn.Parameter(torch.zeros(out_dim))
+        self.b = nn.Parameter(torch.zeros(out_dim)) if use_bias else None
 
     def kernel(self) -> torch.Tensor:
         return self.v * wn_scale(self.v, self.g)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return torch.matmul(x, self.kernel()) + self.b
+        y = torch.matmul(x, self.kernel())
+        return y if self.b is None else y + self.b
 
 
 class FCNet(nn.Module):
@@ -50,10 +54,12 @@ class FCNet(nn.Module):
     def __init__(
         self, dims: Sequence[int], generator: torch.Generator,
         activation: Optional[str] = "relu", drop_rate: float = 0.0,
+        use_bias: bool = True,
     ):
         super().__init__()
         self.layers = nn.ModuleList(
-            WNLinear(dims[i], dims[i + 1], generator) for i in range(len(dims) - 1)
+            WNLinear(dims[i], dims[i + 1], generator, use_bias)
+            for i in range(len(dims) - 1)
         )
         self.act = _ACTS[activation]
         self.drop_rate = drop_rate

@@ -1,12 +1,13 @@
-"""Where a train step's time goes on the card: the full-width model of
-configs/butd_vqa.json at its batch size (256), one batch of the synthetic
-train split, traced with torch.profiler.
+"""Where a train step's time goes on the card: the full-width model of a
+config (default configs/butd_vqa.json) at its batch size (256), one batch of
+the synthetic train split, traced with torch.profiler.
 
-    python -m tf_vqa_regat_tpu_torch.profile_step [--steps 5] [--trace out.json]
+    python -m tf_vqa_regat_tpu_torch.profile_step [--config configs/spatial_vqa.json]
+        [--steps 5] [--trace out.json]
 
 Prints, for the traced steps: the step time on the host clock with and
 without the profiler, the device's busy time (sum of kernel times) and idle
-share, kernels launched per step, the shares of B1 (both variants) and of
+share, kernels launched per step, the shares of B1 (both variants), B2 and
 the GEMMs, and the kernels that took the most time. Needs a CUDA device;
 TF32 is off, as in chip_smoke.py.
 """
@@ -37,6 +38,7 @@ GEMM = re.compile(r"gemm|xmma|cutlass|gemv", re.IGNORECASE)
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--config", default=CONFIG, help="JSON config (default %(default)s)")
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--trace", default="", help="write a Chrome trace here")
     args = ap.parse_args()
@@ -50,7 +52,7 @@ def main() -> None:
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
 
-    cfg = parse_with_config(["--config", CONFIG, "--synthetic", "--mode", "train"])
+    cfg = parse_with_config(["--config", args.config, "--synthetic", "--mode", "train"])
     ds = build_dataset(cfg, "train")
     store = DeviceStore(ds, device)
     idx = next(store.epoch_indices(0, cfg.batch_size, True, cfg.seed))
@@ -79,13 +81,16 @@ def main() -> None:
             for e in kernels}
     total = sum(ms for ms, _ in busy.values())
     b1 = sum(ms for k, (ms, _) in busy.items() if "implicit_attention" in k)
+    b2 = sum(ms for k, (ms, _) in busy.items() if "graph_attention_kernel" in k)
     gemm = sum(ms for k, (ms, _) in busy.items() if GEMM.search(k))
-    print(f"train step b={cfg.batch_size} at the butd_vqa.json widths, f32, TF32 off, on {smi}")
+    print(f"train step b={cfg.batch_size} at the widths of {os.path.basename(args.config)} "
+          f"({cfg.relation_type}), f32, TF32 off, on {smi}")
     print(f"host ms/step: {plain_ms:.3f} (no profiler), {traced_ms:.3f} (profiled)")
     print(f"device busy ms/step: {total:.3f}; idle share of the profiled step: "
           f"{1 - total / traced_ms:.3f}, of the unprofiled step: {max(0.0, 1 - total / plain_ms):.3f}")
     print(f"kernels per step: {sum(c for _, c in busy.values()):.0f}; B1 share of busy "
-          f"{b1 / total:.3f} ({b1:.3f} ms); GEMM share {gemm / total:.3f} ({gemm:.3f} ms)")
+          f"{b1 / total:.3f} ({b1:.3f} ms); B2 share {b2 / total:.3f} ({b2:.3f} ms); "
+          f"GEMM share {gemm / total:.3f} ({gemm:.3f} ms)")
     print("top kernels (ms/step, launches/step, name):")
     for k, (ms, c) in sorted(busy.items(), key=lambda kv: -kv[1][0])[:15]:
         print(f"  {ms:9.3f} {c:6.0f}  {k[:110]}")

@@ -34,7 +34,7 @@ import torch
 
 from tf_vqa_regat_tpu_torch.config import Config
 from tf_vqa_regat_tpu_torch.data.dictionary import encode_question
-from tf_vqa_regat_tpu_torch.data.store import ImageStore, gather_image_features
+from tf_vqa_regat_tpu_torch.data.store import ImageStore, gather_adj, gather_image_features
 from tf_vqa_regat_tpu_torch.data.synthetic import SyntheticDataset
 from tf_vqa_regat_tpu_torch.models.regat import ReGAT
 
@@ -77,14 +77,17 @@ class InferenceEngine:
     @torch.inference_mode()
     def logits(self, question, img, valid) -> torch.Tensor:
         """[B, num_answers] for token ids [B, T], image indices [B] and
-        validity [B]; invalid (padded) slots get zero boxes."""
+        validity [B]; invalid (padded) slots get zero boxes and no edges."""
         n_box = torch.where(
             valid,
             torch.clamp(self.store.img_len[img], max=self.num_rois),
             torch.zeros_like(img),
         )
-        features, bb = gather_image_features(self.store, img, n_box, self.num_rois)
-        batch = {"features": features, "bb": bb, "question": question, "num_boxes": n_box}
+        features, norm_bb, bb = gather_image_features(self.store, img, n_box, self.num_rois)
+        batch = {"features": features, "norm_bb": norm_bb, "bb": bb, "question": question,
+                 "num_boxes": n_box}
+        if self.store.adj is not None:
+            batch["adj_label"] = gather_adj(self.store, img, self.num_rois, valid)
         return self.model(batch)
 
     @torch.inference_mode()
