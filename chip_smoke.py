@@ -26,7 +26,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
      bias shared across heads [b, R, 1, n] as well as per head [b, R, H, n];
      times of the kernel, the plain version and, as the library yardstick,
      torch's scaled_dot_product_attention with a float mask on tensors
-     already laid out for it;
+     already laid out for it; the tiling plan used at each b and the
+     kernel's ptxas report (registers, spills, shared memory). With
+     `--baseline DIR` (another checkout of the repo) the B2 wrapper of DIR,
+     built from DIR's source, is timed in turns with this one on the same
+     inputs (v2, shared bias);
   6. B2's gradients: dq, dk, dvw and dbias through the `GraphAttention`
      Function against torch autograd of the plain version at b = 32, 256;
   7. one train step at the full widths and b=256 of each of
@@ -60,10 +64,13 @@ It imports nothing of JAX and nothing of the JAX package (tf_vqa_regat_tpu).
 
 from __future__ import annotations
 
+import argparse
 import contextlib
+import importlib.util
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -411,20 +418,81 @@ def graph_flops(b):
     return 2.0 * b * s["R"] * s["H"] * s["n"] * (s["dh"] + s["o"])
 
 
-def check_graph_kernel(device):
+def ptxas_report(text: str) -> dict:
+    """Per kernel entry of an `nvcc -Xptxas -v` log: registers, spill
+    stores and loads, static shared memory (bytes)."""
+    report, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)", line)
+        if m:
+            name = m.group(1)
+            report.setdefault(name, {})
+            continue
+        if name is None:
+            continue
+        for key, pattern in (("registers", r"Used (\d+) registers"),
+                             ("spill_stores", r"(\d+) bytes spill stores"),
+                             ("spill_loads", r"(\d+) bytes spill loads"),
+                             ("static_smem", r"(\d+) bytes smem")):
+            m = re.search(pattern, line)
+            if m:
+                report[name][key] = int(m.group(1))
+    return report
+
+
+def graph_resources() -> dict:
+    """B2's ptxas report per mode (v2: `graph_attention_kernel<false>`, v1:
+    `<true>`), from the log its build left beside the library (ptxas names
+    static shared memory only where there is some; the dynamic shared memory
+    is the tiling plan's `smem_bytes`)."""
+    from tf_vqa_regat_tpu_torch.ops.kernels import build
+    from tf_vqa_regat_tpu_torch.ops.kernels import graph_attention as ga
+
+    report = ptxas_report(build.library_path(ga.SOURCE).with_suffix(".log").read_text())
+    modes = {}
+    for name, res in report.items():
+        if "graph_attention_kernel" in name:
+            modes["v1" if "ILb1E" in name else "v2"] = {"static_smem": 0, **res}
+    if set(modes) != {"v1", "v2"}:
+        fail(f"no ptxas report for both modes of B2: {sorted(report)}")
+    return modes
+
+
+def load_baseline(path):
+    """The B2 wrapper module of another checkout at `path`, reading and
+    building that checkout's CUDA source (its own library, named by the
+    source's hash); None without `path`."""
+    if path is None:
+        return None
+    from pathlib import Path
+
+    pkg = Path(path).resolve() / "tf_vqa_regat_tpu_torch"
+    spec = importlib.util.spec_from_file_location(
+        "baseline_graph_attention", pkg / "ops" / "kernels" / "graph_attention.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    mod.SOURCE = pkg / "csrc" / "graph_attention.cu"
+    mod.KERNEL.lib()
+    return mod
+
+
+def check_graph_kernel(device, resources, baseline=None):
     """B2 in both modes vs its plain version at b = 1, 8, 32, 256, with the
     shared and the per-head bias, and the degenerate rows of graph_inputs.
-    Returns per-b rows (times with the shared bias, as the model passes it)."""
+    Returns per-b rows (times with the shared bias, as the model passes it).
+    `baseline`: another checkout's B2 module, timed in turns with this one."""
     import torch
     import torch.nn.functional as F
 
     from tf_vqa_regat_tpu_torch.ops.kernels import graph_attention as ga
 
+    s = SERVE_SHAPES
     rows = []
     for b in (1, 8, 32, 256):
         x = graph_inputs(b, device, seed=200 + b)
         q, k, vw = x["q"], x["k"], x["vw"]
-        row = dict(b=b)
+        plan = ga.tiling_plan(b, s["R"], s["n"], s["H"], s["dh"], s["o"])
+        row = dict(b=b, plan=plan._asdict(), ptxas=resources)
         for per_head in (False, True):
             mode = "v1" if per_head else "v2"
             for which in ("shared", "per_head"):
@@ -462,17 +530,20 @@ def check_graph_kernel(device):
         sdpa = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask).permute(0, 2, 1, 3)
         row["sdpa_vs_v1_plain"] = (
             sdpa - ga.graph_attention_plain(q, k, vw, x["shared"], True)).abs().max().item()
-        times = median_ms_interleaved([
-            lambda: ga.fused_graph_attention(q, k, vw, x["shared"]),
-            lambda: ga.graph_attention_plain(q, k, vw, x["shared"]),
-            lambda: ga.fused_graph_attention(q, k, vw, x["shared"], True),
-            lambda: ga.graph_attention_plain(q, k, vw, x["shared"], True),
-            lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask),
-            lambda: ga.fused_graph_attention(q, k, vw, x["per_head"]),
-        ])
-        for key, t in zip(("ms", "plain_ms", "v1_ms", "v1_plain_ms", "sdpa_ms",
-                           "per_head_bias_ms"), times):
-            row[key] = t
+        fns = {
+            "ms": lambda: ga.fused_graph_attention(q, k, vw, x["shared"]),
+            "plain_ms": lambda: ga.graph_attention_plain(q, k, vw, x["shared"]),
+            "v1_ms": lambda: ga.fused_graph_attention(q, k, vw, x["shared"], True),
+            "v1_plain_ms": lambda: ga.graph_attention_plain(q, k, vw, x["shared"], True),
+            "sdpa_ms": lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask),
+            "per_head_bias_ms": lambda: ga.fused_graph_attention(q, k, vw, x["per_head"]),
+        }
+        if baseline is not None:
+            base = baseline.fused_graph_attention(q, k, vw, x["shared"])
+            row["baseline_vs_plain"] = (base - ga.graph_attention_plain(
+                q, k, vw, x["shared"])).abs().max().item()
+            fns["baseline_ms"] = lambda: baseline.fused_graph_attention(q, k, vw, x["shared"])
+        row.update(zip(fns, median_ms_interleaved(list(fns.values()))))
         out_bytes = nbytes(q) // q.shape[3] * vw.shape[3]
         row.update(bound(nbytes(q, k, vw, x["shared"]) + out_bytes, graph_flops(b)))
         row["per_head_bias_bound_ms"] = bound(
@@ -869,6 +940,10 @@ def build_kernels():
 
 
 def main() -> None:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--baseline", help="another checkout whose B2 phase 5 times "
+                        "in turns with this one")
+    args = parser.parse_args()
     if not os.path.isdir(os.path.join(REPO, "tf_vqa_regat_tpu_torch")):
         fail("run from the root of a checkout: tf_vqa_regat_tpu_torch/ is missing")
     sys.path.insert(0, REPO)
@@ -894,7 +969,7 @@ def main() -> None:
     smi_line = smi.stdout.strip().splitlines()[0]
     rows = check_kernels(device)
     train_rows = check_train_kernel(device)
-    graph_rows = check_graph_kernel(device)
+    graph_rows = check_graph_kernel(device, graph_resources(), load_baseline(args.baseline))
     check_graph_grads(device)
     for family in CONFIGS:
         split = check_train_step(device, family)

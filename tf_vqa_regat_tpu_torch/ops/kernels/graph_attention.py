@@ -31,19 +31,74 @@ Routing in `fused_graph_attention`:
 - otherwise a CPU tensor runs `graph_attention_plain` and a CUDA tensor
   launches the kernel.
 A CUDA call raises on a dtype, shape, device or layout the kernel does not
-take; there is no fallback.
+take, and on shapes whose tiling plan does not fit (`tiling_plan`); there is
+no fallback.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
+from typing import NamedTuple
 
 import torch
 
 from tf_vqa_regat_tpu_torch.ops.kernels import build
 
 SOURCE = build.CSRC_DIR / "graph_attention.cu"
+
+# The kernel's constants (csrc/graph_attention.cu): thread groups per block
+# (each with its own tile buffers) and query rows per tile. The plan aims at
+# SMS blocks in flight (an H100 SXM's SMs) within the shared memory one block
+# may use.
+GROUPS = 2
+TILE = 5
+SMS = 132
+SMEM_LIMIT = 232_448
+
+
+class TilingPlan(NamedTuple):
+    """How one launch cuts the work: a block per `rows` query rows of one
+    example (a grid of `grid` = (chunks per example, b) blocks), and the
+    dynamic shared memory each block takes."""
+
+    rows: int
+    grid: tuple[int, int]
+    smem_bytes: int
+
+
+def smem_bytes(H: int, dh: int, n: int, o: int) -> int:
+    """Shared memory of one block (the kernel's `Layout`): K [H, n, dh+4] and
+    VW [nP, H, o], and per group a q tile [TILE, H, dh+4], the weights
+    [TILE, H, nP] and the maxima [TILE, H] (rounded up to 4), in f32; nP = n
+    rounded up to 4."""
+    nP, dP = -(-n // 4) * 4, dh + 4
+    group = TILE * H * dP + TILE * H * nP + -(-TILE * H // 4) * 4
+    return 4 * (H * n * dP + nP * H * o + GROUPS * group)
+
+
+def tiling_plan(b: int, R: int, n: int, H: int, dh: int, o: int) -> TilingPlan:
+    """The launch's plan for q [b, R, H, dh], k [b, n, H, dh], vw [b, n, H, o].
+
+    Each block stages its example's K and VW once, so the fewer blocks per
+    example the better, as long as SMS blocks or more are in flight: the
+    chunk starts at R / ceil(SMS / b) rows and shrinks until the grid holds
+    SMS blocks, but never below 8 rows (a whole example at b=256, 20 rows at
+    b=32, 8 at b <= 8). Raises ValueError on a shape the kernel does not
+    take, before anything is built."""
+    if min(b, R, n, H, dh, o) < 1:
+        raise ValueError(f"empty graph attention: b={b} R={R} n={n} H={H} dh={dh} o={o}")
+    if dh % 4 or o % 4:
+        raise ValueError(f"the kernel reads 16-byte vectors: dh={dh} and o={o} must be "
+                         "multiples of 4")
+    smem = smem_bytes(H, dh, n, o)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"H={H}, dh={dh}, n={n}, o={o} need {smem} B of shared memory per "
+                         f"block, over the {SMEM_LIMIT} B a block may use")
+    rows = min(R, max(8, -(-R // -(-SMS // b))))
+    while rows > 8 and b * -(-R // rows) < SMS:
+        rows -= 1
+    return TilingPlan(rows, (-(-R // rows), b), smem)
 
 
 def _weights(q, k, bias, per_head):
@@ -82,58 +137,106 @@ def graph_attention_backward(g, q, k, vw, bias, per_head):
     return dq, dk, dvw, daff
 
 
+class _Launch(ctypes.Structure):
+    """The launch's scalars (`GaLaunch` in the source), built once per shape
+    and bias strides so that a call passes one pointer for them."""
+
+    _fields_ = [(name, ctypes.c_int) for name in
+                ("sb", "sr", "sh", "b", "R", "n", "H", "dh", "o", "rows", "smem")] + [
+                ("scale", ctypes.c_float)]
+
+
 class _Kernel:
     """The compiled kernel, built at first launch, and its launch counts:
-    `launches` of the global-max (v2) mode, `per_head_launches` of v1."""
+    `launches` of the global-max (v2) mode, `per_head_launches` of v1.
+    Per-shape work (the tiling plan, the launch's scalars, the shared-memory
+    attribute per device) is done once and cached."""
 
     def __init__(self):
         self.launches = 0
         self.per_head_launches = 0
         self._lib = None
+        self._launch_args = {}  # (shapes, bias strides) -> (_Launch, copy the bias)
+        self._smem_set = {}  # device index -> dynamic shared memory allowed
 
     def lib(self) -> ctypes.CDLL:
         if self._lib is None:
             lib = build.load(SOURCE)
-            p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-            lib.regat_graph_attention_fwd.argtypes = (
-                [p] * 5 + [i] * 3 + [f] + [i] * 7 + [p]
-            )
+            p, i = ctypes.c_void_p, ctypes.c_int
+            lib.regat_graph_attention_fwd.argtypes = [p] * 6 + [i, p]
             lib.regat_graph_attention_fwd.restype = i
-            lib.regat_graph_attention_smem_bytes.argtypes = [i] * 3
+            lib.regat_graph_attention_smem_bytes.argtypes = [i] * 4
             lib.regat_graph_attention_smem_bytes.restype = ctypes.c_size_t
+            lib.regat_graph_attention_set_smem.argtypes = [i]
+            lib.regat_graph_attention_set_smem.restype = i
+            # the plan's shared memory must be the kernel's
+            for shape in ((16, 64, 20, 64), (4, 8, 10, 12), (3, 4, 1, 4)):
+                want = lib.regat_graph_attention_smem_bytes(*shape)
+                if smem_bytes(*shape) != want:
+                    raise RuntimeError(f"tiling plan and kernel disagree on shared memory "
+                                       f"for (H, dh, n, o) = {shape}: {smem_bytes(*shape)} "
+                                       f"vs {want}")
             self._lib = lib
         return self._lib
 
+    def _args(self, q, k, vw, bias) -> tuple[_Launch, bool]:
+        """The launch's scalars for these inputs, and whether the bias must be
+        copied (broadcast along its keys), after the checks that depend only
+        on shapes and strides (cached with them)."""
+        key = (q.shape, k.shape, vw.shape, bias.shape, bias.stride())
+        cached = self._launch_args.get(key)
+        if cached is None:
+            b, R, H, dh = q.shape
+            n, o = k.shape[1], vw.shape[3]
+            for name, t, shape in (("k", k, (b, n, H, dh)), ("vw", vw, (b, n, H, o))):
+                if tuple(t.shape) != shape:
+                    raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
+            view = _expand_bias(bias, (b, R, H, n))
+            if max(view.stride()) >= 2**31:
+                raise ValueError(f"bias strides {view.stride()} exceed the kernel's int32")
+            plan = tiling_plan(b, R, n, H, dh, o)
+            args = _Launch(*view.stride()[:3], b, R, n, H, dh, o, plan.rows,
+                           plan.smem_bytes, 1.0 / math.sqrt(dh))
+            cached = self._launch_args[key] = (args, view.data_ptr() != bias.data_ptr())
+        return cached
+
     def __call__(self, q, k, vw, bias, per_head=False):
         """out [b, R, H, o]; `bias` broadcastable to [b, R, H, n]."""
-        if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, vw, bias)):
+        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                        or vw.requires_grad or bias.requires_grad):
             # the launch is opaque to autograd: its output would have no grad_fn
             raise RuntimeError(
                 "the kernel would drop a gradient: call fused_graph_attention "
                 "(which routes through GraphAttention) or run under torch.no_grad()"
             )
-        b, R, H, dh = q.shape
-        n, o = k.shape[1], vw.shape[3]
         dev = q.device
-        f32 = torch.float32
-        _check("q", q, (b, R, H, dh), f32, dev)
-        _check("k", k, (b, n, H, dh), f32, dev)
-        _check("vw", vw, (b, n, H, o), f32, dev)
-        bias = _expand_bias(bias, (b, R, H, n))
-        if bias.device != dev or bias.dtype != f32:
-            raise ValueError(f"bias is {bias.dtype} on {bias.device}, expected {f32} on {dev}")
+        for name, t in (("q", q), ("k", k), ("vw", vw), ("bias", bias)):
+            if t.device != dev or t.dtype != torch.float32:
+                raise ValueError(f"{name} is {t.dtype} on {t.device}, the kernel takes "
+                                 f"torch.float32 on {dev}")
+            if name != "bias" and (not t.is_contiguous() or t.data_ptr() % 16):
+                raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+        args, copy_bias = self._args(q, k, vw, bias)
+        if copy_bias:
+            bias = _expand_bias(bias, (args.b, args.R, args.H, args.n))
         lib = self.lib()
-        smem = lib.regat_graph_attention_smem_bytes(H, dh, n)
-        if smem > 227 * 1024:
-            raise ValueError(f"shapes need {smem} B of shared memory per block")
-        out = torch.empty((b, R, H, o), dtype=f32, device=dev)
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            err = lib.regat_graph_attention_fwd(
-                q.data_ptr(), k.data_ptr(), vw.data_ptr(), bias.data_ptr(), out.data_ptr(),
-                bias.stride(0), bias.stride(1), bias.stride(2),
-                1.0 / math.sqrt(dh), b, R, n, H, dh, o, int(per_head), stream,
-            )
+        if dev.index != torch.cuda.current_device():
+            with torch.cuda.device(dev):
+                return self(q, k, vw, bias, per_head)
+        if self._smem_set.get(dev.index, 0) < args.smem:
+            err = lib.regat_graph_attention_set_smem(args.smem)
+            if err != 0:
+                raise RuntimeError(f"graph attention kernel: {args.smem} B of shared memory "
+                                   f"refused: CUDA error {err}")
+            self._smem_set[dev.index] = args.smem
+        out = q.new_empty((args.b, args.R, args.H, args.o))
+        err = lib.regat_graph_attention_fwd(
+            q.data_ptr(), k.data_ptr(), vw.data_ptr(), bias.data_ptr(), out.data_ptr(),
+            ctypes.addressof(args), int(per_head),
+            # the raw handle of the current stream (what `.cuda_stream` gives,
+            # without building a Stream object on every call)
+            torch._C._cuda_getCurrentRawStream(dev.index),
+        )
         if err != 0:
             raise RuntimeError(f"graph attention kernel launch failed: CUDA error {err}")
         if per_head:
@@ -146,20 +249,10 @@ class _Kernel:
 def _expand_bias(bias: torch.Tensor, shape) -> torch.Tensor:
     """`bias` as a [b, R, H, n] view: broadcast axes get stride 0 (nothing is
     copied); keys must be contiguous, so a bias broadcast along the key axis
-    is copied."""
+    is copied (the kernel's wrapper learns which once per shape and
+    strides)."""
     bias = bias.expand(shape)
     return bias if bias.stride(3) == 1 else bias.contiguous()
-
-
-def _check(name, t, shape, dtype, device):
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} is {t.dtype}, the kernel takes {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
 
 
 KERNEL = _Kernel()
