@@ -7,18 +7,25 @@ Phases, each of which fails the run (non-zero exit, no result line):
   1. the card: name and power limit (nvidia-smi), torch and CUDA versions;
   2. build every CUDA kernel of the port from csrc/, one nvcc per source,
      all started together (timed);
-  3. B1's eval variant against its plain PyTorch version on the card, at the
-     serve shapes (b = 1, 8, 32; R=100, H=16, dh=o=64, n=20, P=64), with key
-     masks from random box counts in 10-100, one fully masked example and
-     one row whose other heads underflow; max abs difference, and per-call
-     times (CUDA events around 10 back-to-back calls, median of 25 rounds
-     taken in turns with the plain version);
+  3. B1's eval variant against its plain PyTorch version on the card (with
+     the pos-FC output summed in f64, as the kernel sums it; the f32 plain
+     version's own difference is printed beside it), at the serve and eval
+     shapes (b = 1, 8, 32, 64; R=100, H=16, dh=o=64, n=20,
+     P=64), with key masks from random box counts in 10-100, one fully
+     masked example and one row whose other heads underflow; max abs
+     difference, and per-call times (CUDA events around 10 back-to-back
+     calls, median of 25 rounds taken in turns with the plain version); the
+     tiling plan used at each b and B1's ptxas report (registers, spills,
+     shared memory) for both variants;
   4. B1's train variant at b = 32 and 256 with a uint8 keep-mask: `out` and
-     the post-relu pos weights `pwr` against the plain version, then the
+     the post-relu pos weights `pwr` against the plain version of 3, two
+     launches on the same inputs giving equal bits, then the
      gradients of (out * G).sum() w.r.t. q, k, vw, w_pos and b_pos through
      the `ImplicitAttention` Function (kernel forward, transcribed backward)
      against torch autograd of the plain version; forward and
-     forward+backward times, timed as in 3;
+     forward+backward times, timed as in 3. With `--baseline DIR` (another
+     checkout of the repo) the B1 wrapper of DIR, built from DIR's source,
+     is timed in turns with this one on the same inputs in 3 and 4;
   5. B2 (both softmax modes: v2's global max, v1's per head) against its
      plain version at b = 1, 8, 32, 256 (R=100, H=16, dh=o=64, n=20), with
      adjacency from the spatial labels of random boxes, an empty adjacency
@@ -28,9 +35,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
      torch's scaled_dot_product_attention with a float mask on tensors
      already laid out for it; the tiling plan used at each b and the
      kernel's ptxas report (registers, spills, shared memory). With
-     `--baseline DIR` (another checkout of the repo) the B2 wrapper of DIR,
-     built from DIR's source, is timed in turns with this one on the same
-     inputs (v2, shared bias);
+     `--baseline DIR` the B2 wrapper of DIR, built from DIR's source, is
+     timed in turns with this one on the same inputs (v2, shared bias);
   6. B2's gradients: dq, dk, dvw and dbias through the `GraphAttention`
      Function against torch autograd of the plain version at b = 32, 256;
   7. one train step at the full widths and b=256 of each of
@@ -83,18 +89,21 @@ from concurrent.futures import ThreadPoolExecutor
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 # Stated tolerances (f32 throughout; TF32 is switched off below):
-# - kernel vs plain: the two sum the pos-FC dot (64 terms) in different
-#   orders, and log(max(relu(x), 1e-6)) turns that ulp-level difference in a
-#   small positive x into a relative one: on an H100 the largest difference
-#   at b=32 (3.8e-4) sat in a head whose only positive pos-FC outputs were
-#   1.2e-4 and 4.6e-3. Away from such heads the two agree to ~1e-5.
+# - B1 vs its plain version: log(max(relu(x), 1e-6)) magnifies any rounding
+#   of the pos-FC output x, a sum of 64 terms of ~0.2 and a bias that may
+#   cancel to just above 1e-6, where an f32 x moves in steps of ~6e-8: two
+#   f32 sums one step apart there can move the output by ~1e-2 (on an H100,
+#   at b=64, two kernels that summed x in f32 differed from the f32 plain
+#   version by 1.3e-3 and 1.4e-2). So the kernel sums x in f64 and rounds it
+#   once, and is held to the plain version with that same x
+#   (`implicit_reference`); the rest of both is f32 and agrees to ~1e-5.
 KERNEL_ATOL = 1e-3
 # - logits, kernel path vs plain path through the whole model, relative to
 #   the largest |logit| (a random model's logits are ~1e-4): the attention
 #   difference passes through the BUTD and classifier matmuls.
 LOGITS_RTOL = 1e-3
-# - train variant's `pwr` against the plain version's: the same 64-term
-#   pos-FC dot summed in another order, values O(1).
+# - train variant's `pwr` against the reference's: both the f32 nearest the
+#   same sum, values O(1).
 PWR_ATOL = 1e-4
 # - gradients of B1, Function (kernel forward + transcribed backward) vs
 #   autograd of the plain version, relative to each tensor's largest
@@ -247,6 +256,25 @@ def kernel_inputs(b, device, seed):
     )
 
 
+def implicit_reference(q, k, vw, pos_mat, w_pos, b_pos, key_mask, drop_rate=0.0,
+                       dropmask=None, save_pwr=False):
+    """B1's plain version with its pos-FC output summed in float64 and
+    rounded once to f32, as the kernel sums it; the rest, the sinusoid
+    embedding included, is the plain version's f32 code."""
+    import torch
+
+    from tf_vqa_regat_tpu_torch.ops.kernels import implicit_attention as ia
+
+    f64 = torch.float64
+    mrow, b_vec, keep, inv_keep = ia._prepare(
+        q.shape[2], b_pos, key_mask, drop_rate, dropmask, q.device)
+    pe = ia._embedding(pos_mat, w_pos.shape[0], keep, inv_keep)
+    x = torch.einsum("brnp,ph->brhn", pe.to(f64), w_pos.to(f64)) + b_vec.to(f64)[:, None]
+    pwr = torch.relu(x.float())
+    out = torch.einsum("brhn,bnho->brho", ia._weights(q, k, pwr, mrow), vw)
+    return (out, pwr) if save_pwr else out
+
+
 def implicit_flops(b):
     """f32 operations of one B1 call: per (row, head, key) the q.k dot, the
     pos-FC dot and the weighted sum of vw."""
@@ -254,18 +282,28 @@ def implicit_flops(b):
     return 2.0 * b * s["R"] * s["H"] * s["n"] * (s["dh"] + s["P"] + s["o"])
 
 
-def check_kernels(device):
-    """Kernel vs plain at b = 1, 8, 32. Returns per-b rows."""
+def implicit_plan(b):
+    """B1's tiling plan at the serve shapes and batch b, as a dict."""
+    from tf_vqa_regat_tpu_torch.ops.kernels import implicit_attention as ia
+
+    s = SERVE_SHAPES
+    return ia.tiling_plan(b, s["R"], s["n"], s["H"], s["dh"], s["o"], s["P"])._asdict()
+
+
+def check_kernels(device, resources, baseline=None):
+    """Kernel vs plain at b = 1, 8, 32, 64. Returns per-b rows. `baseline`:
+    another checkout's B1 module, timed in turns with this one."""
     import torch
 
     from tf_vqa_regat_tpu_torch.ops.kernels import implicit_attention as ia
 
     rows = []
-    for b in (1, 8, 32):
+    for b in (1, 8, 32, 64):
         x = kernel_inputs(b, device, seed=b)
-        args = [x[k] for k in ("q", "k", "vw", "pos_mat", "w_pos", "b_pos", "key_mask")]
+        args = [x[k] for k in KERNEL_ARGS]
         got = ia.fused_implicit_graph_attention(*args)
-        want = ia.implicit_attention_plain(*args)
+        want = implicit_reference(*args)
+        plain_err = (ia.implicit_attention_plain(*args) - want).abs().max().item()
         torch.cuda.synchronize()
         if not torch.isfinite(got).all():
             fail(f"kernel output not finite at b={b}")
@@ -274,13 +312,17 @@ def check_kernels(device):
         masked_err = (
             (got[-1] - x["vw"][-1].mean(0)[None]).abs().max().item() if b > 1 else 0.0
         )
-        ms, plain_ms = median_ms_interleaved(
-            [lambda: ia.fused_implicit_graph_attention(*args),
-             lambda: ia.implicit_attention_plain(*args)]
-        )
-        row = dict(b=b, max_abs_err=err, underflow_heads_max=zero_heads,
-                   fully_masked_err=masked_err, ms=ms, plain_ms=plain_ms,
-                   **bound(nbytes(*args, got), implicit_flops(b)))
+        fns = {"ms": lambda: ia.fused_implicit_graph_attention(*args),
+               "plain_ms": lambda: ia.implicit_attention_plain(*args)}
+        row = dict(b=b, plan=implicit_plan(b), ptxas=resources, max_abs_err=err,
+                   plain_err=plain_err, underflow_heads_max=zero_heads,
+                   fully_masked_err=masked_err)
+        if baseline is not None:
+            row["baseline_err"] = (
+                baseline.fused_implicit_graph_attention(*args) - want).abs().max().item()
+            fns["baseline_ms"] = lambda: baseline.fused_implicit_graph_attention(*args)
+        row.update(zip(fns, median_ms_interleaved(list(fns.values()))))
+        row.update(bound(nbytes(*args, got), implicit_flops(b)))
         print("kernel implicit_attention", json.dumps(row), flush=True)
         if err > KERNEL_ATOL:
             fail(f"kernel vs plain max abs diff {err} > {KERNEL_ATOL} at b={b}")
@@ -297,9 +339,11 @@ def max_rel(got, want):
     return ((got - want).abs().max() / want.abs().max().clamp_min(1e-30)).item()
 
 
-def check_train_kernel(device):
+def check_train_kernel(device, resources, baseline=None):
     """B1's train variant and the Function's gradients vs the plain version
-    at b = 32 and 256, drop rate 0.2. Returns per-b rows."""
+    at b = 32 and 256, drop rate 0.2, and two launches' bits at each b.
+    Returns per-b rows. `baseline`: another checkout's B1 module, timed in
+    turns with this one."""
     import torch
 
     from tf_vqa_regat_tpu_torch.ops.kernels import implicit_attention as ia
@@ -323,7 +367,10 @@ def check_train_kernel(device):
         args = [x[k] for k in KERNEL_ARGS] + [0.2, dropmask]
         with torch.no_grad():
             out_k, pwr_k = ia.KERNEL(*args, save_pwr=True)
-            out_p, pwr_p = ia.implicit_attention_plain(*args, save_pwr=True)
+            out_p, pwr_p = implicit_reference(*args, save_pwr=True)
+            out_32, pwr_32 = ia.implicit_attention_plain(*args, save_pwr=True)
+            # determinism: a second launch on the same inputs gives equal bits
+            out_2, pwr_2 = ia.KERNEL(*args, save_pwr=True)
         fout_k, grads_k = fwd_bwd(ia.fused_implicit_graph_attention)  # the Function
         fout_p, grads_p = fwd_bwd(ia.implicit_attention_plain)
         torch.cuda.synchronize()
@@ -333,25 +380,35 @@ def check_train_kernel(device):
         err = {
             "out": (out_k - out_p).abs().max().item(),
             "pwr": (pwr_k - pwr_p).abs().max().item(),
+            "plain_out": (out_32 - out_p).abs().max().item(),
+            "plain_pwr": (pwr_32 - pwr_p).abs().max().item(),
             "function_out": (fout_k - out_k).abs().max().item(),
             **{f"d{k}": max_rel(grads_k[k], grads_p[k]) for k in GRAD_ARGS},
         }
         db = (grads_k["b_pos"] - grads_p["b_pos"]).abs()
         err["db_pos_worst_head"] = int(db.argmax())
+        same_bits = bool(torch.equal(out_k, out_2) and torch.equal(pwr_k, pwr_2))
+        fns = {"fwd_ms": lambda: ia.KERNEL(*args, save_pwr=True),
+               "fwd_plain_ms": lambda: ia.implicit_attention_plain(*args, save_pwr=True)}
+        extra = {}
         with torch.no_grad():
-            fwd_ms, fwd_plain_ms = median_ms_interleaved(
-                [lambda: ia.KERNEL(*args, save_pwr=True),
-                 lambda: ia.implicit_attention_plain(*args, save_pwr=True)]
-            )
+            if baseline is not None:
+                out_b, pwr_b = baseline.KERNEL(*args, save_pwr=True)
+                extra["baseline_err"] = max((out_b - out_p).abs().max().item(),
+                                                 (pwr_b - pwr_p).abs().max().item())
+                fns["baseline_fwd_ms"] = lambda: baseline.KERNEL(*args, save_pwr=True)
+            extra.update(zip(fns, median_ms_interleaved(list(fns.values()))))
         bwd_ms, bwd_plain_ms = median_ms_interleaved(
             [lambda: fwd_bwd(ia.fused_implicit_graph_attention),
              lambda: fwd_bwd(ia.implicit_attention_plain)], reps=21, calls=3,
         )
         moved = nbytes(*(x[k] for k in KERNEL_ARGS), dropmask, out_k, pwr_k)
-        row = dict(b=b, **err, fwd_ms=fwd_ms, fwd_plain_ms=fwd_plain_ms,
-                   fwd_bwd_ms=bwd_ms, fwd_bwd_plain_ms=bwd_plain_ms,
-                   **bound(moved, implicit_flops(b)))
+        row = dict(b=b, plan=implicit_plan(b), ptxas=resources, **err,
+                   equal_bits_twice=same_bits, **extra, fwd_bwd_ms=bwd_ms,
+                   fwd_bwd_plain_ms=bwd_plain_ms, **bound(moved, implicit_flops(b)))
         print("kernel implicit_attention train", json.dumps(row), flush=True)
+        if not same_bits:
+            fail(f"train variant: two launches on the same inputs differ at b={b}")
         limits = [("out", KERNEL_ATOL), ("pwr", PWR_ATOL), ("function_out", 0.0),
                   ("dq", GRAD_RTOL), ("dk", GRAD_RTOL), ("dvw", GRAD_RTOL),
                   ("dw_pos", POS_GRAD_RTOL), ("db_pos", POS_GRAD_RTOL)]
@@ -440,38 +497,37 @@ def ptxas_report(text: str) -> dict:
     return report
 
 
-def graph_resources() -> dict:
-    """B2's ptxas report per mode (v2: `graph_attention_kernel<false>`, v1:
-    `<true>`), from the log its build left beside the library (ptxas names
-    static shared memory only where there is some; the dynamic shared memory
-    is the tiling plan's `smem_bytes`)."""
+def kernel_resources(module, kernel, modes) -> dict:
+    """A kernel's ptxas report per template instance (`modes`: the names of
+    `<false>` and `<true>`), from the log its build left beside the library
+    (ptxas names static shared memory only where there is some; the dynamic
+    shared memory is the tiling plan's `smem_bytes`)."""
     from tf_vqa_regat_tpu_torch.ops.kernels import build
-    from tf_vqa_regat_tpu_torch.ops.kernels import graph_attention as ga
 
-    report = ptxas_report(build.library_path(ga.SOURCE).with_suffix(".log").read_text())
-    modes = {}
+    report = ptxas_report(build.library_path(module.SOURCE).with_suffix(".log").read_text())
+    found = {}
     for name, res in report.items():
-        if "graph_attention_kernel" in name:
-            modes["v1" if "ILb1E" in name else "v2"] = {"static_smem": 0, **res}
-    if set(modes) != {"v1", "v2"}:
-        fail(f"no ptxas report for both modes of B2: {sorted(report)}")
-    return modes
+        if kernel in name:
+            found[modes[1] if "ILb1E" in name else modes[0]] = {"static_smem": 0, **res}
+    if set(found) != set(modes):
+        fail(f"no ptxas report for {modes} of {kernel}: {sorted(report)}")
+    return found
 
 
-def load_baseline(path):
-    """The B2 wrapper module of another checkout at `path`, reading and
-    building that checkout's CUDA source (its own library, named by the
-    source's hash); None without `path`."""
+def load_baseline(path, name):
+    """The wrapper module `ops/kernels/{name}.py` of another checkout at
+    `path`, reading and building that checkout's `csrc/{name}.cu` (its own
+    library, named by the source's hash); None without `path`."""
     if path is None:
         return None
     from pathlib import Path
 
     pkg = Path(path).resolve() / "tf_vqa_regat_tpu_torch"
     spec = importlib.util.spec_from_file_location(
-        "baseline_graph_attention", pkg / "ops" / "kernels" / "graph_attention.py")
+        f"baseline_{name}", pkg / "ops" / "kernels" / f"{name}.py")
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    mod.SOURCE = pkg / "csrc" / "graph_attention.cu"
+    mod.SOURCE = pkg / "csrc" / f"{name}.cu"
     mod.KERNEL.lib()
     return mod
 
@@ -941,8 +997,8 @@ def build_kernels():
 
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--baseline", help="another checkout whose B2 phase 5 times "
-                        "in turns with this one")
+    parser.add_argument("--baseline", help="another checkout whose B1 and B2 phases 3-5 "
+                        "time in turns with this one")
     args = parser.parse_args()
     if not os.path.isdir(os.path.join(REPO, "tf_vqa_regat_tpu_torch")):
         fail("run from the root of a checkout: tf_vqa_regat_tpu_torch/ is missing")
@@ -967,9 +1023,16 @@ def main() -> None:
 
     device = torch.device("cuda", 0)
     smi_line = smi.stdout.strip().splitlines()[0]
-    rows = check_kernels(device)
-    train_rows = check_train_kernel(device)
-    graph_rows = check_graph_kernel(device, graph_resources(), load_baseline(args.baseline))
+    from tf_vqa_regat_tpu_torch.ops.kernels import graph_attention as ga
+    from tf_vqa_regat_tpu_torch.ops.kernels import implicit_attention as ia
+
+    b1_resources = kernel_resources(ia, "implicit_attention_kernel", ("eval", "train"))
+    b1_baseline = load_baseline(args.baseline, "implicit_attention")
+    rows = check_kernels(device, b1_resources, b1_baseline)
+    train_rows = check_train_kernel(device, b1_resources, b1_baseline)
+    graph_rows = check_graph_kernel(device, kernel_resources(ga, "graph_attention_kernel",
+                                                             ("v2", "v1")),
+                                    load_baseline(args.baseline, "graph_attention"))
     check_graph_grads(device)
     for family in CONFIGS:
         split = check_train_step(device, family)
@@ -987,7 +1050,9 @@ def main() -> None:
         fail("JAX or the JAX package was imported")
     b1_source = "tf_vqa_regat_tpu_torch/csrc/implicit_attention.cu"
     b2_source = "tf_vqa_regat_tpu_torch/csrc/graph_attention.cu"
-    big, train_big, graph_big = rows[-1], train_rows[-1], graph_rows[-1]
+    # B1 eval at b=32, the largest serve batch; the others at b=256
+    big = next(r for r in rows if r["b"] == 32)
+    train_big, graph_big = train_rows[-1], graph_rows[-1]
     bound_keys = ("bound_ms", "bound_by")
     b2_launches = sum(tr["B2"] + sv["B2"] for tr, sv in (launches["spatial"], launches["semantic"]))
     print(json.dumps({"kernels": [{

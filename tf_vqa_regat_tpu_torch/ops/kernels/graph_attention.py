@@ -77,15 +77,23 @@ def smem_bytes(H: int, dh: int, n: int, o: int) -> int:
     return 4 * (H * n * dP + nP * H * o + GROUPS * group)
 
 
-def tiling_plan(b: int, R: int, n: int, H: int, dh: int, o: int) -> TilingPlan:
-    """The launch's plan for q [b, R, H, dh], k [b, n, H, dh], vw [b, n, H, o].
+def chunk_rows(b: int, R: int) -> int:
+    """Query rows per block for b examples of R rows, where each block stages
+    its example's K and VW once, so the fewer blocks per example the better,
+    as long as SMS blocks or more are in flight: the chunk starts at
+    R / ceil(SMS / b) rows and shrinks until the grid holds SMS blocks, but
+    never below 8 rows (at R=100: a whole example at b=256, 34 rows at b=64,
+    20 at b=32, 8 at b <= 8). B1's plan takes the same rule."""
+    rows = min(R, max(8, -(-R // -(-SMS // b))))
+    while rows > 8 and b * -(-R // rows) < SMS:
+        rows -= 1
+    return rows
 
-    Each block stages its example's K and VW once, so the fewer blocks per
-    example the better, as long as SMS blocks or more are in flight: the
-    chunk starts at R / ceil(SMS / b) rows and shrinks until the grid holds
-    SMS blocks, but never below 8 rows (a whole example at b=256, 20 rows at
-    b=32, 8 at b <= 8). Raises ValueError on a shape the kernel does not
-    take, before anything is built."""
+
+def tiling_plan(b: int, R: int, n: int, H: int, dh: int, o: int) -> TilingPlan:
+    """The launch's plan for q [b, R, H, dh], k [b, n, H, dh], vw [b, n, H, o]:
+    `chunk_rows` rows per block. Raises ValueError on a shape the kernel does
+    not take, before anything is built."""
     if min(b, R, n, H, dh, o) < 1:
         raise ValueError(f"empty graph attention: b={b} R={R} n={n} H={H} dh={dh} o={o}")
     if dh % 4 or o % 4:
@@ -95,9 +103,7 @@ def tiling_plan(b: int, R: int, n: int, H: int, dh: int, o: int) -> TilingPlan:
     if smem > SMEM_LIMIT:
         raise ValueError(f"H={H}, dh={dh}, n={n}, o={o} need {smem} B of shared memory per "
                          f"block, over the {SMEM_LIMIT} B a block may use")
-    rows = min(R, max(8, -(-R // -(-SMS // b))))
-    while rows > 8 and b * -(-R // rows) < SMS:
-        rows -= 1
+    rows = chunk_rows(b, R)
     return TilingPlan(rows, (-(-R // rows), b), smem)
 
 

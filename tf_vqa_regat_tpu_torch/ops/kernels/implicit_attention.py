@@ -16,9 +16,9 @@ Routing in `fused_implicit_graph_attention`:
 - otherwise a CPU tensor runs `implicit_attention_plain`, the same function
   in PyTorch ops, and a CUDA tensor launches the eval variant.
 A CUDA call raises on a dtype, shape, device or layout the kernel does not
-take, and any call raises where a gradient would be dropped (w.r.t. the
-position matrix) or a dropout rate comes without its mask.
-There is no fallback.
+take, and on shapes whose tiling plan does not fit (`tiling_plan`); any call
+raises where a gradient would be dropped (w.r.t. the position matrix) or a
+dropout rate comes without its mask. There is no fallback.
 
 Both versions follow the TPU kernel's semantics, not `softmax`'s: the weights
 are normalised by the row max over ALL heads with a +1e-30 denominator, so a
@@ -43,9 +43,11 @@ import torch
 
 from tf_vqa_regat_tpu_torch.nn import drop_threshold
 from tf_vqa_regat_tpu_torch.ops.kernels import build
+from tf_vqa_regat_tpu_torch.ops.kernels import graph_attention as ga
 
 NEG_INF = -9e15  # additive key mask (reference graph_att_layer.py:95)
 SOURCE = build.CSRC_DIR / "implicit_attention.cu"
+MAX_HEADS = 16  # the kernel's kMaxHeads: pos-FC sums a thread keeps in registers
 
 
 def lane_frequencies(P: int, wave_length: float = 1000.0) -> np.ndarray:
@@ -68,19 +70,25 @@ def _prepare(H, b_pos, key_mask, drop_rate, dropmask, device):
     inverse keep rate) — the kernel's extra inputs, shared by all versions."""
     if key_mask is None:
         raise ValueError("key_mask is required ([b, n] bool)")
-    if drop_rate > 0.0 and dropmask is None:
-        raise ValueError(f"drop_rate {drop_rate} needs its [b, R, n, P] uint8 keep-mask")
+    keep, inv_keep = _keep(drop_rate, dropmask)
     mrow = torch.where(key_mask.to(device=device, dtype=torch.bool), 0.0, NEG_INF)
     b_vec = (
         torch.zeros(H, dtype=torch.float32, device=device)
         if b_pos is None
         else b_pos
     )
-    keep, inv_keep = None, 1.0
+    return mrow, b_vec, keep, inv_keep
+
+
+def _keep(drop_rate, dropmask):
+    """(keep-mask or None, inverse keep rate) for a dropout rate and its
+    [b, R, n, P] uint8 keep-mask."""
+    if drop_rate > 0.0 and dropmask is None:
+        raise ValueError(f"drop_rate {drop_rate} needs its [b, R, n, P] uint8 keep-mask")
     if dropmask is not None and drop_rate > 0.0:
         # nn.dropout's quantised t/256 drop probability
-        keep, inv_keep = dropmask, 256.0 / (256 - drop_threshold(drop_rate))
-    return mrow, b_vec, keep, inv_keep
+        return dropmask, 256.0 / (256 - drop_threshold(drop_rate))
+    return None, 1.0
 
 
 def _embedding(pos_mat: torch.Tensor, P: int, keep, inv_keep) -> torch.Tensor:
@@ -147,28 +155,119 @@ def implicit_attention_backward(g, q, k, vw, pos_mat, w_pos, mrow, keep, inv_kee
     return dq, dk, dvw, dw_pos, db_pos
 
 
+def _up4(x: int) -> int:
+    return -(-x // 4) * 4
+
+
+def smem_bytes(H: int, dh: int, n: int, o: int, P: int) -> int:
+    """Shared memory of one block (the kernel's `Layout`): K [H, n, dh] (B2
+    pads its rows to dh+4; B1 rotates them instead) and VW [nP, H, o]; the
+    pos-FC kernel in f64 [P, H] with 64 bytes between its two lane halves,
+    its bias [H] (rounded up to 4), the lane frequencies [P] and the key-mask
+    row [nP]; and per group a q tile [TILE, H, dh+4], the bias / weights
+    [TILE, H, nP] and the row maxima [TILE] (rounded up to 4), in f32
+    words; nP = n rounded up to 4."""
+    nP, dP = _up4(n), dh + 4
+    group = ga.TILE * H * dP + ga.TILE * H * nP + _up4(ga.TILE)
+    return 4 * (H * n * dh + nP * H * o + 2 * P * H + 16 + _up4(H) + P + nP
+                + ga.GROUPS * group)
+
+
+def tiling_plan(b: int, R: int, n: int, H: int, dh: int, o: int, P: int) -> ga.TilingPlan:
+    """The launch's plan for q [b, R, H, dh], k [b, n, H, dh], vw [b, n, H, o]
+    and a pos-FC kernel [P, H]: B2's chunk rule (`ga.chunk_rows`), this
+    kernel's shared memory. Raises ValueError on a shape the kernel does not
+    take, before anything is built."""
+    if min(b, R, n, H, dh, o, P) < 1:
+        raise ValueError(f"empty implicit attention: b={b} R={R} n={n} H={H} dh={dh} o={o} P={P}")
+    if dh % 4 or o % 4:
+        raise ValueError(f"the kernel reads 16-byte vectors: dh={dh} and o={o} must be "
+                         "multiples of 4")
+    if P % 32:
+        raise ValueError(f"pos embedding width {P}: the kernel reads the keep-mask of a "
+                         "geometry's sin and cos lanes as 32-bit words, so P must be a "
+                         "multiple of 32")
+    if H % 4 or H > MAX_HEADS:
+        raise ValueError(f"{H} heads: the kernel keeps up to {MAX_HEADS} pos-FC sums per "
+                         "thread and reads them 4 at a time")
+    smem = smem_bytes(H, dh, n, o, P)
+    if smem > ga.SMEM_LIMIT:
+        raise ValueError(f"H={H}, dh={dh}, n={n}, o={o}, P={P} need {smem} B of shared memory "
+                         f"per block, over the {ga.SMEM_LIMIT} B a block may use")
+    rows = ga.chunk_rows(b, R)
+    return ga.TilingPlan(rows, (-(-R // rows), b), smem)
+
+
+class _Launch(ctypes.Structure):
+    """The launch's scalars (`IaLaunch` in the source), built once per shape
+    and key-mask strides so that a call passes one pointer for them."""
+
+    _fields_ = [(name, ctypes.c_int) for name in
+                ("b", "R", "n", "H", "dh", "o", "P", "sm", "rows", "smem")] + [
+                ("scale", ctypes.c_float)]
+
+
 class _Kernel:
     """The compiled kernel, built at first launch, and its launch counts:
-    `launches` of the eval variant, `train_launches` of the train variant."""
+    `launches` of the eval variant, `train_launches` of the train variant.
+    Per-shape work (the checks of shapes, the tiling plan, the launch's
+    scalars, the shared-memory attribute per device) is done once and
+    cached."""
 
     def __init__(self):
         self.launches = 0
         self.train_launches = 0
         self._lib = None
+        self._launch_args = {}  # shapes and key-mask strides -> _Launch
+        self._smem_set = {}  # device index -> dynamic shared memory allowed
 
     def lib(self) -> ctypes.CDLL:
         if self._lib is None:
             lib = build.load(SOURCE)
-            p, i = ctypes.c_void_p, ctypes.c_int
-            f = ctypes.c_float
-            lib.regat_implicit_attention_fwd.argtypes = (
-                [p] * 9 + [f, f, p, p] + [i] * 7 + [p]
-            )
+            p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+            lib.regat_implicit_attention_fwd.argtypes = [p] * 9 + [f] + [p] * 4
             lib.regat_implicit_attention_fwd.restype = i
-            lib.regat_implicit_attention_smem_bytes.argtypes = [i] * 4
+            lib.regat_implicit_attention_smem_bytes.argtypes = [i] * 5
             lib.regat_implicit_attention_smem_bytes.restype = ctypes.c_size_t
+            lib.regat_implicit_attention_set_smem.argtypes = [i]
+            lib.regat_implicit_attention_set_smem.restype = i
+            # the plan's shared memory must be the kernel's
+            for shape in ((16, 64, 20, 64, 64), (4, 8, 10, 12, 32), (12, 4, 1, 4, 96)):
+                want = lib.regat_implicit_attention_smem_bytes(*shape)
+                if smem_bytes(*shape) != want:
+                    raise RuntimeError(f"tiling plan and kernel disagree on shared memory "
+                                       f"for (H, dh, n, o, P) = {shape}: {smem_bytes(*shape)} "
+                                       f"vs {want}")
             self._lib = lib
         return self._lib
+
+    def _args(self, q, k, vw, pos_mat, w_pos, b_pos, key_mask, keep) -> _Launch:
+        """The launch's scalars for these inputs, after the checks that depend
+        only on shapes and the key mask's strides (cached with them). The key
+        mask may be a slice of a wider one, as the model's is: its keys must
+        be contiguous, its rows may be any stride apart."""
+        key = (q.shape, k.shape, vw.shape, pos_mat.shape, w_pos.shape,
+               None if b_pos is None else b_pos.shape, key_mask.shape, key_mask.stride(),
+               None if keep is None else keep.shape)
+        args = self._launch_args.get(key)
+        if args is None:
+            b, R, H, dh = q.shape
+            n, o, P = k.shape[1], vw.shape[3], w_pos.shape[0]
+            want = [("k", k, (b, n, H, dh)), ("vw", vw, (b, n, H, o)),
+                    ("pos_mat", pos_mat, (b, R, n, 4)), ("w_pos", w_pos, (P, H)),
+                    ("key_mask", key_mask, (b, n)), ("b_pos", b_pos, (H,)),
+                    ("dropmask", keep, (b, R, n, P))]
+            for name, t, shape in want:
+                if t is not None and tuple(t.shape) != shape:
+                    raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
+            if n > 1 and key_mask.stride(1) != 1 or key_mask.stride(0) >= 2**31:
+                raise ValueError(f"key_mask strides {key_mask.stride()}: its keys must be "
+                                 "contiguous")
+            plan = tiling_plan(b, R, n, H, dh, o, P)
+            args = self._launch_args[key] = _Launch(
+                b, R, n, H, dh, o, P, key_mask.stride(0), plan.rows, plan.smem_bytes,
+                1.0 / math.sqrt(dh))
+        return args
 
     def __call__(
         self, q, k, vw, pos_mat, w_pos, b_pos, key_mask, drop_rate, dropmask,
@@ -184,43 +283,48 @@ class _Kernel:
                 "the kernel would drop a gradient: call fused_implicit_graph_attention "
                 "(which routes through ImplicitAttention) or run under torch.no_grad()"
             )
-        b, R, H, dh = q.shape
-        n, o, P = k.shape[1], vw.shape[3], w_pos.shape[0]
-        dev = q.device
-        mrow, b_vec, keep, inv_keep = _prepare(
-            H, b_pos, key_mask, drop_rate, dropmask, dev
-        )
-        if P % 8:
-            raise ValueError(f"pos embedding width {P} must be a multiple of 8")
-        f32 = torch.float32
-        _check("q", q, (b, R, H, dh), f32, dev)
-        _check("k", k, (b, n, H, dh), f32, dev)
-        _check("vw", vw, (b, n, H, o), f32, dev)
-        _check("pos_mat", pos_mat, (b, R, n, 4), f32, dev)
-        _check("w_pos", w_pos, (P, H), f32, dev)
-        _check("b_pos", b_vec, (H,), f32, dev)
-        _check("key_mask", mrow, (b, n), f32, dev)
-        if keep is not None:
-            _check("dropmask", keep, (b, R, n, P), torch.uint8, dev)
+        if key_mask is None:
+            raise ValueError("key_mask is required ([b, n] bool)")
+        keep, inv_keep = _keep(drop_rate, dropmask)
+        args = self._args(q, k, vw, pos_mat, w_pos, b_pos, key_mask, keep)
+        dev, f32 = q.device, torch.float32
+        # (name, tensor, dtype, alignment the kernel's vector reads need; None:
+        # the key mask, whose layout `_args` checked)
+        for name, t, dtype, align in (
+            ("q", q, f32, 16), ("k", k, f32, 16), ("vw", vw, f32, 16),
+            ("pos_mat", pos_mat, f32, 16), ("w_pos", w_pos, f32, 4), ("b_pos", b_pos, f32, 4),
+            ("key_mask", key_mask, torch.bool, None), ("dropmask", keep, torch.uint8, 4),
+        ):
+            if t is None:
+                continue
+            if t.device != dev or t.dtype != dtype:
+                raise ValueError(f"{name} is {t.dtype} on {t.device}, the kernel takes {dtype} "
+                                 f"on {dev}")
+            if align is not None and (not t.is_contiguous() or t.data_ptr() % align):
+                raise ValueError(f"{name} must be contiguous and {align}-byte aligned")
         lib = self.lib()
-        smem = lib.regat_implicit_attention_smem_bytes(n, H, dh, P)
-        if smem > 227 * 1024:
-            raise ValueError(f"shapes need {smem} B of shared memory per block")
-        out = torch.empty((b, R, H, o), dtype=f32, device=dev)
-        pwr = torch.empty((b, R, H, n), dtype=f32, device=dev) if save_pwr else None
-        if pwr is not None:
-            _check("pwr", pwr, (b, R, H, n), f32, dev)
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            err = lib.regat_implicit_attention_fwd(
-                q.data_ptr(), k.data_ptr(), vw.data_ptr(), pos_mat.data_ptr(),
-                w_pos.data_ptr(), b_vec.data_ptr(), mrow.data_ptr(),
-                _lane_frequencies_on(P, dev).data_ptr(),
-                keep.data_ptr() if keep is not None else None,
-                inv_keep, 1.0 / math.sqrt(dh), out.data_ptr(),
-                pwr.data_ptr() if pwr is not None else None,
-                b, R, n, H, dh, o, P, stream,
-            )
+        if dev.index != torch.cuda.current_device():
+            with torch.cuda.device(dev):
+                return self(q, k, vw, pos_mat, w_pos, b_pos, key_mask, drop_rate, dropmask,
+                            save_pwr)
+        if self._smem_set.get(dev.index, 0) < args.smem:
+            err = lib.regat_implicit_attention_set_smem(args.smem)
+            if err != 0:
+                raise RuntimeError(f"implicit attention kernel: {args.smem} B of shared memory "
+                                   f"refused: CUDA error {err}")
+            self._smem_set[dev.index] = args.smem
+        out = q.new_empty((args.b, args.R, args.H, args.o))
+        pwr = q.new_empty((args.b, args.R, args.H, args.n)) if save_pwr else None
+        err = lib.regat_implicit_attention_fwd(
+            q.data_ptr(), k.data_ptr(), vw.data_ptr(), pos_mat.data_ptr(), w_pos.data_ptr(),
+            None if b_pos is None else b_pos.data_ptr(), key_mask.data_ptr(),
+            _lane_frequencies_on(args.P, dev).data_ptr(),
+            None if keep is None else keep.data_ptr(), inv_keep,
+            out.data_ptr(), None if pwr is None else pwr.data_ptr(), ctypes.addressof(args),
+            # the raw handle of the current stream (what `.cuda_stream` gives,
+            # without building a Stream object on every call)
+            torch._C._cuda_getCurrentRawStream(dev.index),
+        )
         if err != 0:
             raise RuntimeError(f"implicit attention kernel launch failed: CUDA error {err}")
         if save_pwr:
@@ -228,17 +332,6 @@ class _Kernel:
             return out, pwr
         self.launches += 1
         return out
-
-
-def _check(name, t, shape, dtype, device):
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} is {t.dtype}, the kernel takes {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
 
 
 KERNEL = _Kernel()
