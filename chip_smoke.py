@@ -40,18 +40,25 @@ Phases, each of which fails the run (non-zero exit, no result line):
   6. B2's gradients: dq, dk, dvw and dbias through the `GraphAttention`
      Function against torch autograd of the plain version at b = 32, 256;
   7. one train step at the full widths and b=256 of each of
-     configs/butd_vqa.json, spatial_vqa.json and semantic_vqa.json: loss and
-     per-leaf gradients of the kernel path against the plain path (same
-     parameters, batch and dropout masks), 2 launches of the family's kernel
-     per forward; then the step's split into forward, backward and optimizer
-     (CUDA events, median of 10 steps). The spatial batch's edge labels,
-     built on the card, are held to build_spatial_graph on the CPU;
-  8. the entry point, per family: `--mode train --synthetic --epochs 1` at
-     the config's widths and batch size 256 (16 steps of the 4,096-question
-     synthetic split for implicit and spatial, 6 of a 1,536-question split
-     for semantic, then an eval pass): finite, falling loss, median step
-     time; kernel launches over the run, 2 per forward pass, and none of the
-     other family's kernel;
+     configs/butd_vqa.json, spatial_vqa.json, semantic_vqa.json, ban_vqa.json
+     and mutan_vqa_cp.json (MuTAN twice: per-roi question masks, which take
+     the naive Tucker formulation, and `--mutan_shared_qdrop`, which takes
+     the reassociated one; the branch taken is checked): loss and per-leaf
+     gradients of the kernel path against the plain path (same parameters,
+     batch and dropout masks), 2 launches of the family's kernel per
+     forward; then the step's split into forward, backward and optimizer
+     (CUDA events, median of 10 steps) and its peak device memory. The
+     spatial batch's edge labels, built on the card, are held to
+     build_spatial_graph on the CPU. Then MuTAN's two formulations on one
+     full-width eval batch (b=64): logits within MUTAN_BRANCH_RTOL, argmax
+     equal, each forward timed;
+  8. the entry point, per family (implicit, spatial, semantic with BUTD;
+     ban; mutan): `--mode train --synthetic --epochs 1` at the config's
+     widths and batch size 256 (16 steps of the 4,096-question synthetic
+     split for implicit, spatial and ban, 6 of a 1,536-question split for
+     semantic and mutan, then an eval pass): finite, falling loss, median
+     step time; kernel launches over the run, 2 per forward pass, and none
+     of the other relation's kernel;
   9. `--mode eval` on the written .npz: its loss equals the training run's
      last `eval_loss` (metrics.jsonl) to rel 1e-6, 2 launches per pass;
  10. `--mode serve` of that .npz, built by `main.build_server` as the entry
@@ -60,7 +67,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
      be 2 per forward pass (one per direction), and one batch's logits must
      match the same model run with the plain versions.
 Counts of launches are set to 0 just before each path of 8-10 runs and read
-just after it; the comparison launches of 3-7 do not count.
+just after it; the comparison launches of 3-7 do not count. Each phase
+prints its wall time.
 Then it prints {"kernels": [...]} (each kernel's time, plain and library
 times, and its bound on an H100 SXM: the larger of the bytes it must move
 over 3.35 TB/s and its f32 operations over 67 TFLOP/s, from this run's
@@ -123,14 +131,27 @@ GRAPH_GRAD_RTOL = 1e-4
 #   trainable leaf's gradient relative to that leaf's largest magnitude.
 #   Leaves with a true gradient of zero give rounding noise on both paths,
 #   so they are held to the largest gradient of all leaves instead: the
-#   leaves trainable_mask freezes (biases feeding a softmax), and the
-#   explicit edge-label FC's bias (`v_relation.gatt.bias.layers.0.b`), which
-#   adds one constant to every edge key of a row (softmax shift invariance;
-#   JAX leaves it trainable). On an H100 the worst trainable leaf was a
+#   leaves trainable_mask freezes (biases feeding a softmax), and biases
+#   JAX leaves trainable though the softmax after them cancels them
+#   (ZERO_GRAD_LEAVES): the explicit edge-label FC's bias, which adds one
+#   constant to every edge key of a row, and in MuTAN's attention the biases
+#   that reach the roi softmax only through linear maps, as one constant per
+#   glimpse over all rois: att_fusion's output bias, att_linear0's bias and,
+#   where the question side is one per example (`--mutan_shared_qdrop`),
+#   the visual merge's bias, which meets that side only (sum_r m0_r * b1_r).
+#   Their gradients measured ~1e-9 of the largest on the CPU. On an H100 the worst trainable leaf was a
 #   pos-FC scale `g` at 6.3e-3 (the 1/pwr magnification of the forward's
 #   difference, as for dW_pos above).
 LOSS_RTOL = 1e-4
 STEP_GRAD_RTOL = 2e-2
+ZERO_GRAD_LEAVES = ("v_relation.gatt.bias.layers.0.b", "joint_emb.att_fusion.linear_out.b",
+                    "joint_emb.att_linear0.layers.0.b")
+SHARED_QDROP_ZERO_GRAD_LEAVES = ("joint_emb.att_fusion.merge1.b",)
+# - MuTAN's reassociated and naive formulations through the whole model on
+#   one eval batch, relative to the largest |logit|: the same 18,000 products
+#   per output of the Tucker block summed in another nesting (f32, relative
+#   rounding ~1e-6), then the answer block.
+MUTAN_BRANCH_RTOL = 1e-4
 # - --mode eval on the trained .npz against the training run's last eval.
 EVAL_LOSS_RTOL = 1e-6
 # - spatial edge labels built on the card vs build_spatial_graph on the CPU:
@@ -142,7 +163,10 @@ SERVE_SHAPES = dict(R=100, H=16, dh=64, o=64, n=20, P=64)
 GRAD_ARGS = ("q", "k", "vw", "w_pos", "b_pos")
 KERNEL_ARGS = ("q", "k", "vw", "pos_mat", "w_pos", "b_pos", "key_mask")
 CONFIGS = {"implicit": "butd_vqa.json", "spatial": "spatial_vqa.json",
-           "semantic": "semantic_vqa.json"}
+           "semantic": "semantic_vqa.json", "ban": "ban_vqa.json",
+           "mutan": "mutan_vqa_cp.json"}
+# the families whose relation is implicit, so B1 carries them
+B1_FAMILIES = ("implicit", "ban", "mutan")
 # H100 SXM peaks (NVIDIA's data sheet): HBM rate, f32 outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
@@ -205,6 +229,41 @@ def counts() -> dict:
 
     return {"B1 eval": ia.KERNEL.launches, "B1 train": ia.KERNEL.train_launches,
             "B2": ga.KERNEL.launches, "B2 per-head": ga.KERNEL.per_head_launches}
+
+
+@contextlib.contextmanager
+def phase(name):
+    """Print the wall time of the block as `phase <name>: <s> s`."""
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        print(f"phase {name}: {time.perf_counter() - t0:.1f} s wall", flush=True)
+
+
+@contextlib.contextmanager
+def mutan_branches(force_naive=False):
+    """Record the Tucker formulation each MuTAN block runs (a list of
+    names); with `force_naive` the reassociated one is replaced by the
+    naive one on the same inputs."""
+    from tf_vqa_regat_tpu_torch.models.mutan import MutanBlock
+
+    real = {n: getattr(MutanBlock, n) for n in ("naive", "reassociated")}
+    taken = []
+
+    def spy(name):
+        def run(self, h0, h1):
+            taken.append(name)
+            return real["naive" if force_naive else name](self, h0, h1)
+        return run
+
+    for name in real:
+        setattr(MutanBlock, name, spy(name))
+    try:
+        yield taken
+    finally:
+        for name, fn in real.items():
+            setattr(MutanBlock, name, fn)
 
 
 @contextlib.contextmanager
@@ -720,10 +779,11 @@ def check_spatial_labels(batch):
     return len(bad)
 
 
-def check_train_step(device, family):
-    """One train step at the full widths of the family's config, b=256:
-    kernel path vs plain path, then the step's forward / backward /
-    optimizer split. Returns the split (median ms)."""
+def check_train_step(device, family, extra=()):
+    """One train step at the full widths of the family's config (with the
+    flags `extra`), b=256: kernel path vs plain path, then the step's
+    forward / backward / optimizer split. Returns the split (median ms) and
+    the peak device memory (GB)."""
     import torch
 
     from tf_vqa_regat_tpu_torch.data.store import DeviceStore, gather_batch
@@ -732,7 +792,8 @@ def check_train_step(device, family):
     from tf_vqa_regat_tpu_torch.train.optim import Adamax, make_lr_schedule
     from tf_vqa_regat_tpu_torch.train.step import train_forward
 
-    cfg = full_width_config(family, ["--mode", "train"])
+    cfg = full_width_config(family, ["--mode", "train", *extra])
+    label = " ".join([family, *extra])
     ds = build_dataset(cfg, "train")
     store = DeviceStore(ds, device)
     idx = next(store.epoch_indices(0, cfg.batch_size, True, cfg.seed))
@@ -746,35 +807,47 @@ def check_train_step(device, family):
         loss, _ = train_forward(model, batch, 0, cfg.seed)
         return loss.detach(), torch.autograd.grad(loss, params)
 
+    torch.cuda.reset_peak_memory_stats(device)
     reset_counts()
-    loss_k, grads_k = loss_and_grads()
+    with mutan_branches() as branches:
+        loss_k, grads_k = loss_and_grads()
     launches = counts()
+    if family == "mutan":
+        # the attention block's formulation, then the answer block's (2-D: naive)
+        want = ["reassociated" if cfg.mutan_shared_qdrop else "naive", "naive"]
+        if branches != want:
+            fail(f"{label} train step ran the MuTAN formulations {branches}, expected {want}")
     with plain_kernels():
         loss_p, grads_p = loss_and_grads()
     torch.cuda.synchronize()
     trainable = trainable_mask(model, False)
     zero_grad = {n for n, t in trainable.items() if not t}
-    zero_grad.add("v_relation.gatt.bias.layers.0.b")
+    zero_grad.update(ZERO_GRAD_LEAVES)
+    if cfg.mutan_shared_qdrop:
+        zero_grad.update(SHARED_QDROP_ZERO_GRAD_LEAVES)
     top = max(g.abs().max() for g in grads_p)
     errs = {
         n: ((a - b).abs().max() / top).item() if n in zero_grad else max_rel(a, b)
         for (n, _), a, b in zip(model.named_parameters(), grads_k, grads_p)
     }
-    worst = max(errs, key=errs.get)
+    worst, *runners_up = sorted(errs, key=errs.get, reverse=True)[:3]
     loss_err = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
-    print(f"{family} train step b={cfg.batch_size} kernel vs plain: loss {loss_k.item()} vs "
-          f"{loss_p.item()} (rel {loss_err}), worst leaf {worst} rel {errs[worst]}, "
-          f"launches per forward {json.dumps(launches)}", flush=True)
+    print(f"{label} train step b={cfg.batch_size} kernel vs plain: loss {loss_k.item()} vs "
+          f"{loss_p.item()} (rel {loss_err}), worst leaf {worst} rel {errs[worst]} (then "
+          f"{', '.join(f'{n} {errs[n]}' for n in runners_up)}), "
+          f"launches per forward {json.dumps(launches)}, MuTAN formulations {branches}",
+          flush=True)
     if not all(torch.isfinite(g).all() for g in grads_k):
-        fail(f"{family} train step: a gradient is not finite")
-    kernel = "B1 train" if family == "implicit" else "B2"
+        fail(f"{label} train step: a gradient is not finite")
+    kernel = "B1 train" if family in B1_FAMILIES else "B2"
     if launches[kernel] != 2 or sum(launches.values()) != 2:
-        fail(f"{family} train step: launches per forward {launches}, expected 2 of {kernel}")
+        fail(f"{label} train step: launches per forward {launches}, expected 2 of {kernel}")
     if not loss_err <= LOSS_RTOL:
-        fail(f"{family} train step: loss differs by rel {loss_err} > {LOSS_RTOL}")
+        fail(f"{label} train step: loss differs by rel {loss_err} > {LOSS_RTOL}")
     if not errs[worst] <= STEP_GRAD_RTOL:
-        fail(f"{family} train step: {worst} gradient differs by rel {errs[worst]} > "
+        fail(f"{label} train step: {worst} gradient differs by rel {errs[worst]} > "
              f"{STEP_GRAD_RTOL}")
+    del grads_k, grads_p
 
     opt = Adamax(model, trainable, make_lr_schedule(
         cfg.base_lr, 16, cfg.lr_decay_rate, cfg.lr_decay_step), cfg.grad_clip)
@@ -792,14 +865,56 @@ def check_train_step(device, family):
         if step >= 2:  # warm-up
             for i, k in enumerate(split):
                 split[k].append(ev[i].elapsed_time(ev[i + 1]))
-    return {k: statistics.median(v) for k, v in split.items()}
+    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+    return {k: statistics.median(v) for k, v in split.items()}, peak_gb
+
+
+def check_mutan_branches(device):
+    """MuTAN at full width on one eval batch (b=64 of the val split): the
+    whole model with the attention block's reassociated formulation (what
+    eval runs) against the naive one, and each forward's time. Returns the
+    row printed."""
+    import torch
+
+    from tf_vqa_regat_tpu_torch.data.store import DeviceStore, gather_batch
+    from tf_vqa_regat_tpu_torch.main import build_dataset
+    from tf_vqa_regat_tpu_torch.models.regat import ReGAT
+
+    cfg = full_width_config("mutan", ["--mode", "eval"])
+    ds = build_dataset(cfg)
+    store = DeviceStore(ds, device)
+    b = cfg.resolved_eval_batch()
+    idx = next(store.epoch_indices(0, b, False, cfg.seed))
+    batch = gather_batch(store, torch.from_numpy(idx).to(device), cfg.resolved_num_rois())
+    model = ReGAT(cfg, ds.ntoken, ds.v_dim, ds.num_ans).to(device).eval()
+
+    def forward(force_naive):
+        with torch.no_grad(), mutan_branches(force_naive) as taken:
+            return model(batch), taken
+
+    (reassociated, branches), (naive, _) = forward(False), forward(True)
+    torch.cuda.synchronize()
+    if not (torch.isfinite(reassociated).all() and torch.isfinite(naive).all()):
+        fail("MuTAN branch check: logits not finite")
+    rel = max_rel(reassociated, naive)
+    same_argmax = bool((reassociated.argmax(-1) == naive.argmax(-1)).all())
+    ms, naive_ms = median_ms_interleaved(
+        [lambda: forward(False), lambda: forward(True)], reps=11, calls=3)
+    row = dict(b=b, branches=branches, rel=rel, argmax_equal=same_argmax,
+               reassociated_forward_ms=ms, naive_forward_ms=naive_ms)
+    print("mutan formulations, eval forward", json.dumps(row), flush=True)
+    if branches != ["reassociated", "naive"]:
+        fail(f"MuTAN eval ran the formulations {branches}")
+    if not rel <= MUTAN_BRANCH_RTOL or not same_argmax:
+        fail(f"MuTAN formulations disagree: rel {rel} > {MUTAN_BRANCH_RTOL} or argmax differs")
+    return row
 
 
 def expected_launches(family, passes, train_passes=0):
     """Launch counts of a path with `passes` eval forward passes and
     `train_passes` train forward passes: 2 per pass, of the family's kernel."""
     want = {"B1 eval": 0, "B1 train": 0, "B2": 0, "B2 per-head": 0}
-    if family == "implicit":
+    if family in B1_FAMILIES:
         want["B1 eval"], want["B1 train"] = 2 * passes, 2 * train_passes
     else:
         want["B2"] = 2 * (passes + train_passes)
@@ -1000,6 +1115,7 @@ def main() -> None:
     parser.add_argument("--baseline", help="another checkout whose B1 and B2 phases 3-5 "
                         "time in turns with this one")
     args = parser.parse_args()
+    start = time.perf_counter()
     if not os.path.isdir(os.path.join(REPO, "tf_vqa_regat_tpu_torch")):
         fail("run from the root of a checkout: tf_vqa_regat_tpu_torch/ is missing")
     sys.path.insert(0, REPO)
@@ -1019,7 +1135,8 @@ def main() -> None:
     print(smi.stdout.strip().splitlines()[0], flush=True)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}", flush=True)
-    build_kernels()
+    with phase("2, build"):
+        build_kernels()
 
     device = torch.device("cuda", 0)
     smi_line = smi.stdout.strip().splitlines()[0]
@@ -1028,39 +1145,58 @@ def main() -> None:
 
     b1_resources = kernel_resources(ia, "implicit_attention_kernel", ("eval", "train"))
     b1_baseline = load_baseline(args.baseline, "implicit_attention")
-    rows = check_kernels(device, b1_resources, b1_baseline)
-    train_rows = check_train_kernel(device, b1_resources, b1_baseline)
-    graph_rows = check_graph_kernel(device, kernel_resources(ga, "graph_attention_kernel",
-                                                             ("v2", "v1")),
-                                    load_baseline(args.baseline, "graph_attention"))
-    check_graph_grads(device)
-    for family in CONFIGS:
-        split = check_train_step(device, family)
-        print(f"{family} train step split at b=256, median ms (CUDA events, TF32 off) on "
-              f"{smi_line}: {json.dumps(split)}", flush=True)
+    with phase("3, B1 eval variant"):
+        rows = check_kernels(device, b1_resources, b1_baseline)
+    with phase("4, B1 train variant"):
+        train_rows = check_train_kernel(device, b1_resources, b1_baseline)
+    with phase("5, B2"):
+        graph_rows = check_graph_kernel(device, kernel_resources(
+            ga, "graph_attention_kernel", ("v2", "v1")),
+            load_baseline(args.baseline, "graph_attention"))
+    with phase("6, B2 gradients"):
+        check_graph_grads(device)
+    for family, extra in (("implicit", ()), ("spatial", ()), ("semantic", ()), ("ban", ()),
+                          ("mutan", ()), ("mutan", ("--mutan_shared_qdrop",))):
+        label = " ".join([family, *extra])
+        with phase(f"7, {label} train step"):
+            split, peak_gb = check_train_step(device, family, extra)
+        torch.cuda.empty_cache()
+        print(f"{label} train step split at b=256, median ms (CUDA events, TF32 off) on "
+              f"{smi_line}: {json.dumps(split)}; peak device memory {peak_gb:.2f} GB",
+              flush=True)
+    with phase("7, mutan formulations"):
+        check_mutan_branches(device)
+    torch.cuda.empty_cache()
     launches = {}
     for family, extra in (("implicit", ()), ("spatial", ()),
-                          ("semantic", ("--synthetic_train_size", "1536"))):
+                          ("semantic", ("--synthetic_train_size", "1536")), ("ban", ()),
+                          ("mutan", ("--synthetic_train_size", "1536"))):
         with tempfile.TemporaryDirectory() as tmp:
-            ckpt, train_launches, _ = check_entry_point(tmp, smi_line, family, extra)
-            serve_launches, _, _ = check_serve(ckpt, family)
+            with phase(f"8-9, {family} train and eval"):
+                ckpt, train_launches, _ = check_entry_point(tmp, smi_line, family, extra)
+            with phase(f"10, {family} serve"):
+                serve_launches, _, _ = check_serve(ckpt, family)
+        torch.cuda.empty_cache()
         launches[family] = (train_launches, serve_launches)
 
     if any(m.split(".")[0] in ("jax", "jaxlib", "tf_vqa_regat_tpu") for m in sys.modules):
         fail("JAX or the JAX package was imported")
+    print(f"all phases: {time.perf_counter() - start:.1f} s wall", flush=True)
     b1_source = "tf_vqa_regat_tpu_torch/csrc/implicit_attention.cu"
     b2_source = "tf_vqa_regat_tpu_torch/csrc/graph_attention.cu"
     # B1 eval at b=32, the largest serve batch; the others at b=256
     big = next(r for r in rows if r["b"] == 32)
     train_big, graph_big = train_rows[-1], graph_rows[-1]
     bound_keys = ("bound_ms", "bound_by")
-    b2_launches = sum(tr["B2"] + sv["B2"] for tr, sv in (launches["spatial"], launches["semantic"]))
+    def total(kernel):  # over every family's train run (with its eval passes) and serve
+        return sum(tr[kernel] + sv[kernel] for tr, sv in launches.values())
+
     print(json.dumps({"kernels": [{
         "name": "implicit_attention",
         "route": "cuda",
         "source": b1_source,
         "replaces": "tf_vqa_regat_tpu/ops/pallas/implicit_attention.py:99",
-        "launches": launches["implicit"][1]["B1 eval"],
+        "launches": total("B1 eval"),
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": big["ms"],
         "plain_ms": big["plain_ms"],
@@ -1071,7 +1207,7 @@ def main() -> None:
         "route": "cuda",
         "source": b1_source,
         "replaces": "tf_vqa_regat_tpu/ops/pallas/implicit_attention.py:208",
-        "launches": launches["implicit"][0]["B1 train"],
+        "launches": total("B1 train"),
         "max_abs_err": max(max(r["out"], r["pwr"]) for r in train_rows),
         "ms": train_big["fwd_ms"],
         "plain_ms": train_big["fwd_plain_ms"],
@@ -1082,7 +1218,7 @@ def main() -> None:
         "route": "cuda",
         "source": b2_source,
         "replaces": "tf_vqa_regat_tpu/ops/pallas/graph_attention.py:66",
-        "launches": b2_launches,
+        "launches": total("B2"),
         "max_abs_err": max(max(r["v2_shared_err"], r["v2_per_head_err"]) for r in graph_rows),
         "ms": graph_big["ms"],
         "plain_ms": graph_big["plain_ms"],
@@ -1093,7 +1229,7 @@ def main() -> None:
         "route": "cuda",
         "source": b2_source,
         "replaces": "tf_vqa_regat_tpu/ops/pallas/graph_attention.py:43",
-        "launches": sum(tr["B2 per-head"] + sv["B2 per-head"] for tr, sv in launches.values()),
+        "launches": total("B2 per-head"),
         "max_abs_err": max(max(r["v1_shared_err"], r["v1_per_head_err"]) for r in graph_rows),
         "ms": graph_big["v1_ms"],
         "plain_ms": graph_big["v1_plain_ms"],

@@ -13,6 +13,14 @@ Tolerances: atol/rtol 1e-5 on dq, dk and dvw, which are sums of a few dozen
 f32 products. dW_pos and db_pos sum dpwr = daff / pwr over every (row, key),
 and 1/pwr reaches 1e6 where pwr sits just above its 1e-6 floor, so they are
 held to 1e-5 of their largest magnitude instead.
+
+Conditioning: log(pwr) magnifies any error of pwr by 1/pwr, so the `masks`
+case asserts that no pre-relu pos-FC value lies in (0, 1e-3]. And the first
+call of torch's CPU sine in a process has been seen to return values ~1.5e-4
+off at some arguments (about one process in eight; a second call on the same
+tensor is exact), which the log turns into differences of ~5e-2 in the
+gradients. So the module runs the port's plain version once before any
+comparison.
 """
 
 import functools
@@ -67,6 +75,23 @@ def _inputs(seed, underflow=False):
     return x
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _warm_torch_cpu_kernels():
+    """One call of the plain version (sine, cosine, log, exp, einsums) before
+    the compared ones: see the module docstring."""
+    x = _inputs(5)
+    implicit_attention_plain(*(torch.from_numpy(x[n]) for n in ARGS))
+
+
+def _pre_relu_pos_fc(x):
+    """The pos-FC output before the relu, [b, R, H, n], in float64 from the
+    JAX kernel's own sinusoid constants."""
+    pm = np.transpose(x["pos_mat"], (0, 1, 3, 2)).reshape(B, R, 4 * N).astype(np.float64)
+    pe_pre = pm @ jia._rep_matrix(N, P)
+    pe = np.where(jia._is_cos_row(N, P)[0] > 0, np.cos(pe_pre), np.sin(pe_pre))
+    return np.einsum("brmp,ph->brhm", pe.reshape(B, R, N, P), x["w_pos"]) + x["b_pos"][:, None]
+
+
 @functools.partial(jax.jit, static_argnums=(0,))
 def _jax_grad_fn(drop_rate, q, k, vw, w_pos, b_pos, pos_mat, key_mask, g, dropmask):
     def loss(q, k, vw, w_pos, b_pos):
@@ -107,6 +132,9 @@ def _assert_grads_close(got, want):
 )
 def test_function_grads_match_jax_and_plain_autograd(seed, underflow, drop):
     x = _inputs(seed, underflow)
+    if seed == 0:  # the `masks` case: no pos weight just above log's floor
+        pre = _pre_relu_pos_fc(x)
+        assert not ((pre > 0) & (pre <= 1e-3)).any()
     drop_rate, dropmask = 0.0, None
     if drop:
         drop_rate = 0.2
@@ -130,10 +158,7 @@ def test_pwr_is_the_post_relu_pos_weights():
     x = _inputs(3)
     t = {n: torch.from_numpy(x[n]) for n in ARGS}
     out, pwr = implicit_attention_plain(*(t[n] for n in ARGS), save_pwr=True)
-    pm = np.transpose(x["pos_mat"], (0, 1, 3, 2)).reshape(B, R, 4 * N)
-    pe_pre = pm @ jia._rep_matrix(N, P)
-    pe = np.where(jia._is_cos_row(N, P)[0] > 0, np.cos(pe_pre), np.sin(pe_pre))
-    pw = np.einsum("brmp,ph->brhm", pe.reshape(B, R, N, P), x["w_pos"]) + x["b_pos"][:, None]
+    pw = _pre_relu_pos_fc(x)
     np.testing.assert_allclose(pwr.numpy(), np.maximum(pw, 0.0), atol=1e-5, rtol=1e-5)
     assert (pwr >= 0).all() and (pwr == 0).any()
     np.testing.assert_array_equal(

@@ -1,37 +1,52 @@
-"""The port's entry point on the CPU (`--device cpu`), at small widths:
-`--mode train` writes the log, one metrics line per epoch and the final
-`.npz`; `--mode eval` on that file reproduces the last eval loss exactly;
-`--mode serve` loads it; flags of unported features are refused."""
+"""The port's entry point on the CPU (`--device cpu`), at small widths, for
+configs/butd_vqa.json, ban_vqa.json and mutan_vqa_cp.json (MuTAN at rank 3,
+with and without `--mutan_shared_qdrop`): `--mode train` writes the log, one
+metrics line per epoch and the final `.npz`; `--mode eval` on that file
+reproduces the last eval loss exactly; `--mode serve` loads it and answers a
+/predict over HTTP; flags of unported features are refused."""
 
 import json
 import os
+import threading
+import urllib.request
 
 import pytest
 
 from tf_vqa_regat_tpu_torch.main import build_server, final_model_path, main, parse
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SMALL = [
-    "--config", os.path.join(REPO, "configs", "butd_vqa.json"), "--num_hid", "64", "--relation_dim", "96",
-    "--num_heads", "4", "--nongt_dim", "10", "--num_rois", "24", "--synthetic",
-    "--synthetic_val_size", "32", "--batch_size", "16", "--print_freq", "2",
-    "--device", "cpu",
+WIDTHS = [
+    "--num_hid", "64", "--relation_dim", "96", "--num_heads", "4", "--nongt_dim", "10",
+    "--num_rois", "24", "--synthetic", "--synthetic_val_size", "32", "--batch_size", "16",
+    "--print_freq", "2", "--device", "cpu",
 ]
+SMALL = ["--config", os.path.join(REPO, "configs", "butd_vqa.json")] + WIDTHS
+RUNS = {
+    "butd": SMALL,
+    "ban": ["--config", os.path.join(REPO, "configs", "ban_vqa.json"), *WIDTHS],
+    "mutan": ["--config", os.path.join(REPO, "configs", "mutan_vqa_cp.json"), *WIDTHS,
+              "--mutan_rank", "3"],
+    "mutan_shared_qdrop": ["--config", os.path.join(REPO, "configs", "mutan_vqa_cp.json"),
+                           *WIDTHS, "--mutan_rank", "3", "--mutan_shared_qdrop"],
+}
 
 
-@pytest.fixture(scope="module")
-def trained(tmp_path_factory):
+@pytest.fixture(scope="module", params=list(RUNS))
+def trained(request, tmp_path_factory):
+    """(argv of the run's widths, output dir, written .npz)."""
+    small = RUNS[request.param]
     out = str(tmp_path_factory.mktemp("train"))
-    argv = SMALL + ["--mode", "train", "--epochs", "2", "--synthetic_train_size", "64",
+    argv = small + ["--mode", "train", "--epochs", "2", "--synthetic_train_size", "64",
                     "--output", out]
     path = main(argv)
-    return out, path
+    return small, out, path
 
 
 def test_train_writes_log_metrics_and_model(trained):
-    out, path = trained
-    assert path == final_model_path(parse(SMALL + ["--output", out])[0])
-    assert path.endswith("implicit-butd-pretrained_model.npz")
+    small, out, path = trained
+    cfg = parse(small + ["--output", out])[0]
+    assert path == final_model_path(cfg)
+    assert path.endswith(f"implicit-{cfg.fusion}-pretrained_model.npz")
     with open(f"{out}/metrics.jsonl") as fh:
         lines = [json.loads(line) for line in fh]
     assert [m["epoch"] for m in lines] == [0, 1]
@@ -43,8 +58,8 @@ def test_train_writes_log_metrics_and_model(trained):
 
 
 def test_eval_reproduces_the_last_eval_loss(trained, capsys):
-    out, path = trained
-    score, loss = main(SMALL + ["--mode", "eval", "--checkpoint", path, "--output", out])
+    small, out, path = trained
+    score, loss = main(small + ["--mode", "eval", "--checkpoint", path, "--output", out])
     with open(f"{out}/metrics.jsonl") as fh:
         last = [json.loads(line) for line in fh][-1]
     assert loss == last["eval_loss"] and score == last["eval_score"]
@@ -52,18 +67,31 @@ def test_eval_reproduces_the_last_eval_loss(trained, capsys):
 
 
 def test_serve_loads_the_trained_model(trained):
-    out, path = trained
+    small, out, path = trained
     server, batcher, engine = build_server(
-        SMALL + ["--mode", "serve", "--checkpoint", path, "--serve_port", "0",
+        small + ["--mode", "serve", "--checkpoint", path, "--serve_port", "0",
                  "--serve_batch_sizes", "1"]
     )
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
     try:
-        answer = engine.infer(["what color is the cat ?"], [3])[0]
+        image_id = sorted(engine.img_index)[3]
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{server.server_address[1]}/predict",
+            data=json.dumps({"question": "what color is the cat ?", "image_id": image_id}).encode(),
+            headers={"Content-Type": "application/json"},
+        )
+        with urllib.request.urlopen(req, timeout=60) as r:
+            assert r.status == 200
+            answer = json.loads(r.read())
         assert answer["answer"] in engine.ds.label2ans
         assert 0.0 < answer["confidence"] < 1.0
     finally:
+        server.shutdown()
         batcher.close()
         server.server_close()
+        thread.join(timeout=10)
+    assert not thread.is_alive()
 
 
 @pytest.mark.parametrize("flag", [["--grad_accum", "2"], ["--resume"]])

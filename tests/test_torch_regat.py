@@ -1,8 +1,8 @@
-"""The port's whole model (implicit relations, BUTD fusion) against the JAX
-package's `apply_regat(train=False)` on the CPU, with the JAX parameters
-carried across: with `impl="pallas"` (B1 in interpret mode, one launch per
-direction) and `impl="jnp"` (both directions folded into one 2H-head jnp
-computation).
+"""The port's whole model (implicit relations; BUTD, BAN and MuTAN fusion,
+MuTAN at rank 3) against the JAX package's `apply_regat(train=False)` on
+the CPU, with the JAX parameters carried across: with `impl="pallas"` (B1
+in interpret mode, one launch per direction) and `impl="jnp"` (both
+directions folded into one 2H-head jnp computation).
 
 Tolerance: atol/rtol 1e-4 on the logits, looser than the 1e-5 of the single
 ops because sums run in another order through the stacked f32 matmuls
@@ -26,11 +26,17 @@ from tf_vqa_regat_tpu_torch.params import flatten_tree, load_jax_arrays
 CFG = Config(
     num_hid=64, relation_dim=96, num_heads=4, nongt_dim=10, imp_pos_emb_dim=64,
     fusion="butd", relation_type="implicit", adaptive=True, num_rois=16,
-    residual_connection=True,
+    residual_connection=True, mutan_rank=3,
 )
-PORT_CFG = tconfig.Config(
-    **{f.name: getattr(CFG, f.name) for f in dataclasses.fields(tconfig.Config)}
-)
+
+
+def _port_cfg(cfg):
+    return tconfig.Config(
+        **{f.name: getattr(cfg, f.name) for f in dataclasses.fields(tconfig.Config)}
+    )
+
+
+PORT_CFG = _port_cfg(CFG)
 NTOKEN, V_DIM, NUM_ANS, B = 25, 32, 11, 6
 TOL = dict(atol=1e-4, rtol=1e-4)
 
@@ -55,23 +61,24 @@ def _batch(seed):
     }
 
 
-@pytest.fixture(scope="module")
-def models():
-    params = init_regat(jax.random.PRNGKey(0), CFG, NTOKEN, V_DIM, NUM_ANS)
-    port = ReGAT(PORT_CFG, NTOKEN, V_DIM, NUM_ANS, torch.Generator().manual_seed(0))
+@pytest.fixture(scope="module", params=["butd", "ban", "mutan"])
+def models(request):
+    cfg = dataclasses.replace(CFG, fusion=request.param)
+    params = init_regat(jax.random.PRNGKey(0), cfg, NTOKEN, V_DIM, NUM_ANS)
+    port = ReGAT(_port_cfg(cfg), NTOKEN, V_DIM, NUM_ANS, torch.Generator().manual_seed(0))
     load_jax_arrays(port, flatten_tree(jax.tree.map(np.asarray, params)))
-    return params, port.eval()
+    return cfg, params, port.eval()
 
 
 @pytest.mark.parametrize("impl", ["pallas", "jnp"])
 @pytest.mark.parametrize("seed", [0, 1])
 def test_logits_match_apply_regat(models, impl, seed):
-    params, port = models
+    cfg, params, port = models
     batch = _batch(seed)
     jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
     jbatch["norm_bb"] = jnp.zeros(batch["bb"].shape[:2] + (6,), jnp.float32)
     jbatch["valid"] = jnp.asarray(batch["num_boxes"] > 0)
-    want = np.asarray(apply_regat(params, CFG, jbatch, NTOKEN, train=False, impl=impl))
+    want = np.asarray(apply_regat(params, cfg, jbatch, NTOKEN, train=False, impl=impl))
     with torch.inference_mode():
         got = port({k: torch.from_numpy(v) for k, v in batch.items()}).numpy()
     assert got.shape == (B, NUM_ANS) and np.isfinite(got).all()
@@ -80,10 +87,14 @@ def test_logits_match_apply_regat(models, impl, seed):
 
 
 def test_unported_families_and_training_raise():
-    with pytest.raises(NotImplementedError, match="BAN and MuTAN"):
-        ReGAT(PORT_CFG.replace(fusion="mutan"), NTOKEN, V_DIM, NUM_ANS)
-    with pytest.raises(NotImplementedError, match="BAN and MuTAN"):
-        ReGAT(PORT_CFG.replace(fusion="ban"), NTOKEN, V_DIM, NUM_ANS)
+    with pytest.raises(ValueError, match="unknown fusion"):
+        ReGAT(PORT_CFG.replace(fusion="mlb"), NTOKEN, V_DIM, NUM_ANS)
+    with pytest.raises(ValueError, match="unknown relation_type"):
+        ReGAT(PORT_CFG.replace(relation_type="geometric"), NTOKEN, V_DIM, NUM_ANS)
+    # MuTAN scores the answers itself: no classifier parameters
+    mutan = ReGAT(PORT_CFG.replace(fusion="mutan"), NTOKEN, V_DIM, NUM_ANS)
+    assert mutan.classifier is None
+    assert not any(n.startswith("classifier.") for n, _ in mutan.named_parameters())
     model = ReGAT(PORT_CFG, NTOKEN, V_DIM, NUM_ANS)
     batch = {k: torch.from_numpy(v) for k, v in _batch(0).items()}
     # a train forward with dropout on draws its masks from the step's

@@ -110,12 +110,16 @@ CFG = Config(
 )
 
 
+@pytest.mark.parametrize("fusion", ["butd", "ban", "mutan"])
 @pytest.mark.parametrize("emb2_trainable", [False, True])
-def test_trainable_mask_matches_jax(emb2_trainable):
-    params = jax.eval_shape(lambda: init_regat(jax.random.PRNGKey(0), CFG, 25, 32, 11))
+def test_trainable_mask_matches_jax(emb2_trainable, fusion):
+    """Each fusion freezes its own attention bias: BUTD's scoring bias,
+    BAN's h_bias, MuTAN's glimpse-scoring bias."""
+    cfg = dataclasses.replace(CFG, fusion=fusion, mutan_rank=3)
+    params = jax.eval_shape(lambda: init_regat(jax.random.PRNGKey(0), cfg, 25, 32, 11))
     want = flatten_tree(jax_trainable_mask(params, emb2_trainable))
     port_cfg = tconfig.Config(
-        **{f.name: getattr(CFG, f.name) for f in dataclasses.fields(tconfig.Config)}
+        **{f.name: getattr(cfg, f.name) for f in dataclasses.fields(tconfig.Config)}
     )
     got = trainable_mask(ReGAT(port_cfg, 25, 32, 11), emb2_trainable)
     assert {k.replace(".", "/"): v for k, v in got.items()} == {

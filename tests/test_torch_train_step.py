@@ -4,12 +4,12 @@ device-store gather, handed to both):
 
 - per-leaf gradients of the loss at --dropout 0 against `jax.grad` of
   `bce_with_logits_sum(apply_regat(train=True))`, at impl="pallas" (B1 in
-  interpret mode, VJP `_fused_v3_bwd`) and impl="jnp"; every parameter gets
-  a gradient;
+  interpret mode, VJP `_fused_v3_bwd`) and impl="jnp", for BUTD, BAN and
+  MuTAN fusion (MuTAN at rank 3); every parameter gets a gradient;
 - a 5-step trajectory of `train_step` against the JAX `build_train_step`
   (one-device mesh, impl="pallas");
-- at --dropout 0.2 and 0.5: the dropout sites, in order, with their shapes
-  and rates, against the JAX ones (recorded by wrapping
+- at --dropout 0.2 and 0.5 (BUTD) and 0.2 (BAN, MuTAN): the dropout
+  sites, in order, with their shapes and rates, against the JAX ones (recorded by wrapping
   `tf_vqa_regat_tpu.nn.dropout` while the forward is traced, impl="jnp",
   whose sinusoid dropout is B1's keep-mask); the keep rate; and masks that
   depend only on seed and step.
@@ -21,6 +21,7 @@ one step moves a leaf by at most lr (Adamax's |update| <= lr).
 """
 
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -49,7 +50,7 @@ from tf_vqa_regat_tpu_torch.train.step import train_forward, train_step
 CFG = Config(
     num_hid=64, relation_dim=96, num_heads=4, nongt_dim=10, imp_pos_emb_dim=64,
     fusion="butd", relation_type="implicit", adaptive=True, num_rois=16,
-    residual_connection=True, dropout=0.0, batch_size=8, base_lr=1e-3,
+    residual_connection=True, dropout=0.0, batch_size=8, base_lr=1e-3, mutan_rank=3,
 )
 V_DIM, NUM_ANS, SEED = 32, 9, 3
 TOL = dict(atol=1e-4, rtol=1e-4)
@@ -62,21 +63,33 @@ def _port_cfg(cfg):
 
 
 @pytest.fixture(scope="module")
-def setup():
-    """(JAX params as numpy, store, ntoken, five batches): 40 questions over
-    8 images, batches of 8 in the seed's epoch-0 order."""
+def data():
+    """(ntoken, five batches): 40 questions over 8 images, batches of 8 in
+    the seed's epoch-0 order."""
     ds = synthetic_dataset(num_images=8, num_questions=40, v_dim=V_DIM, num_ans=NUM_ANS, seed=SEED)
     store = DeviceStore(ds, torch.device("cpu"))
-    params = jax.jit(lambda k: init_regat(k, CFG, ds.ntoken, V_DIM, NUM_ANS))(
-        jax.random.PRNGKey(0)
-    )
-    flat = flatten_tree(jax.tree.map(np.asarray, params))
     R = CFG.resolved_num_rois()
     batches = [
         gather_batch(store, torch.from_numpy(idx).long(), R)
         for idx in store.epoch_indices(0, CFG.batch_size, True, CFG.seed)
     ]
-    return flat, ds.ntoken, batches
+    return ds.ntoken, batches
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_flat(fusion, ntoken):
+    """The JAX init of the model with `fusion`, as flat numpy arrays (the
+    dropout rate does not change it)."""
+    cfg = dataclasses.replace(CFG, fusion=fusion)
+    params = jax.jit(lambda k: init_regat(k, cfg, ntoken, V_DIM, NUM_ANS))(jax.random.PRNGKey(0))
+    return flatten_tree(jax.tree.map(np.asarray, params))
+
+
+@pytest.fixture(scope="module")
+def setup(data):
+    """(JAX params as numpy, ntoken, five batches) of the BUTD model."""
+    ntoken, batches = data
+    return _jax_flat("butd", ntoken), ntoken, batches
 
 
 def _port_model(flat, ntoken, cfg=CFG):
@@ -113,19 +126,24 @@ def _unflatten(flat):
     return fix(tree)
 
 
-@pytest.mark.parametrize("impl", ["pallas", "jnp"])
-def test_per_leaf_gradients_match_jax(setup, impl):
-    flat, ntoken, batches = setup
+@pytest.mark.parametrize(
+    "fusion, impl",
+    [("butd", "pallas"), ("butd", "jnp"), ("ban", "pallas"), ("mutan", "pallas")],
+)
+def test_per_leaf_gradients_match_jax(data, fusion, impl):
+    ntoken, batches = data
+    cfg = dataclasses.replace(CFG, fusion=fusion)
+    flat = _jax_flat(fusion, ntoken)
     batch = batches[-1]  # padded slots included
     jb = _jax_batch(batch)
 
     def loss_fn(p):
-        logits = apply_regat(p, CFG, jb, ntoken, train=True, rng=jax.random.PRNGKey(1), impl=impl)
+        logits = apply_regat(p, cfg, jb, ntoken, train=True, rng=jax.random.PRNGKey(1), impl=impl)
         return bce_with_logits_sum(logits, jb["target"], jb["valid"])
 
     want_loss, want = jax.jit(jax.value_and_grad(loss_fn))(_unflatten(flat))
     want = flatten_tree(jax.tree.map(np.asarray, want))
-    model = _port_model(flat, ntoken)
+    model = _port_model(flat, ntoken, cfg)
     loss, _ = train_forward(model, batch, 0, CFG.seed)
     loss.backward()
     assert loss.item() == pytest.approx(float(want_loss), rel=1e-5)
@@ -185,10 +203,13 @@ def _record_jax_sites(cfg, flat, ntoken, batch, monkeypatch):
     return sites
 
 
-@pytest.mark.parametrize("drop", [0.2, 0.5])
-def test_dropout_sites_rates_and_masks(setup, monkeypatch, drop):
-    flat, ntoken, batches = setup
-    cfg = dataclasses.replace(CFG, dropout=drop)
+@pytest.mark.parametrize(
+    "fusion, drop", [("butd", 0.2), ("butd", 0.5), ("ban", 0.2), ("mutan", 0.2)]
+)
+def test_dropout_sites_rates_and_masks(data, monkeypatch, fusion, drop):
+    ntoken, batches = data
+    cfg = dataclasses.replace(CFG, dropout=drop, fusion=fusion)
+    flat = _jax_flat(fusion, ntoken)
     batch = batches[0]
     want = _record_jax_sites(cfg, flat, ntoken, batch, monkeypatch)
 

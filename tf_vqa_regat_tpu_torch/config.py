@@ -58,10 +58,15 @@ class Config:
     mode: str = "train"  # train | eval | serve (ported) | ensemble_eval | export_h5 | predict
     lr_decay_based_on_val: bool = False  # in the reference's JSON, unused by its model
 
-    # --- keys of the JSON configs beyond the reference (BAN / MuTAN) ---
+    # --- BAN and MuTAN, beyond the reference (the first three are JSON keys) ---
     ban_glimpse: int = 4
     mutan_rank: int = 15
     mutan_gamma: int = 2
+    # MuTAN train option: one question-side input-dropout mask per example
+    # in the attention block instead of one per roi, which keeps that side
+    # per-example and so takes the rank-sum reassociation in train too
+    # (models/mutan.py). Identical whenever no input dropout runs.
+    mutan_shared_qdrop: bool = False
 
     # --- extensions the port implements ---
     # Static roi padding; 0 = 36 for the fixed layout, 100 adaptive.

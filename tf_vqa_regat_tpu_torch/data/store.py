@@ -9,8 +9,8 @@ clipped to the table and zeroed past the example's box count. The entry
 tables (image index, question tokens, soft targets packed to MAX_LABELS)
 live there too, so a batch is assembled from a [B] index vector. A semantic
 split also carries its per-image edge labels as an int8 table, gathered into
-the batch's `adj_label`. bf16 and int8 feature tables are ROADMAP Queue A
-item 3.
+the batch's `adj_label`. bf16 and int8 feature tables are in ROADMAP Queue
+A, main-path runtime.
 """
 
 from __future__ import annotations

@@ -11,9 +11,12 @@ and no visible GPU the run fails; it never moves to the CPU on its own.
 `--device cpu` runs every kernel's plain PyTorch version.
 
 Ported so far: `--mode train`, `eval` and `serve` on `--synthetic` data, for
-implicit, spatial and semantic relations with BUTD fusion. Training writes `{output}/{relation_type}-{fusion}-pretrained_model.npz`
-(params.py), which eval and serve read. Other modes raise
-NotImplementedError naming the ROADMAP item that ports them.
+implicit, spatial and semantic relations with BUTD fusion, and implicit
+relations with BAN and MuTAN fusion (configs/ban_vqa.json,
+mutan_vqa_cp.json). Training writes
+`{output}/{relation_type}-{fusion}-pretrained_model.npz` (params.py), which
+eval and serve read. Other modes raise NotImplementedError naming the ROADMAP
+item that ports them.
 """
 
 from __future__ import annotations
@@ -33,9 +36,9 @@ from tf_vqa_regat_tpu_torch.train.logging import Logger
 from tf_vqa_regat_tpu_torch.train.loop import run_evaluation, run_training
 
 _NOT_PORTED = {
-    "predict": "ROADMAP Queue A item 6, persistence and the other modes",
-    "ensemble_eval": "ROADMAP Queue A item 6, persistence and the other modes",
-    "export_h5": "ROADMAP Queue A item 6, persistence and the other modes",
+    "predict": "ROADMAP Queue A, persistence and the other modes",
+    "ensemble_eval": "ROADMAP Queue A, persistence and the other modes",
+    "export_h5": "ROADMAP Queue A, persistence and the other modes",
 }
 
 
@@ -73,13 +76,13 @@ def build_dataset(cfg: Config, name: str = "val") -> SyntheticDataset:
     labels when the relation type is semantic."""
     if not cfg.synthetic:
         raise NotImplementedError(
-            "real VQA features are not ported yet (ROADMAP Queue A item 6, "
-            "persistence and the other modes); pass --synthetic"
+            "real VQA features are not ported yet (ROADMAP Queue A, real VQA "
+            "data without h5py); pass --synthetic"
         )
     if not cfg.adaptive:
         raise NotImplementedError(
-            "the fixed-36 layout is not ported yet (ROADMAP Queue A item 3, "
-            "main-path runtime); use an adaptive config"
+            "the fixed-36 layout is not ported yet (ROADMAP Queue A, main-path "
+            "runtime); use an adaptive config"
         )
     size, seed = (
         (cfg.synthetic_train_size, cfg.seed) if name == "train"
@@ -97,8 +100,8 @@ def load_model(cfg: Config, ds: SyntheticDataset) -> ReGAT:
     if not cfg.checkpoint.endswith(".npz"):
         raise NotImplementedError(
             f"--checkpoint {cfg.checkpoint!r}: the port reads .npz parameter "
-            f"files (params.py); orbax and .h5 checkpoints are ROADMAP Queue A "
-            f"item 6, persistence and the other modes"
+            f"files (params.py); orbax and .h5 checkpoints are ROADMAP Queue A, "
+            f"persistence and the other modes"
         )
     model = ReGAT(cfg, ds.ntoken, ds.v_dim, ds.num_ans)
     load_jax_arrays(model, load_npz(cfg.checkpoint))

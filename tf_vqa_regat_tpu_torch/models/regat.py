@@ -1,6 +1,6 @@
-"""The ReGAT network with BUTD fusion, for implicit, spatial and semantic
-relations (counterpart of tf_vqa_regat_tpu/models/regat.py: `init_regat` +
-`apply_regat` with impl="pallas").
+"""The ReGAT network: implicit, spatial or semantic relations, then BUTD,
+BAN or MuTAN fusion (counterpart of tf_vqa_regat_tpu/models/regat.py:
+`init_regat` + `apply_regat` with impl="pallas").
 
 Submodules carry the names of the JAX parameter pytree, so state-dict keys
 are the pytree paths with '/' written as '.' (params.py). The same forward
@@ -10,7 +10,11 @@ mask from the generator it is given (the step's, nn.step_generator).
 Dropout rates follow the reference topology (regat.py:132-145): the config's
 `dropout` reaches the language stack and the classifier; the relation
 encoder and BUTD take the graph rate, 0.2 whenever `dropout` > 0 and 0
-otherwise, so `--dropout 0` turns every dropout off.
+otherwise, so `--dropout 0` turns every dropout off. BAN takes `dropout`
+itself and MuTAN its input rate (models/ban.py, models/mutan.py).
+
+BUTD and MuTAN take the GRU's last state, BAN its whole sequence. MuTAN
+scores the answers itself, so a MuTAN model has no `classifier`.
 
 The batch is a dict of tensors on the model's device:
   features  [b, R, v_dim] float32   region features
@@ -30,6 +34,7 @@ import torch
 from torch import nn
 
 from tf_vqa_regat_tpu_torch.config import Config
+from tf_vqa_regat_tpu_torch.models.ban import BAN
 from tf_vqa_regat_tpu_torch.models.classifier import Classifier
 from tf_vqa_regat_tpu_torch.models.fusion import BUTD
 from tf_vqa_regat_tpu_torch.models.language import (
@@ -37,6 +42,7 @@ from tf_vqa_regat_tpu_torch.models.language import (
     QuestionSelfAttention,
     WordEmbedding,
 )
+from tf_vqa_regat_tpu_torch.models.mutan import MuTAN
 from tf_vqa_regat_tpu_torch.models.relation import (
     ExplicitRelationEncoder,
     ImplicitRelationEncoder,
@@ -48,19 +54,17 @@ from tf_vqa_regat_tpu_torch.ops.spatial_graph import (
 )
 
 RELATION_TYPES = ("implicit", "spatial", "semantic")
+FUSIONS = ("butd", "ban", "mutan")
 
 
 def check_supported(cfg: Config) -> None:
-    """Raise for a family outside the port so far, naming the ROADMAP item
-    that ports it. (Flags of features not ported at all, such as bf16, are
-    not in the port's Config: the parser rejects them.)"""
+    """Raise for an unknown relation type or fusion. (Flags of features not
+    ported yet, such as bf16, are not in the port's Config: the parser
+    rejects them.)"""
     if cfg.relation_type not in RELATION_TYPES:
         raise ValueError(f"unknown relation_type {cfg.relation_type!r}")
-    if cfg.fusion != "butd":
-        raise NotImplementedError(
-            f"--fusion {cfg.fusion!r} is not ported yet (ROADMAP Queue A item 5, "
-            f"BAN and MuTAN)"
-        )
+    if cfg.fusion not in FUSIONS:
+        raise ValueError(f"unknown fusion {cfg.fusion!r}")
 
 
 class ReGAT(nn.Module):
@@ -94,8 +98,20 @@ class ReGAT(nn.Module):
                 cfg.num_heads, cfg.num_steps, cfg.nongt_dim, cfg.residual_connection,
                 cfg.label_bias, g, graph_drop,
             )
-        self.joint_emb = BUTD(cfg.relation_dim, cfg.num_hid, cfg.num_hid, g, graph_drop)
-        self.classifier = Classifier(cfg.num_hid, cfg.num_hid * 2, num_ans, g, drop)
+        self.fusion = cfg.fusion
+        if cfg.fusion == "butd":
+            self.joint_emb = BUTD(cfg.relation_dim, cfg.num_hid, cfg.num_hid, g, graph_drop)
+        elif cfg.fusion == "ban":
+            self.joint_emb = BAN(cfg.relation_dim, cfg.num_hid, cfg.ban_glimpse, g, drop)
+        else:
+            self.joint_emb = MuTAN(
+                cfg.relation_dim, cfg.num_hid, num_ans, cfg.mutan_rank, cfg.mutan_gamma,
+                g, drop, cfg.mutan_shared_qdrop,
+            )
+        self.classifier = (
+            None if cfg.fusion == "mutan"
+            else Classifier(cfg.num_hid, cfg.num_hid * 2, num_ans, g, drop)
+        )
 
     def forward(
         self, batch: Dict[str, torch.Tensor], generator: Optional[torch.Generator] = None
@@ -123,7 +139,13 @@ class ReGAT(nn.Module):
                 adj_label = build_spatial_graph(batch["bb"], batch["norm_bb"])
             adj = broadcast_adj_labels(adj_label, self.label_num)
             v_emb = self.v_relation(features, adj, q_vec, roi_mask, generator)
-        joint = self.joint_emb(v_emb, q_last, roi_mask, generator)
+        if self.fusion == "mutan":
+            logits, _ = self.joint_emb(v_emb, q_last, roi_mask, generator)
+            return logits
+        if self.fusion == "ban":
+            joint, _ = self.joint_emb(v_emb, q_seq, roi_mask, generator)
+        else:
+            joint = self.joint_emb(v_emb, q_last, roi_mask, generator)
         return self.classifier(joint, generator)
 
 
@@ -132,18 +154,24 @@ def trainable_mask(model: ReGAT, emb2_trainable: bool) -> Dict[str, bool]:
     `trainable_mask` (regat.py:246-283). Frozen are the second word-embedding
     table (until a TF-IDF init, not ported, unfreezes it) and the biases that
     feed a softmax directly, whose true gradient is zero: q_att's scoring
-    bias, each direction's key bias and BUTD's attention bias. The explicit
+    bias, each direction's key bias, and the fusion's attention bias (BUTD's
+    scoring bias, BAN's `h_bias`, MuTAN's glimpse-scoring bias). The explicit
     edge-label FC's bias (`v_relation.gatt.bias.layers.0.b`) also has a true
     gradient of zero (it shifts every edge key alike) but stays trainable,
     as JAX leaves it."""
-    frozen = {
-        "q_att.linear2.layers.%d.b" % (len(model.q_att.linear2.layers) - 1),
-        "joint_emb.linear.layers.%d.b" % (len(model.joint_emb.linear.layers) - 1),
-    }
+    def last_bias(prefix: str, fc) -> str:
+        return "%s.layers.%d.b" % (prefix, len(fc.layers) - 1)
+
+    joint = model.joint_emb
+    if model.fusion == "butd":
+        attention_bias = last_bias("joint_emb.linear", joint.linear)
+    elif model.fusion == "ban":
+        attention_bias = "joint_emb.h_bias"
+    else:
+        attention_bias = last_bias("joint_emb.att_linear1", joint.att_linear1)
+    frozen = {last_bias("q_att.linear2", model.q_att.linear2), attention_bias}
     for i, direction in enumerate(model.v_relation.gatt.neighbor):
-        frozen.add(
-            "v_relation.gatt.neighbor.%d.key.layers.%d.b" % (i, len(direction.key.layers) - 1)
-        )
+        frozen.add(last_bias("v_relation.gatt.neighbor.%d.key" % i, direction.key))
     mask = {}
     for name, _ in model.named_parameters():
         emb2 = name.startswith("w_emb.emb_.") and not emb2_trainable

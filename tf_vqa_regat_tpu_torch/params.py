@@ -5,7 +5,8 @@ indices joined by '/', e.g. ``v_relation/gatt/neighbor/0/pair_pos_fc/layers/0/v`
 — with numpy arrays in the JAX layouts. The port's modules carry the same
 names, so a state-dict key is the path with '/' written as '.'. The port's
 checkpoint is ``np.savez`` of the flat dict, which needs no JAX to read
-(an orbax checkpoint does; reading one is ROADMAP Queue A item 6).
+(an orbax checkpoint does; reading one is in ROADMAP Queue A, persistence and
+the other modes).
 """
 
 from __future__ import annotations

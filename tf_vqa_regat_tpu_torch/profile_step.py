@@ -3,13 +3,14 @@ config (default configs/butd_vqa.json) at its batch size (256), one batch of
 the synthetic train split, traced with torch.profiler.
 
     python -m tf_vqa_regat_tpu_torch.profile_step [--config configs/spatial_vqa.json]
-        [--steps 5] [--trace out.json]
+        [--steps 5] [--trace out.json] [config flags, e.g. --mutan_shared_qdrop]
 
 Prints, for the traced steps: the step time on the host clock with and
 without the profiler, the device's busy time (sum of kernel times) and idle
 share, kernels launched per step, the shares of B1 (both variants), B2 and
-the GEMMs, and the kernels that took the most time. Needs a CUDA device;
-TF32 is off, as in chip_smoke.py.
+the GEMMs, the peak device memory, and the kernels that took the most time.
+Flags it does not know go to the config parser after the JSON's values.
+Needs a CUDA device; TF32 is off, as in chip_smoke.py.
 """
 
 from __future__ import annotations
@@ -41,7 +42,7 @@ def main() -> None:
     ap.add_argument("--config", default=CONFIG, help="JSON config (default %(default)s)")
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--trace", default="", help="write a Chrome trace here")
-    args = ap.parse_args()
+    args, config_flags = ap.parse_known_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_step needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -52,7 +53,9 @@ def main() -> None:
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
 
-    cfg = parse_with_config(["--config", args.config, "--synthetic", "--mode", "train"])
+    cfg = parse_with_config(
+        ["--config", args.config, "--synthetic", "--mode", "train", *config_flags]
+    )
     ds = build_dataset(cfg, "train")
     store = DeviceStore(ds, device)
     idx = next(store.epoch_indices(0, cfg.batch_size, True, cfg.seed))
@@ -69,8 +72,10 @@ def main() -> None:
         torch.cuda.synchronize()
         return (time.perf_counter() - t0) * 1e3 / n
 
+    torch.cuda.reset_peak_memory_stats(device)
     steps(3)  # warm-up: builds the kernel, fills the allocator's cache
     plain_ms = steps(args.steps)
+    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         traced_ms = steps(args.steps)
     if args.trace:
@@ -84,13 +89,14 @@ def main() -> None:
     b2 = sum(ms for k, (ms, _) in busy.items() if "graph_attention_kernel" in k)
     gemm = sum(ms for k, (ms, _) in busy.items() if GEMM.search(k))
     print(f"train step b={cfg.batch_size} at the widths of {os.path.basename(args.config)} "
-          f"({cfg.relation_type}), f32, TF32 off, on {smi}")
+          f"({cfg.relation_type}-{cfg.fusion}{' ' if config_flags else ''}"
+          f"{' '.join(config_flags)}), f32, TF32 off, on {smi}")
     print(f"host ms/step: {plain_ms:.3f} (no profiler), {traced_ms:.3f} (profiled)")
     print(f"device busy ms/step: {total:.3f}; idle share of the profiled step: "
           f"{1 - total / traced_ms:.3f}, of the unprofiled step: {max(0.0, 1 - total / plain_ms):.3f}")
     print(f"kernels per step: {sum(c for _, c in busy.values()):.0f}; B1 share of busy "
           f"{b1 / total:.3f} ({b1:.3f} ms); B2 share {b2 / total:.3f} ({b2:.3f} ms); "
-          f"GEMM share {gemm / total:.3f} ({gemm:.3f} ms)")
+          f"GEMM share {gemm / total:.3f} ({gemm:.3f} ms); peak device memory {peak_gb:.2f} GB")
     print("top kernels (ms/step, launches/step, name):")
     for k, (ms, c) in sorted(busy.items(), key=lambda kv: -kv[1][0])[:15]:
         print(f"  {ms:9.3f} {c:6.0f}  {k[:110]}")

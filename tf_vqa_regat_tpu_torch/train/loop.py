@@ -10,8 +10,8 @@ a step line every `print_freq` steps, an eval pass after every epoch and
 device and are read at a print and at the end of an epoch.
 
 Not ported (ROADMAP Queue A): per-epoch checkpoints, --resume and
-preemption (item 6); --grad_accum (item 7); --train_block, roi buckets and
-bf16 or int8 tables (item 3).
+preemption (persistence and the other modes); --grad_accum (multi-device);
+--train_block, roi buckets and bf16 or int8 tables (main-path runtime).
 """
 
 from __future__ import annotations
