@@ -65,10 +65,33 @@ Phases, each of which fails the run (non-zero exit, no result line):
      point builds it, serving HTTP in a thread: /healthz, single and batch
      /predict, an unknown image (404); the launches over those requests must
      be 2 per forward pass (one per direction), and one batch's logits must
-     match the same model run with the plain versions.
-Counts of launches are set to 0 just before each path of 8-10 runs and read
-just after it; the comparison launches of 3-7 do not count. Each phase
-prints its wall time.
+     match the same model run with the plain versions;
+ 11. resume, configs/butd_vqa.json at full width, b=256, `--synthetic
+     --epochs 2 --synthetic_train_size 1536 --checkpoint_every_steps 2` (6
+     steps per epoch), through `main.main`: (a) uninterrupted, (a2) the same
+     again for the run-to-run spread, (b) with REGAT_FAULT_PREEMPT_STEP=8,
+     which must return with meta at epoch 1, step 2 and no final .npz, and
+     (c) (b)'s command plus `--resume`, whose final parameters and
+     per-epoch metrics must equal (a)'s at RESUME_RTOL / RESUME_ATOL (it
+     prints whether they are bit-equal, beside (a2)'s spread) with 2 B1
+     train launches per step over its 4 steps; the seconds each save call
+     took and waited, and one blocking and one async save of the state;
+     whether the word embedding's backward, and the two lookups it chooses
+     between, give equal bits call after call;
+ 12. `--mode predict --checkpoint` on each .npz of 8: the JSON holds every
+     question id once, its answers equal the argmax of the plain path's
+     logits except for counted ties, 2 launches of the family's kernel per
+     pass and none of the other's, and the pass's time;
+ 13. the ensemble: an implicit member trained here under
+     configs/semantic_vqa.json (`--relation_type implicit`, 1 epoch of
+     1,536 questions), then `--mode ensemble_eval` of it with 8's spatial
+     and semantic .npz under configs/semantic_vqa.json: B1 eval 2 and B2 4
+     launches per pass, the score equal to the plain path's and the
+     averaged probabilities within ENSEMBLE_PROB_ATOL of it, except for
+     counted ties, and the pass's time.
+Counts of launches are set to 0 just before each path of 8-13 runs and read
+just after it; the comparison launches of 3-7 and of the plain-path
+comparisons do not count. Each phase prints its wall time.
 Then it prints {"kernels": [...]} (each kernel's time, plain and library
 times, and its bound on an H100 SXM: the larger of the bytes it must move
 over 3.35 TB/s and its f32 operations over 67 TFLOP/s, from this run's
@@ -85,6 +108,7 @@ import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -154,6 +178,14 @@ SHARED_QDROP_ZERO_GRAD_LEAVES = ("joint_emb.att_fusion.merge1.b",)
 MUTAN_BRANCH_RTOL = 1e-4
 # - --mode eval on the trained .npz against the training run's last eval.
 EVAL_LOSS_RTOL = 1e-6
+# - a resumed run against the uninterrupted one (final parameters, per-epoch
+#   metrics), as the JAX package's resume tests hold them: both runs do the
+#   same operations on the same inputs.
+RESUME_RTOL = 1e-6
+RESUME_ATOL = 1e-7
+# - the ensemble's averaged probabilities, kernel path vs plain path; an
+#   example whose top two lie within this of each other is a tie.
+ENSEMBLE_PROB_ATOL = 1e-5
 # - spatial edge labels built on the card vs build_spatial_graph on the CPU:
 #   a label may differ only where its angle, from the function's own f32 sine
 #   and cosine, lies within this of a sector boundary (the card's asin/acos
@@ -1091,6 +1123,339 @@ def check_serve(ckpt, family):
     return launches, passes, logits_err
 
 
+def entry_argv(family, tmp, *extra, config=None):
+    """`main.main`'s arguments for the family's config on the card."""
+    return ["--config", os.path.join(REPO, "configs", config or CONFIGS[family]), "--synthetic",
+            "--output", tmp, "--device", "cuda", *extra]
+
+
+@contextlib.contextmanager
+def recorded_saves():
+    """Each checkpoint save the training loop makes: (kind, seconds the call
+    took, seconds it waited for the previous write)."""
+    from tf_vqa_regat_tpu_torch.train import checkpoint as ckpt
+
+    real, saves = ckpt.save_checkpoint, []
+
+    def spy(*args, **kw):
+        t0 = time.perf_counter()
+        waited = real(*args, **kw)
+        saves.append(("step" if kw.get("step_in_epoch") is not None else "epoch",
+                      time.perf_counter() - t0, waited))
+        return waited
+
+    ckpt.save_checkpoint = spy
+    try:
+        yield saves
+    finally:
+        ckpt.save_checkpoint = real
+
+
+def read_run(out):
+    """(final parameters, per-epoch metrics) of a --mode train output."""
+    import numpy as np
+
+    with np.load(os.path.join(out, "implicit-butd-pretrained_model.npz")) as z:
+        params = {k: z[k] for k in z.files}
+    with open(os.path.join(out, "metrics.jsonl")) as fh:
+        metrics = {m["epoch"]: m for m in map(json.loads, fh)}
+    return params, metrics
+
+
+def run_distance(a, b):
+    """(largest |a - b| over the parameters, largest excess over
+    RESUME_ATOL + RESUME_RTOL |a|, largest relative metric difference,
+    bit-equal) between two runs read by read_run."""
+    import numpy as np
+
+    (pa, ma), (pb, mb) = a, b
+    if sorted(pa) != sorted(pb) or sorted(ma) != sorted(mb):
+        fail(f"runs differ in their keys or epochs: {sorted(ma)} vs {sorted(mb)}")
+    diff = max(float(np.abs(pa[k] - pb[k]).max()) for k in pa)
+    excess = max(float((np.abs(pa[k] - pb[k]) - RESUME_ATOL - RESUME_RTOL * np.abs(pa[k])).max())
+                 for k in pa)
+    metric = max(abs(ma[e][k] - mb[e][k]) / max(abs(ma[e][k]), 1e-30)
+                 for e in ma for k in ("train_loss", "train_score", "eval_score", "eval_loss"))
+    bits = all(np.array_equal(pa[k], pb[k]) for k in pa) and all(
+        ma[e][k] == mb[e][k] for e in ma
+        for k in ("train_loss", "train_score", "eval_score", "eval_loss"))
+    return diff, excess, metric, bits
+
+
+def check_resume(tmp, smi, device):
+    """Phase 11. Returns the launches of the resumed run (c)."""
+    import torch
+
+    from tf_vqa_regat_tpu_torch import main as port_main
+    from tf_vqa_regat_tpu_torch.models.regat import ReGAT, trainable_mask
+    from tf_vqa_regat_tpu_torch.params import state_tensors
+    from tf_vqa_regat_tpu_torch.train import checkpoint as ckpt
+    from tf_vqa_regat_tpu_torch.train.optim import Adamax, make_lr_schedule
+
+    flags = ["--mode", "train", "--epochs", "2", "--synthetic_train_size", "1536",
+             "--checkpoint_every_steps", "2"]
+    outs = {k: os.path.join(tmp, k) for k in ("a", "a2", "b")}
+    runs = {}
+    for name in ("a", "a2"):
+        with recorded_saves() as saves:
+            t0 = time.perf_counter()
+            path = port_main.main(entry_argv("implicit", outs[name], *flags))
+            wall = time.perf_counter() - t0
+        if path is None:
+            fail(f"resume run ({name}) was preempted")
+        runs[name] = read_run(outs[name])
+        print(f"resume run ({name}): {wall:.1f} s; saves (kind, call s, waited s) "
+              f"{json.dumps(saves)}, {sum(w for _, _, w in saves):.3f} s waited in all, "
+              f"on {smi}", flush=True)
+    os.environ["REGAT_FAULT_PREEMPT_STEP"] = "8"
+    try:
+        if port_main.main(entry_argv("implicit", outs["b"], *flags)) is not None:
+            fail("the run with REGAT_FAULT_PREEMPT_STEP=8 was not preempted")
+    finally:
+        del os.environ["REGAT_FAULT_PREEMPT_STEP"]
+    meta = ckpt.restore_meta_full(outs["b"])
+    print(f"resume run (b), preempted: meta {json.dumps(meta)}", flush=True)
+    if (meta or {}).get("epoch") != 1 or meta.get("step_in_epoch") != 2:
+        fail(f"preempted run left meta {meta}, expected epoch 1, step_in_epoch 2")
+    if any(f.endswith(".npz") for f in os.listdir(outs["b"])):
+        fail("the preempted run wrote a final .npz")
+    reset_counts()  # the resumed path starts here
+    with recorded_saves() as saves:
+        path = port_main.main(entry_argv("implicit", outs["b"], *flags, "--resume"))
+    launches = counts()
+    if path is None:
+        fail("the resumed run was preempted")
+    resumed = read_run(outs["b"])
+    diff, excess, metric, bits = run_distance(runs["a"], resumed)
+    s_diff, s_excess, s_metric, s_bits = run_distance(runs["a"], runs["a2"])
+    print(f"resume (c) vs uninterrupted (a): params max abs diff {diff} (excess over "
+          f"atol {RESUME_ATOL} + rtol {RESUME_RTOL}: {excess}), metrics max rel diff {metric}, "
+          f"bit-equal {bits}; run-to-run spread (a2) vs (a): {s_diff} (excess {s_excess}), "
+          f"metrics {s_metric}, bit-equal {s_bits}; launches of (c) {json.dumps(launches)}; "
+          f"saves of (c) {json.dumps(saves)}", flush=True)
+    if not excess <= 0.0 or not metric <= RESUME_RTOL:
+        fail(f"the resumed run differs from the uninterrupted one: params excess {excess}, "
+             f"metrics rel {metric}")
+    cfg = full_width_config("implicit", ["--mode", "train"])
+    passes = -(-cfg.synthetic_val_size // cfg.resolved_eval_batch())
+    if launches != expected_launches("implicit", passes, 4):
+        fail(f"resumed run: launches {launches} for 4 train steps and {passes} eval passes")
+    for k in ("a", "a2", "b"):
+        shutil.rmtree(os.path.join(outs[k], "checkpoints"))
+
+    # why the port's word embedding picks its lookup per device: the
+    # backward of each candidate, five times on the step's token shapes
+    import torch.nn.functional as F
+
+    from tf_vqa_regat_tpu_torch.ops.embedding import Embedding
+
+    emb = Embedding(25, 300, torch.Generator().manual_seed(0)).to(device)
+    ids = torch.randint(0, 25, (256, 14), device=device)
+    g_out = torch.randn(256, 14, 300, device=device)
+    lookups = {"Embedding (the port's)": lambda: emb(ids, 24),
+               "F.embedding": lambda: F.embedding(ids, emb.table),
+               "advanced indexing": lambda: emb.table[ids]}
+    stable = {}
+    for label, lookup in lookups.items():
+        grads = [torch.autograd.grad((lookup() * g_out).sum(), emb.table)[0] for _ in range(5)]
+        stable[label] = all(torch.equal(grads[0], x) for x in grads[1:])
+    print(f"embedding backward gives equal bits over 5 calls: {json.dumps(stable)}", flush=True)
+    if not stable["Embedding (the port's)"]:
+        fail("the word embedding's backward is not deterministic on the card")
+
+    # one blocking and one async save of the full-width state, timed alone
+    model = ReGAT(cfg, 24, 2048, 3129).to(device)
+    opt = Adamax(model, trainable_mask(model, False),
+                 make_lr_schedule(cfg.base_lr, 6, 0.75, 2), cfg.grad_clip)
+    state = state_tensors(model, opt)
+    nbytes_state = sum(v.numel() * v.element_size() for v in state.values())
+    out = os.path.join(tmp, "save")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ckpt.save_checkpoint(out, state, 0, 0.0, False, block=True)
+    blocking = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ckpt.save_checkpoint(out, state, 1, 0.0, False, block=False)
+    returned = time.perf_counter() - t0
+    ckpt.wait_pending()
+    background = time.perf_counter() - t0
+    print(f"full-width state ({nbytes_state / 1e6:.1f} MB: params, mu, nu, count) on {smi}: "
+          f"blocking save {blocking:.3f} s; async save returned after {returned:.4f} s, "
+          f"written after {background:.3f} s", flush=True)
+    shutil.rmtree(out)
+    return launches
+
+
+def batch_passes(store, cfg, device):
+    """The eval batches of the split in entry order, gathered on the card."""
+    import torch
+
+    from tf_vqa_regat_tpu_torch.data.store import gather_batch
+
+    for idx in store.epoch_indices(0, cfg.resolved_eval_batch(), False, cfg.seed):
+        yield idx, gather_batch(store, torch.from_numpy(idx).to(device),
+                                cfg.resolved_num_rois())
+
+
+def check_predict(tmp, smi, family, npz, device):
+    """Phase 12 for one family. Returns the launches of the predict path."""
+    import torch
+
+    from tf_vqa_regat_tpu_torch import main as port_main
+    from tf_vqa_regat_tpu_torch.data.store import DeviceStore
+    from tf_vqa_regat_tpu_torch.train import loop
+
+    argv = entry_argv(family, tmp, "--mode", "predict", "--checkpoint", npz)
+    real, timed = loop.run_prediction, []
+
+    def timed_prediction(*args, **kw):
+        t0 = time.perf_counter()
+        out = real(*args, **kw)
+        torch.cuda.synchronize()
+        timed.append(time.perf_counter() - t0)
+        return out
+
+    loop.run_prediction = timed_prediction
+    port_main.run_prediction = timed_prediction
+    reset_counts()  # the predict path starts here
+    try:
+        path = port_main.main(argv)
+    finally:
+        loop.run_prediction = port_main.run_prediction = real
+    launches = counts()
+    with open(path) as fh:
+        got = json.load(fh)
+    cfg = port_main.parse(argv)[0]
+    ds = port_main.build_dataset(cfg)
+    passes = -(-len(ds.entries.question_ids) // cfg.resolved_eval_batch())
+    qids = [d["question_id"] for d in got]
+    if sorted(qids) != sorted(ds.entries.question_ids.tolist()) or len(set(qids)) != len(qids):
+        fail(f"{family} predictions: {len(qids)} entries, not each question id once")
+    if launches != expected_launches(family, passes):
+        fail(f"{family} --mode predict: launches {launches} for {passes} passes")
+
+    model = port_main.load_model(cfg, ds).to(device).eval()
+    store = DeviceStore(ds, device, targets=False)
+    batches = list(batch_passes(store, cfg, device))
+    kernel, plain = [], []
+    with torch.no_grad():
+        for idx, batch in batches:
+            ok = torch.from_numpy(idx >= 0).to(device)
+            kernel.append(model(batch)[ok])
+            with plain_kernels():
+                plain.append(model(batch)[ok])
+
+        def forward_pass():
+            for _, batch in batches:
+                model(batch).argmax(dim=-1)
+
+        pass_ms = median_ms_interleaved([forward_pass], reps=5, calls=1, warmup=1)[0]
+    kernel, plain = torch.cat(kernel), torch.cat(plain)
+    diff = (kernel - plain).abs().max().item()
+    scale = plain.abs().max().item()
+    top2 = plain.topk(2, dim=-1)
+    # an answer can flip only where the top two lie within twice the
+    # largest difference of the two paths' logits
+    tie = ((top2.values[:, 0] - top2.values[:, 1]) <= 2 * diff).cpu()
+    answers = [ds.label2ans[int(a)] for a in top2.indices[:, 0].cpu()]
+    wrong = [i for i, d in enumerate(got) if not tie[i] and d["answer"] != answers[i]]
+    print(f"{family} --mode predict: {len(got)} answers written in a pass of {timed[0]:.3f} s "
+          f"({passes} batches of {cfg.resolved_eval_batch()}, host clock, store upload "
+          f"included); the forward passes alone {pass_ms:.2f} ms (CUDA events, median of 5, "
+          f"batches gathered) on {smi}; launches {json.dumps(launches)}; logits kernel vs plain max abs "
+          f"diff {diff} of scale {scale}; {int(tie.sum())} ties within {2 * diff}; "
+          f"{len(wrong)} other answers differ", flush=True)
+    if not diff <= LOGITS_RTOL * scale:
+        fail(f"{family} predict logits differ by {diff} > {LOGITS_RTOL} of {scale}")
+    if wrong:
+        fail(f"{family} predictions differ from the plain path's argmax at {wrong[:10]}")
+    return launches
+
+
+def check_ensemble(tmp, smi, npz, device):
+    """Phase 13. Returns the launches of the member's training run and of
+    the ensemble path."""
+    import torch
+
+    from tf_vqa_regat_tpu_torch import main as port_main
+    from tf_vqa_regat_tpu_torch.data.store import DeviceStore
+    from tf_vqa_regat_tpu_torch.train.ensemble import averaged_probs, load_members
+    from tf_vqa_regat_tpu_torch.train.logging import Logger
+    from tf_vqa_regat_tpu_torch.train.loss import vqa_score_sum
+
+    out = os.path.join(tmp, "ensemble")
+    reset_counts()  # the member's training path starts here
+    member = port_main.main(entry_argv(
+        "semantic", os.path.join(out, "implicit"), "--relation_type", "implicit", "--mode",
+        "train", "--epochs", "1", "--synthetic_train_size", "1536"))
+    train_launches = counts()
+    print(f"ensemble implicit member trained under semantic_vqa.json: {member}; launches "
+          f"{json.dumps(train_launches)}", flush=True)
+    cfg = full_width_config("semantic", ["--mode", "train"])
+    passes = -(-cfg.synthetic_val_size // cfg.resolved_eval_batch())
+    if train_launches != expected_launches("implicit", passes, -(-1536 // cfg.batch_size)):
+        fail(f"ensemble member training: launches {train_launches}")
+    spec = f"implicit:{member},spatial:{npz['spatial']},semantic:{npz['semantic']}"
+    argv = entry_argv("semantic", out, "--mode", "ensemble_eval", "--ensemble_checkpoints", spec)
+    reset_counts()  # the ensemble path starts here
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    score = port_main.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counts()
+    cfg = port_main.parse(argv)[0]
+    ds = port_main.build_dataset(cfg)
+    passes = -(-len(ds.entries.question_ids) // cfg.resolved_eval_batch())
+    want = {"B1 eval": 2 * passes, "B1 train": 0, "B2": 4 * passes, "B2 per-head": 0}
+    if launches != want:
+        fail(f"ensemble: launches {launches}, expected {want} for {passes} passes")
+
+    members = load_members(cfg, ds, device, Logger(os.path.join(out, "compare_log.txt")))
+    store = DeviceStore(ds, device)
+    R = cfg.resolved_num_rois()
+    diff, ties, moved, slack, n = 0.0, 0, 0, 0.0, 0.0
+    score_k = score_p = torch.zeros((), device=device)
+    for idx in store.epoch_indices(0, cfg.resolved_eval_batch(), False, cfg.seed):
+        idx = torch.from_numpy(idx).to(device)
+        got, batch = averaged_probs(members, store, idx, R)
+        with plain_kernels():
+            want_p, _ = averaged_probs(members, store, idx, R)
+        valid = batch["valid"]
+        diff = max(diff, (got - want_p)[valid].abs().max().item())
+        top2 = want_p.topk(2, dim=-1)
+        tied = ((top2.values[:, 0] - top2.values[:, 1]) <= ENSEMBLE_PROB_ATOL) & valid
+        t = batch["target"].gather(1, top2.indices)
+        moved += int(((got.argmax(-1) != top2.indices[:, 0]) & valid & ~tied).sum())
+        ties += int(tied.sum())
+        slack += float((t[:, 0] - t[:, 1]).abs()[tied].sum())
+        # f32 sums on the card, in the order run_ensemble_eval takes
+        score_k = score_k + vqa_score_sum(got, batch["target"], valid)
+        score_p = score_p + vqa_score_sum(want_p, batch["target"], valid)
+        n += float(valid.sum())
+    score_k, score_p = 100.0 * float(score_k) / n, 100.0 * float(score_p) / n
+
+    def ensemble_pass():
+        for idx in store.epoch_indices(0, cfg.resolved_eval_batch(), False, cfg.seed):
+            averaged_probs(members, store, torch.from_numpy(idx).to(device), R)
+
+    pass_ms = median_ms_interleaved([ensemble_pass], reps=5, calls=1, warmup=1)[0]
+    print(f"ensemble {list(spec.split(','))}: score {score} (kernel path recomputed "
+          f"{score_k}, plain path {score_p}); averaged probabilities kernel vs plain max abs "
+          f"diff {diff}; {ties} ties within {ENSEMBLE_PROB_ATOL}, {moved} other answers differ; entry point {wall:.3f} s (host "
+          f"clock, loads and store upload included, {passes} batches); the pass alone "
+          f"{pass_ms:.2f} ms (CUDA events, median of 5, gathers included) on {smi}; launches "
+          f"{json.dumps(launches)}", flush=True)
+    if not diff <= ENSEMBLE_PROB_ATOL or moved:
+        fail(f"ensemble probabilities differ by {diff} (tolerance {ENSEMBLE_PROB_ATOL}), "
+             f"{moved} answers outside the ties differ")
+    if abs(score - score_k) > 1e-6 * score or (
+            abs(score_k - score_p) > 100.0 * slack / n + 1e-6 * score_p):
+        fail(f"ensemble score {score} / {score_k} vs plain {score_p} (tie slack "
+             f"{100.0 * slack / n})")
+    return train_launches, launches
+
+
 def build_kernels():
     """Build every CUDA source of the port, one nvcc each, all at once."""
     from tf_vqa_regat_tpu_torch.ops.kernels import build
@@ -1167,17 +1532,31 @@ def main() -> None:
     with phase("7, mutan formulations"):
         check_mutan_branches(device)
     torch.cuda.empty_cache()
-    launches = {}
-    for family, extra in (("implicit", ()), ("spatial", ()),
-                          ("semantic", ("--synthetic_train_size", "1536")), ("ban", ()),
-                          ("mutan", ("--synthetic_train_size", "1536"))):
-        with tempfile.TemporaryDirectory() as tmp:
+    launches = []  # the launch counts of every path of 8-13
+    npz = {}
+    with tempfile.TemporaryDirectory() as tmp_root:
+        for family, extra in (("implicit", ()), ("spatial", ()),
+                              ("semantic", ("--synthetic_train_size", "1536")), ("ban", ()),
+                              ("mutan", ("--synthetic_train_size", "1536"))):
+            tmp = os.path.join(tmp_root, family)
             with phase(f"8-9, {family} train and eval"):
-                ckpt, train_launches, _ = check_entry_point(tmp, smi_line, family, extra)
+                npz[family], train_launches, _ = check_entry_point(tmp, smi_line, family, extra)
             with phase(f"10, {family} serve"):
-                serve_launches, _, _ = check_serve(ckpt, family)
+                serve_launches, _, _ = check_serve(npz[family], family)
+            shutil.rmtree(os.path.join(tmp, "checkpoints"))
+            torch.cuda.empty_cache()
+            launches += [train_launches, serve_launches]
+        with phase("11, resume"):
+            launches.append(check_resume(os.path.join(tmp_root, "resume"), smi_line, device))
         torch.cuda.empty_cache()
-        launches[family] = (train_launches, serve_launches)
+        for family in CONFIGS:
+            with phase(f"12, {family} predict"):
+                launches.append(check_predict(os.path.join(tmp_root, family), smi_line, family,
+                                              npz[family], device))
+            torch.cuda.empty_cache()
+        with phase("13, ensemble"):
+            launches += check_ensemble(tmp_root, smi_line, npz, device)
+        torch.cuda.empty_cache()
 
     if any(m.split(".")[0] in ("jax", "jaxlib", "tf_vqa_regat_tpu") for m in sys.modules):
         fail("JAX or the JAX package was imported")
@@ -1188,8 +1567,8 @@ def main() -> None:
     big = next(r for r in rows if r["b"] == 32)
     train_big, graph_big = train_rows[-1], graph_rows[-1]
     bound_keys = ("bound_ms", "bound_by")
-    def total(kernel):  # over every family's train run (with its eval passes) and serve
-        return sum(tr[kernel] + sv[kernel] for tr, sv in launches.values())
+    def total(kernel):  # over every path of 8-13
+        return sum(run[kernel] for run in launches)
 
     print(json.dumps({"kernels": [{
         "name": "implicit_attention",

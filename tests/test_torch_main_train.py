@@ -94,7 +94,7 @@ def test_serve_loads_the_trained_model(trained):
     assert not thread.is_alive()
 
 
-@pytest.mark.parametrize("flag", [["--grad_accum", "2"], ["--resume"]])
+@pytest.mark.parametrize("flag", [["--grad_accum", "2"], ["--roi_buckets", "36,64,100"]])
 def test_unported_training_flags_are_refused(flag):
     with pytest.raises(SystemExit):
         parse(SMALL + ["--mode", "train"] + flag)

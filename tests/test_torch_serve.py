@@ -179,7 +179,7 @@ def test_device_flag_and_unported_modes():
     assert split_device_flag(["--device=cuda:1"]) == ("cuda:1", [])
     assert split_device_flag([])[0] == "cuda"
     with pytest.raises(NotImplementedError, match="persistence and the other modes"):
-        build_server(["--mode", "predict", "--device", "cpu"])
+        build_server(["--mode", "export_h5", "--device", "cpu"])
     with pytest.raises(ValueError, match="builds --mode serve"):
         build_server(["--mode", "train", "--fusion", "butd", "--device", "cpu"])
     if not torch.cuda.is_available():
@@ -195,6 +195,7 @@ def test_port_imports_no_jax_and_no_h5py():
         "import tf_vqa_regat_tpu_torch.main, tf_vqa_regat_tpu_torch.serve\n"
         "import tf_vqa_regat_tpu_torch.ops.kernels.implicit_attention\n"
         "import tf_vqa_regat_tpu_torch.train.loop\n"
+        "import tf_vqa_regat_tpu_torch.train.checkpoint, tf_vqa_regat_tpu_torch.train.ensemble\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "          ('jax', 'jaxlib', 'orbax', 'h5py', 'tf_vqa_regat_tpu'))\n"
         "print(bad)\n"

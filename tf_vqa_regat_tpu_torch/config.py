@@ -55,7 +55,7 @@ class Config:
     label_bias: bool = False
     dropout: float = 0.2
     print_freq: int = 500
-    mode: str = "train"  # train | eval | serve (ported) | ensemble_eval | export_h5 | predict
+    mode: str = "train"  # train | eval | serve | predict | ensemble_eval (ported) | export_h5
     lr_decay_based_on_val: bool = False  # in the reference's JSON, unused by its model
 
     # --- BAN and MuTAN, beyond the reference (the first three are JSON keys) ---
@@ -77,6 +77,24 @@ class Config:
     serve_port: int = 8000
     serve_batch_sizes: str = "1,8,32"
     serve_max_delay_ms: float = 5.0
+    # --mode predict: the split whose submission JSON is written (test2015 |
+    # test-dev2015 | val); with --synthetic the synthetic val split.
+    predict_split: str = "test2015"
+    # --mode ensemble_eval: "implicit:PATH,spatial:PATH,semantic:PATH", each
+    # PATH an .npz or a checkpoint directory (train/ensemble.py).
+    ensemble_checkpoints: str = ""
+    # Checkpoints under {output}/checkpoints/ (train/checkpoint.py): one per
+    # epoch and the best; --resume continues from the newest.
+    resume: bool = False
+    save_every_epoch: bool = True
+    # A step checkpoint every N optimizer steps (0 = per epoch only), from
+    # which --resume continues inside the epoch, exactly.
+    checkpoint_every_steps: int = 0
+    # Snapshot on the device, write from a background thread (one in flight).
+    async_checkpoint: bool = True
+    # Keep only the newest N epoch checkpoints (0 = all); best/ and step
+    # checkpoints take no slot.
+    keep_ckpts: int = 0
     # Generated in-memory data with the real shapes instead of the dataset.
     synthetic: bool = False
     synthetic_train_size: int = 4096

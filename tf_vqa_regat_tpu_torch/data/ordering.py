@@ -6,6 +6,10 @@ from __future__ import annotations
 
 import numpy as np
 
+# The version of the formula below, as the JAX package numbers it: a step
+# checkpoint records it, and a mid-epoch resume refuses another.
+ORDER_VERSION = 2
+
 _M = 2**31
 _SEED_MULT = 100003  # spreads nearby seeds apart before the stream fold-in
 _BAND = 2**28  # per-kind seed band

@@ -80,16 +80,19 @@ def pack_soft_targets(ent: EntryTable, num_ans: int) -> Tuple[np.ndarray, np.nda
 class DeviceStore:
     """One split on `device`: its image tables (`images`) and its entry
     tables `entry_img` [N], `questions` [N, 14], `labels` and `scores`
-    [N, MAX_LABELS]."""
+    [N, MAX_LABELS]. With `targets` False (prediction, which may run on an
+    answerless split) the soft targets are neither read nor stored."""
 
-    def __init__(self, ds: SyntheticDataset, device: torch.device):
+    def __init__(self, ds: SyntheticDataset, device: torch.device, targets: bool = True):
         ent = ds.entries
-        labels, scores = pack_soft_targets(ent, ds.num_ans)
         self.images = ImageStore(ds, device)
         self.entry_img = _put(ent.image_index, torch.int64, device)
         self.questions = _put(ent.q_tokens, torch.int64, device)
-        self.labels = _put(labels, torch.int64, device)
-        self.scores = _put(scores, torch.float32, device)
+        self.labels = self.scores = None
+        if targets:
+            labels, scores = pack_soft_targets(ent, ds.num_ans)
+            self.labels = _put(labels, torch.int64, device)
+            self.scores = _put(scores, torch.float32, device)
         self.num_entries = len(ent.question_ids)
         self.num_ans = ds.num_ans
         self.padding_idx = ds.padding_idx
@@ -112,13 +115,13 @@ class DeviceStore:
 
 
 def gather_batch(
-    store: DeviceStore, idx: torch.Tensor, num_rois: int
+    store: DeviceStore, idx: torch.Tensor, num_rois: int, adj: bool = True
 ) -> Dict[str, torch.Tensor]:
     """The batch for index vector `idx` [B] (on the store's device, -1 =
-    padded slot): features, norm_bb, bb, question, the dense soft targets
-    [B, num_ans], num_boxes, valid and, when the store has edge labels,
-    adj_label. A padded slot has no boxes, a question of padding tokens, a
-    zero target and no edges."""
+    padded slot): features, norm_bb, bb, question, num_boxes, valid, the
+    dense soft targets [B, num_ans] when the store has them, and adj_label
+    when it has edge labels and `adj` is set. A padded slot has no boxes, a
+    question of padding tokens, a zero target and no edges."""
     B = idx.shape[0]
     valid = idx >= 0
     safe = torch.where(valid, idx, torch.zeros_like(idx)).long()
@@ -131,19 +134,21 @@ def gather_batch(
     features, norm_bb, bb = gather_image_features(store.images, img, n_box, num_rois)
     q = store.questions[safe]
     question = torch.where(valid[:, None], q, torch.full_like(q, store.padding_idx))
-    labels, scores = store.labels[safe], store.scores[safe]
-    lab_ok = (labels >= 0) & valid[:, None]
-    target = torch.zeros((B, store.num_ans), dtype=torch.float32, device=idx.device)
-    target.scatter_add_(
-        1,
-        torch.where(lab_ok, labels, torch.zeros_like(labels)),
-        torch.where(lab_ok, scores, torch.zeros_like(scores)),
-    )
     batch = {
         "features": features, "norm_bb": norm_bb, "bb": bb, "question": question,
-        "target": target, "num_boxes": n_box, "valid": valid,
+        "num_boxes": n_box, "valid": valid,
     }
-    if store.images.adj is not None:
+    if store.labels is not None:
+        labels, scores = store.labels[safe], store.scores[safe]
+        lab_ok = (labels >= 0) & valid[:, None]
+        target = torch.zeros((B, store.num_ans), dtype=torch.float32, device=idx.device)
+        target.scatter_add_(
+            1,
+            torch.where(lab_ok, labels, torch.zeros_like(labels)),
+            torch.where(lab_ok, scores, torch.zeros_like(scores)),
+        )
+        batch["target"] = target
+    if adj and store.images.adj is not None:
         batch["adj_label"] = gather_adj(store.images, img, num_rois, valid)
     return batch
 

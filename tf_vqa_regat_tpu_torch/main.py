@@ -4,19 +4,25 @@ configs (counterpart of main.py):
     python -m tf_vqa_regat_tpu_torch.main --config configs/butd_vqa.json \\
         --mode train --synthetic [--device cuda]
     python -m tf_vqa_regat_tpu_torch.main --config configs/butd_vqa.json \\
-        --mode eval|serve --synthetic --checkpoint model.npz [--device cuda]
+        --mode eval|serve|predict --synthetic --checkpoint model.npz [--device cuda]
+    python -m tf_vqa_regat_tpu_torch.main --config configs/semantic_vqa.json \\
+        --mode ensemble_eval --synthetic \\
+        --ensemble_checkpoints implicit:A.npz,spatial:B.npz,semantic:C.npz
 
 `--device` (default cuda) is the port's one extra flag. With `--device cuda`
 and no visible GPU the run fails; it never moves to the CPU on its own.
 `--device cpu` runs every kernel's plain PyTorch version.
 
-Ported so far: `--mode train`, `eval` and `serve` on `--synthetic` data, for
-implicit, spatial and semantic relations with BUTD fusion, and implicit
-relations with BAN and MuTAN fusion (configs/ban_vqa.json,
-mutan_vqa_cp.json). Training writes
-`{output}/{relation_type}-{fusion}-pretrained_model.npz` (params.py), which
-eval and serve read. Other modes raise NotImplementedError naming the ROADMAP
-item that ports them.
+Ported so far: `--mode train`, `eval`, `serve`, `predict` and
+`ensemble_eval` on `--synthetic` data, for implicit, spatial and semantic
+relations with BUTD fusion, and implicit relations with BAN and MuTAN fusion
+(configs/ban_vqa.json, mutan_vqa_cp.json). Training writes checkpoints under
+`{output}/checkpoints/` (train/checkpoint.py; `--resume` continues from the
+newest) and, at its end, `{output}/{relation_type}-{fusion}-pretrained_model.npz`
+(params.py). A preempted run (SIGTERM) saves a step checkpoint, prints how
+to resume and exits 0 without the final file. `--checkpoint` takes an .npz
+or a checkpoint directory. `--mode export_h5` raises NotImplementedError
+naming the ROADMAP item that ports it.
 """
 
 from __future__ import annotations
@@ -30,15 +36,21 @@ import torch
 from tf_vqa_regat_tpu_torch.config import Config, parse_with_config
 from tf_vqa_regat_tpu_torch.data.synthetic import SyntheticDataset, synthetic_dataset
 from tf_vqa_regat_tpu_torch.models.regat import ReGAT, check_supported
-from tf_vqa_regat_tpu_torch.params import load_jax_arrays, load_npz, save_npz
+from tf_vqa_regat_tpu_torch.params import load_jax_arrays, save_npz
 from tf_vqa_regat_tpu_torch.serve import make_server
+from tf_vqa_regat_tpu_torch.train.checkpoint import load_params
+from tf_vqa_regat_tpu_torch.train.ensemble import run_ensemble_eval
 from tf_vqa_regat_tpu_torch.train.logging import Logger
-from tf_vqa_regat_tpu_torch.train.loop import run_evaluation, run_training
+from tf_vqa_regat_tpu_torch.train.loop import (
+    Preempted,
+    run_evaluation,
+    run_prediction,
+    run_training,
+)
 
+PORTED_MODES = ("train", "eval", "serve", "predict", "ensemble_eval")
 _NOT_PORTED = {
-    "predict": "ROADMAP Queue A, persistence and the other modes",
-    "ensemble_eval": "ROADMAP Queue A, persistence and the other modes",
-    "export_h5": "ROADMAP Queue A, persistence and the other modes",
+    "export_h5": "ROADMAP Queue A, persistence and the other modes: export_h5 and .h5 import",
 }
 
 
@@ -71,9 +83,10 @@ def resolve_device(name: str) -> torch.device:
 
 def build_dataset(cfg: Config, name: str = "val") -> SyntheticDataset:
     """The JAX entry point's synthetic split: `val` (seed + 1,
-    synthetic_val_size questions), which eval and serve read, or `train`
-    (seed, synthetic_train_size questions); with per-image semantic edge
-    labels when the relation type is semantic."""
+    synthetic_val_size questions), which eval, serve, predict and the
+    ensemble read, or `train` (seed, synthetic_train_size questions); with
+    per-image semantic edge labels when the relation type is semantic or an
+    ensemble has a semantic member (the table's draws change the answers)."""
     if not cfg.synthetic:
         raise NotImplementedError(
             "real VQA features are not ported yet (ROADMAP Queue A, real VQA "
@@ -88,23 +101,24 @@ def build_dataset(cfg: Config, name: str = "val") -> SyntheticDataset:
         (cfg.synthetic_train_size, cfg.seed) if name == "train"
         else (cfg.synthetic_val_size, cfg.seed + 1)
     )
+    semantic = cfg.relation_type == "semantic" or (
+        cfg.mode == "ensemble_eval" and "semantic:" in cfg.ensemble_checkpoints
+    )
     return synthetic_dataset(
         num_images=max(size // 8, 8), num_questions=size, seed=seed,
-        semantic=cfg.relation_type == "semantic", name=name,
+        semantic=semantic, name=name,
     )
 
 
 def load_model(cfg: Config, ds: SyntheticDataset) -> ReGAT:
+    """The model of --checkpoint: an .npz of params.py or a checkpoint
+    directory of train/checkpoint.py, full state or params only."""
     if not cfg.checkpoint:
-        raise ValueError(f"--mode {cfg.mode} needs --checkpoint (an .npz of params.py)")
-    if not cfg.checkpoint.endswith(".npz"):
-        raise NotImplementedError(
-            f"--checkpoint {cfg.checkpoint!r}: the port reads .npz parameter "
-            f"files (params.py); orbax and .h5 checkpoints are ROADMAP Queue A, "
-            f"persistence and the other modes"
+        raise ValueError(
+            f"--mode {cfg.mode} needs --checkpoint (an .npz or a checkpoint directory)"
         )
     model = ReGAT(cfg, ds.ntoken, ds.v_dim, ds.num_ans)
-    load_jax_arrays(model, load_npz(cfg.checkpoint))
+    load_jax_arrays(model, load_params(cfg.checkpoint))
     return model
 
 
@@ -112,7 +126,7 @@ def parse(argv: Optional[List[str]] = None) -> Tuple[Config, torch.device]:
     """(config, device) of a ported mode; raises for any other."""
     device_name, rest = split_device_flag(sys.argv[1:] if argv is None else argv)
     cfg = parse_with_config(rest)
-    if cfg.mode not in ("train", "eval", "serve"):
+    if cfg.mode not in PORTED_MODES:
         item = _NOT_PORTED.get(cfg.mode)
         if item is None:
             raise ValueError(f"unknown mode {cfg.mode!r}")
@@ -128,12 +142,22 @@ def final_model_path(cfg: Config) -> str:
     return os.path.abspath(os.path.join(cfg.output, name))
 
 
-def train(cfg: Config, device: torch.device) -> str:
-    """`--mode train`: train from the seed's init, evaluating after every
-    epoch; returns the path of the written parameters."""
+def train(cfg: Config, device: torch.device) -> Optional[str]:
+    """`--mode train`: train from the seed's init (or, under --resume, from
+    the newest checkpoint), evaluating after every epoch; returns the path
+    of the written parameters, or None when the run was preempted."""
     train_ds, val_ds = build_dataset(cfg, "train"), build_dataset(cfg, "val")
     model = ReGAT(cfg, train_ds.ntoken, train_ds.v_dim, train_ds.num_ans)
-    model, best = run_training(cfg, train_ds, val_ds, model, device)
+    try:
+        model, best = run_training(cfg, train_ds, val_ds, model, device)
+    except Preempted as e:
+        # the state is checkpointed; the unfinished run writes no final file
+        print(
+            f"preempted at {e} — checkpoint saved; rerun the same command with "
+            f"--resume to continue",
+            flush=True,
+        )
+        return None
     path = final_model_path(cfg)
     save_npz(path, model)
     print(f"saved final model to {path} (best eval score {best:.4f})", flush=True)
@@ -153,6 +177,31 @@ def evaluate(cfg: Config, device: torch.device) -> Tuple[float, float]:
     finally:
         logger.close()
     return score, loss
+
+
+def predict(cfg: Config, device: torch.device) -> str:
+    """`--mode predict`: the submission JSON of the split; returns its path."""
+    ds = build_dataset(cfg)
+    model = load_model(cfg, ds)
+    logger = Logger(os.path.join(cfg.output, "predict_log.txt"))
+    try:
+        path = run_prediction(cfg, ds, model, device, logger)
+    finally:
+        logger.close()
+    print(f"predictions: {path}", flush=True)
+    return path
+
+
+def ensemble_eval(cfg: Config, device: torch.device) -> float:
+    """`--mode ensemble_eval`: the score (%) of --ensemble_checkpoints."""
+    ds = build_dataset(cfg)
+    logger = Logger(os.path.join(cfg.output, "eval_log.txt"))
+    try:
+        score = run_ensemble_eval(cfg, ds, device, logger)
+        logger.write(f"Final ensemble eval score: {score:.4f}")
+    finally:
+        logger.close()
+    return score
 
 
 def build_server(argv: Optional[List[str]] = None):
@@ -183,12 +232,17 @@ def serve(argv: Optional[List[str]] = None) -> None:
 
 
 def main(argv: Optional[List[str]] = None):
-    """Runs the mode; returns train's written path or eval's (score, loss)."""
+    """Runs the mode; returns train's written path (None if preempted),
+    eval's (score, loss), predict's JSON path or the ensemble's score."""
     cfg, device = parse(argv)
     if cfg.mode == "train":
         return train(cfg, device)
     if cfg.mode == "eval":
         return evaluate(cfg, device)
+    if cfg.mode == "predict":
+        return predict(cfg, device)
+    if cfg.mode == "ensemble_eval":
+        return ensemble_eval(cfg, device)
     return serve(argv)
 
 

@@ -1,0 +1,118 @@
+"""Three-branch ReGAT ensemble evaluation (counterpart of
+tf_vqa_regat_tpu/train/ensemble.py, its device-resident path).
+
+Members are separate checkpoints, each trained with its own
+--relation_type and otherwise the flags of this run: member `rt` is built
+with `cfg.replace(relation_type=rt)` and loaded from its `.npz` or
+checkpoint directory. At eval time every member runs on the same batch and
+the sigmoid answer probabilities are averaged before the argmax VQA score.
+
+The split's tables are uploaded once and shared. The shared batch carries no
+edge labels: a semantic member adds the split's semantic label table,
+gathered for the batch, and a spatial member builds its labels from the
+boxes in the step, as it does in training.
+
+CLI: --mode ensemble_eval
+     --ensemble_checkpoints implicit:PATH,spatial:PATH,semantic:PATH
+(any non-empty subset of branches).
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Dict, List, Tuple
+
+import torch
+
+from tf_vqa_regat_tpu_torch.config import Config
+from tf_vqa_regat_tpu_torch.data.store import DeviceStore, gather_adj, gather_batch
+from tf_vqa_regat_tpu_torch.data.synthetic import SyntheticDataset
+from tf_vqa_regat_tpu_torch.models.regat import ReGAT
+from tf_vqa_regat_tpu_torch.params import load_jax_arrays
+from tf_vqa_regat_tpu_torch.train.checkpoint import load_params
+from tf_vqa_regat_tpu_torch.train.logging import Logger
+from tf_vqa_regat_tpu_torch.train.loss import vqa_score_sum
+
+Member = Tuple[str, ReGAT]
+
+
+def parse_members(spec: str) -> List[Tuple[str, str]]:
+    """'implicit:P1,spatial:P2' -> [(relation_type, path), ...]."""
+    members = []
+    for part in spec.split(","):
+        part = part.strip()
+        if not part:
+            continue
+        rt, path = part.split(":", 1)
+        if rt not in ("implicit", "spatial", "semantic"):
+            raise ValueError(f"unknown ensemble relation_type {rt!r}")
+        members.append((rt, path))
+    if not members:
+        raise ValueError("empty --ensemble_checkpoints")
+    return members
+
+
+def load_members(
+    cfg: Config, ds: SyntheticDataset, device: torch.device, logger: Logger
+) -> List[Member]:
+    """Each member of --ensemble_checkpoints, built under this run's flags
+    with its relation type, loaded and in eval mode on `device`. Raises,
+    naming the member, when its parameters do not fit those flags."""
+    members = []
+    for rt, path in parse_members(cfg.ensemble_checkpoints):
+        model = ReGAT(cfg.replace(relation_type=rt), ds.ntoken, ds.v_dim, ds.num_ans)
+        try:
+            load_jax_arrays(model, load_params(path))
+        except ValueError as e:
+            raise ValueError(
+                f"ensemble member {rt}:{path} does not fit this run's flags (every "
+                f"member must be trained under them, --relation_type aside): {e}"
+            ) from e
+        members.append((rt, model.to(device).eval()))
+        logger.write(f"[ensemble] loaded {rt} member from {path}")
+    return members
+
+
+def averaged_probs(
+    members: List[Member], store: DeviceStore, idx: torch.Tensor, num_rois: int
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """(mean of the members' sigmoid answer probabilities [B, num_ans], the
+    shared batch) for index vector `idx`."""
+    batch = gather_batch(store, idx, num_rois, adj=False)
+    adj = None
+    probs = None
+    with torch.no_grad():
+        for rt, model in members:
+            b = batch
+            if rt == "semantic":
+                if adj is None:
+                    if store.images.adj is None:
+                        raise ValueError("a semantic member needs the split's edge-label table")
+                    img = store.entry_img[torch.clamp(idx, min=0).long()]
+                    adj = gather_adj(store.images, img, num_rois, batch["valid"])
+                b = dict(batch, adj_label=adj)
+            p = torch.sigmoid(model(b))
+            probs = p if probs is None else probs + p
+    return probs / len(members), batch
+
+
+def run_ensemble_eval(
+    cfg: Config, val_ds: SyntheticDataset, device: torch.device, logger: Logger
+) -> float:
+    """The ensemble's VQA score (%) over the split, in entry order."""
+    members = load_members(cfg, val_ds, device, logger)
+    store = DeviceStore(val_ds, device)
+    B, R = cfg.resolved_eval_batch(), cfg.resolved_num_rois()
+    score = torch.zeros((), device=device)
+    n = torch.zeros((), device=device)
+    start = time.time()
+    for idx in store.epoch_indices(0, B, shuffle=False, seed=cfg.seed):
+        probs, batch = averaged_probs(members, store, torch.from_numpy(idx).to(device), R)
+        score += vqa_score_sum(probs, batch["target"], batch["valid"])
+        n += batch["valid"].to(torch.float32).sum()
+    score_pct = 100.0 * float(score) / max(float(n), 1.0)
+    logger.write(
+        f"[ensemble] members={[rt for rt, _ in members]} data=device "
+        f"score={score_pct:.4f} ({time.time()-start:.1f}s)"
+    )
+    return score_pct

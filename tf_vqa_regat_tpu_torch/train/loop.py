@@ -1,6 +1,8 @@
-"""Train and eval orchestration (counterpart of tf_vqa_regat_tpu/train/loop.py:
-`run_training`, `run_evaluation`, `_run_eval`, `_log_progress`), over the
-device-resident stores of data/store.py.
+"""Train, eval and predict orchestration (counterpart of
+tf_vqa_regat_tpu/train/loop.py: `run_training`, `run_evaluation`,
+`run_prediction`, `_run_eval`, `_log_progress`, `_run_signature`,
+`Preempted` and `_PreemptWatcher`), over the device-resident stores of
+data/store.py.
 
 The log lines follow the JAX package's (and so the reference's) format: the
 optimizer banner, the LR line at every warmup epoch and every decay epoch,
@@ -9,24 +11,38 @@ a step line every `print_freq` steps, an eval pass after every epoch and
 `{output}/metrics.jsonl` with the JAX keys. The metrics accumulate on the
 device and are read at a print and at the end of an epoch.
 
-Not ported (ROADMAP Queue A): per-epoch checkpoints, --resume and
-preemption (persistence and the other modes); --grad_accum (multi-device);
---train_block, roi buckets and bf16 or int8 tables (main-path runtime).
+Checkpoints (train/checkpoint.py): every epoch and the best under
+--save_every_epoch, a step checkpoint every --checkpoint_every_steps, and
+one at the next step after SIGTERM (or the REGAT_FAULT_PREEMPT_STEP fault
+hook), after which training raises `Preempted`. --resume restores the
+newest and, from a step checkpoint, skips the epoch's steps already taken
+and restores its accumulators: dropout masks follow (seed, count) and the
+epoch order (seed, epoch), so the resumed run equals the uninterrupted one.
+
+Not ported (ROADMAP Queue A): --grad_accum, the multi-process preemption
+sync and checkpoint barrier (multi-device); --train_block, roi buckets and
+bf16 or int8 tables (main-path runtime); host streaming (real VQA data).
 """
 
 from __future__ import annotations
 
+import json
 import os
+import signal
+import threading
 import time
-from typing import Dict, Iterable, Tuple
+from typing import Any, Dict, Iterable, Optional, Tuple
 
 import numpy as np
 import torch
 
 from tf_vqa_regat_tpu_torch.config import Config
+from tf_vqa_regat_tpu_torch.data.ordering import ORDER_VERSION
 from tf_vqa_regat_tpu_torch.data.store import DeviceStore, gather_batch
 from tf_vqa_regat_tpu_torch.data.synthetic import SyntheticDataset
 from tf_vqa_regat_tpu_torch.models.regat import ReGAT, trainable_mask
+from tf_vqa_regat_tpu_torch.params import load_state_arrays, state_tensors
+from tf_vqa_regat_tpu_torch.train import checkpoint as ckpt
 from tf_vqa_regat_tpu_torch.train.logging import Logger, MetricsWriter, time_since
 from tf_vqa_regat_tpu_torch.train.optim import (
     DECAY_START_EPOCH,
@@ -37,6 +53,115 @@ from tf_vqa_regat_tpu_torch.train.optim import (
 from tf_vqa_regat_tpu_torch.train.step import eval_step, train_step
 
 Metrics = Dict[str, torch.Tensor]
+
+
+class Preempted(RuntimeError):
+    """Training was interrupted (SIGTERM, or the REGAT_FAULT_PREEMPT_STEP
+    fault hook) and a step checkpoint was saved. main.py catches this, skips
+    the final artifact and exits cleanly: rerun the same command with
+    --resume to continue from that step."""
+
+
+class _PreemptWatcher:
+    """SIGTERM -> save at the next step boundary, then exit cleanly. A
+    handler on the main thread sets a flag polled after every optimizer
+    step; `REGAT_FAULT_PREEMPT_STEP=<global step>` fires at the first step
+    boundary at or after that step. The previous handler is restored on
+    exit. (The JAX package's multi-process branch, its preemption sync
+    service, is ROADMAP Queue A, multi-device.)"""
+
+    def __init__(self) -> None:
+        self._flag = False
+        self._prev: Any = None
+        self._registered = False
+        env = os.environ.get("REGAT_FAULT_PREEMPT_STEP", "")
+        self._fault_step = int(env) if env else -1
+
+    def __enter__(self) -> "_PreemptWatcher":
+        if threading.current_thread() is threading.main_thread():
+            self._prev = signal.signal(signal.SIGTERM, self._on_signal)
+            self._registered = True
+        return self
+
+    def __exit__(self, *exc: Any) -> None:
+        if self._registered:
+            # None (a handler installed from C) restores the default action
+            signal.signal(signal.SIGTERM, signal.SIG_DFL if self._prev is None else self._prev)
+
+    def _on_signal(self, signum: Any, frame: Any) -> None:
+        self._flag = True
+
+    def poll(self, global_step: int) -> bool:
+        return self._flag or 0 <= self._fault_step <= global_step
+
+
+def _run_signature(cfg: Config, steps_per_epoch: int) -> Dict[str, Any]:
+    """Everything the seeded epoch order depends on, with the JAX keys: a
+    step checkpoint records it and a mid-epoch resume refuses another. The
+    port has one data path (the device store, one process, no roi buckets)
+    and dispatches one step at a time."""
+    return {
+        "batch_size": int(cfg.batch_size),
+        "seed": int(cfg.seed),
+        "steps_per_epoch": int(steps_per_epoch),
+        "order": int(ORDER_VERSION),
+        "roi_buckets": [],
+        "data_mode": "device",
+        "dp": 1,
+        "train_block": 1,  # one optimizer step per dispatch (JAX: --train_block 1)
+    }
+
+
+def _resume_point(
+    cfg: Config, N: int, model: ReGAT, opt: Adamax
+) -> Tuple[int, int, Optional[Dict[str, float]], float]:
+    """--resume: restore the newest checkpoint into `model` and `opt` ->
+    (first epoch, steps of it already taken, its accumulators or None, best
+    score); (0, 0, None, -1.0) when there is none. Raises when the run's
+    signature differs from the one a step checkpoint was written under, or
+    when an epoch checkpoint was written at another steps_per_epoch (the LR
+    is keyed to the step count)."""
+    latest = ckpt.latest_checkpoint(cfg.output)
+    if latest is None:
+        return 0, 0, None, -1.0
+    load_state_arrays(model, opt, ckpt.restore_checkpoint(latest))
+    meta = ckpt.restore_meta_full(cfg.output) or {}
+    best_score = float(meta.get("best_score", -1.0))
+    restored = os.path.basename(latest)
+    sig_saved = meta.get("run")
+    if "step_in_epoch" in meta and meta.get("dir") == restored:
+        # a mid-epoch resume replays the same epoch order past the saved step
+        sig_now = _run_signature(cfg, N)
+        diffs = {
+            k: (sig_saved.get(k), sig_now.get(k))
+            for k in (sig_saved or {}) if sig_saved.get(k) != sig_now.get(k)
+        }
+        # checked even when the writer did not record them (defaults 1)
+        for k in ("order", "train_block"):
+            if sig_saved is not None and sig_saved.get(k, 1) != sig_now[k]:
+                diffs[k] = (sig_saved.get(k, 1), sig_now[k])
+        if sig_saved is not None and diffs:
+            raise ValueError(
+                "mid-epoch resume requires the run configuration that wrote the "
+                f"step checkpoint (saved vs current: {diffs}); rerun with the "
+                "original settings, or resume from an epoch-boundary checkpoint"
+            )
+        return int(meta["epoch"]), int(meta["step_in_epoch"]), meta.get("acc") or None, best_score
+    if meta.get("dir") == restored:
+        if sig_saved and "steps_per_epoch" in sig_saved and int(
+            sig_saved["steps_per_epoch"]
+        ) != N:
+            raise ValueError(
+                f"resume with a different steps_per_epoch ({sig_saved['steps_per_epoch']} "
+                f"saved vs {N} now — batch_size/data change): the optimizer's step "
+                "count would misalign the epoch-keyed LR schedule; rerun with the "
+                "original settings"
+            )
+        return int(meta.get("epoch", -1)) + 1, 0, None, best_score
+    # meta's dir is gone and latest_checkpoint fell back to the newest
+    # complete epoch: the epoch comes from that directory, and meta's skip
+    # (steps the restored state never took) is ignored
+    return int(restored.split("_")[1]) + 1, 0, None, best_score
 
 
 def _zeros(device: torch.device) -> Metrics:
@@ -98,7 +223,8 @@ def run_training(
     emb2_trainable: bool = False,
 ) -> Tuple[ReGAT, float]:
     """Train `model` (moved to `device`) for cfg.epochs epochs, evaluating
-    after each. Returns (model, best eval score %)."""
+    after each, or from the newest checkpoint under --resume. Returns
+    (model, best eval score %); raises `Preempted` after a preemption save."""
     model.to(device)
     train_store = DeviceStore(train_ds, device)
     eval_store = DeviceStore(val_ds, device)
@@ -107,6 +233,11 @@ def run_training(
     lr_fn = make_lr_schedule(cfg.base_lr, N, cfg.lr_decay_rate, cfg.lr_decay_step)
     opt = Adamax(model, trainable_mask(model, emb2_trainable), lr_fn, cfg.grad_clip)
 
+    start_epoch, skip_steps, acc_resume, best_score = 0, 0, None, -1.0
+    if cfg.resume:
+        start_epoch, skip_steps, acc_resume, best_score = _resume_point(cfg, N, model, opt)
+    run_sig = _run_signature(cfg, N)
+
     logger = Logger(os.path.join(cfg.output, "log.txt"))
     metrics_writer = MetricsWriter(os.path.join(cfg.output, "metrics.jsonl"))
     logger.write(
@@ -114,55 +245,109 @@ def run_training(
         % (cfg.base_lr, cfg.lr_decay_step, cfg.lr_decay_rate)
         + "grad_clip=%.2f" % cfg.grad_clip
     )
-    best_score = -1.0
+    # an exception anywhere still joins the in-flight async write, so every
+    # checkpoint issued before it is on disk
     try:
-        for epoch in range(cfg.epochs):
-            lr_now = lr_fn(epoch * N)
-            # the LR line prints at every warmup epoch and at each decay
-            # epoch; the from-value is the previous epoch's LR
-            lr_old = lr_fn((epoch - 1) * N) if epoch > 0 else cfg.base_lr
-            is_decay = (
-                epoch >= DECAY_START_EPOCH
-                and (epoch - DECAY_START_EPOCH) % cfg.lr_decay_step == 0
-            )
-            if epoch < len(WARMUP_FACTORS) or is_decay:
-                logger.write(
-                    f"\nEpoch: {epoch}. Reducing Learning Rate from {lr_old} to {lr_now}"
+        with ckpt.pending_joined(), _PreemptWatcher() as preempt:
+            for epoch in range(start_epoch, cfg.epochs):
+                skip = skip_steps if epoch == start_epoch else 0
+                lr_now = lr_fn(epoch * N)
+                # the LR line prints at every warmup epoch and at each decay
+                # epoch; the from-value is the previous epoch's LR
+                lr_old = lr_fn((epoch - 1) * N) if epoch > 0 else cfg.base_lr
+                is_decay = (
+                    epoch >= DECAY_START_EPOCH
+                    and (epoch - DECAY_START_EPOCH) % cfg.lr_decay_step == 0
                 )
-            logger.write("--" * 50)
-            logger.write(f"[DEBUG] epoch {epoch}, number of steps: {N}")
-            logger.write("--" * 50)
+                if epoch < len(WARMUP_FACTORS) or is_decay:
+                    logger.write(
+                        f"\nEpoch: {epoch}. Reducing Learning Rate from {lr_old} to {lr_now}"
+                    )
+                logger.write("--" * 50)
+                logger.write(f"[DEBUG] epoch {epoch}, number of steps: {N}")
+                logger.write("--" * 50)
 
-            acc = _zeros(device)
-            start = time.time()
-            indices = train_store.epoch_indices(epoch, cfg.batch_size, True, cfg.seed)
-            for i, batch in enumerate(_batches(train_store, indices, R, device)):
-                m = train_step(model, opt, batch, opt.count, cfg.seed)
-                _accumulate(acc, m)
-                if cfg.print_freq > 0 and (i + 1) % cfg.print_freq == 0:
-                    _log_progress(logger, acc, m["loss"], epoch, i, N, start)
-            n = max(float(acc["n"]), 1.0)
-            train_score = 100.0 * float(acc["score"]) / n
-            train_time = time.time() - start
+                acc = _zeros(device)
+                n_restored = 0.0  # examples the interrupted run already counted
+                if skip and acc_resume is not None:
+                    acc = {
+                        k: torch.tensor(float(acc_resume.get(k, 0.0)), device=device)
+                        for k in acc
+                    }
+                    n_restored = float(acc_resume.get("n", 0.0))
+                start = time.time()
+                indices = list(
+                    train_store.epoch_indices(epoch, cfg.batch_size, True, cfg.seed)
+                )[skip:]
+                for i, batch in enumerate(_batches(train_store, indices, R, device), skip):
+                    m = train_step(model, opt, batch, opt.count, cfg.seed)
+                    _accumulate(acc, m)
+                    if cfg.print_freq > 0 and (i + 1) % cfg.print_freq == 0:
+                        _log_progress(logger, acc, m["loss"], epoch, i, N, start)
+                    preempted = preempt.poll(epoch * N + i + 1)
+                    if preempted or (
+                        cfg.checkpoint_every_steps > 0
+                        and (i + 1) % cfg.checkpoint_every_steps == 0
+                        and i + 1 < N  # the epoch save supersedes it
+                    ):
+                        waited = ckpt.save_checkpoint(
+                            cfg.output, state_tensors(model, opt), epoch, best_score, False,
+                            step_in_epoch=i + 1,
+                            acc={k: float(v) for k, v in acc.items()},
+                            # a preemption save must be on disk before exit
+                            block=preempted or not cfg.async_checkpoint,
+                            run_sig=run_sig, retain=cfg.keep_ckpts,
+                        )
+                        if waited > 1.0 and not preempted:
+                            logger.write(
+                                f"[ckpt] async save back-pressure: waited "
+                                f"{waited:.1f}s for the previous write — "
+                                f"raise --checkpoint_every_steps (background "
+                                f"fetch+write outlasts the save cadence)"
+                            )
+                        if preempted:
+                            logger.write(
+                                f"[preempt] checkpoint saved at epoch {epoch} "
+                                f"step {i + 1}; exiting — rerun with --resume"
+                            )
+                            raise Preempted(f"epoch {epoch} step {i + 1}")
+                n = max(float(acc["n"]), 1.0)
+                train_score = 100.0 * float(acc["score"]) / n
+                train_time = time.time() - start
 
-            eval_score, eval_loss, eval_time = _run_eval(
-                model, eval_store, cfg, epoch, logger, device
-            )
-            logger.write(
-                f"[DEBUG] train_score: {train_score:.4f} eval_score: {eval_score:.4f}"
-            )
-            metrics_writer.write({
-                "epoch": epoch,
-                "lr": lr_now,
-                "train_loss": float(acc["loss_sum"]) / n,
-                "train_score": train_score,
-                "eval_score": eval_score,
-                "eval_loss": eval_loss,
-                "train_time_s": train_time,
-                "eval_time_s": eval_time,
-                "train_qps": float(acc["n"]) / max(train_time, 1e-9),
-            })
-            best_score = max(best_score, eval_score)
+                eval_score, eval_loss, eval_time = _run_eval(
+                    model, eval_store, cfg, epoch, logger, device
+                )
+                logger.write(
+                    f"[DEBUG] train_score: {train_score:.4f} eval_score: {eval_score:.4f}"
+                )
+                metrics_writer.write({
+                    "epoch": epoch,
+                    "lr": lr_now,
+                    "train_loss": float(acc["loss_sum"]) / n,
+                    "train_score": train_score,
+                    "eval_score": eval_score,
+                    "eval_loss": eval_loss,
+                    "train_time_s": train_time,
+                    "eval_time_s": eval_time,
+                    # only the examples this run stepped count
+                    "train_qps": (float(acc["n"]) - n_restored) / max(train_time, 1e-9),
+                })
+                is_best = eval_score > best_score
+                best_score = max(best_score, eval_score)
+                if cfg.save_every_epoch:
+                    waited = ckpt.save_checkpoint(
+                        cfg.output, state_tensors(model, opt), epoch, best_score, is_best,
+                        block=not cfg.async_checkpoint, run_sig=run_sig,
+                        retain=cfg.keep_ckpts,
+                    )
+                    if waited > 1.0:
+                        logger.write(
+                            f"[ckpt] async save back-pressure: waited "
+                            f"{waited:.1f}s for the previous epoch's write "
+                            f"(epochs finish faster than the background "
+                            f"fetch+write can drain)"
+                        )
     finally:
         logger.close()
         metrics_writer.close()
@@ -176,3 +361,48 @@ def run_evaluation(
     """`--mode eval`: one eval pass over the split -> (score %, mean loss, s)."""
     model.to(device)
     return _run_eval(model, DeviceStore(val_ds, device), cfg, 0, logger, device)
+
+
+def run_prediction(
+    cfg: Config, ds: SyntheticDataset, model: ReGAT, device: torch.device, logger: Logger,
+) -> str:
+    """`--mode predict`: one forward pass over the split in entry order,
+    the argmax answers written as the VQA submission JSON
+    (`[{"question_id": int, "answer": str}, ...]`) to
+    `{output}/{relation_type}-{fusion}-{split}-predictions.json`. Reads no
+    soft targets, so an answerless split works; raises if an entry is
+    missed."""
+    model.to(device).eval()
+    store = DeviceStore(ds, device, targets=False)
+    B, R = cfg.resolved_eval_batch(), cfg.resolved_num_rois()
+    qids = ds.entries.question_ids
+    # -1-filled: a coverage gap fails the label2ans lookup, never writes garbage
+    answers = np.full(len(qids), -1, dtype=np.int64)
+    seen = np.zeros(len(qids), bool)
+    pending = []  # (host index batch, device labels), fetched once at the end
+    with torch.no_grad():
+        for idx in store.epoch_indices(0, B, shuffle=False, seed=cfg.seed):
+            batch = gather_batch(store, torch.from_numpy(idx).to(device), R)
+            pending.append((idx, model(batch).argmax(dim=-1)))
+    for idx, labels in pending:
+        lab = labels.cpu().numpy()
+        ok = idx >= 0
+        answers[idx[ok]] = lab[ok]
+        seen[idx[ok]] = True
+    if not seen.all():
+        raise RuntimeError(
+            f"prediction pass missed {int((~seen).sum())} entries — store/stream "
+            "coverage bug; the submission would be invalid"
+        )
+    out_path = os.path.join(
+        cfg.output, f"{cfg.relation_type}-{cfg.fusion}-{ds.name}-predictions.json"
+    )
+    os.makedirs(cfg.output, exist_ok=True)
+    with open(out_path, "w") as fh:
+        json.dump(
+            [{"question_id": int(q), "answer": ds.label2ans[int(a)]}
+             for q, a in zip(qids, answers)],
+            fh,
+        )
+    logger.write(f"wrote {len(qids)} predictions to {out_path}")
+    return out_path

@@ -11,12 +11,14 @@ What the chain does, and this class does in the same order:
   - freeze: the update of a frozen leaf is zeroed AFTER Adamax, so its
     moments still advance while the leaf stays put.
 The state lives in lists of tensors and every update is a `torch._foreach_*`
-call over all of them.
+call over all of them. `state_dict` and `load_state_dict` carry it by
+parameter name: `mu`, `nu` and the step `count`, the Adamax state of the
+optax chain (train/checkpoint.py saves it beside the parameters).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Mapping, Sequence
+from typing import Any, Callable, Dict, Mapping, Sequence
 
 import torch
 from torch import nn
@@ -89,3 +91,37 @@ class Adamax:
         upd = torch._foreach_div([self.mu[i] for i in live], [self.nu[i] for i in live])
         torch._foreach_mul_(upd, -lr / (1.0 - self.b1**self.count))
         torch._foreach_add_([self.params[i] for i in live], upd)
+
+    def state_dict(self) -> Dict[str, Any]:
+        """{"mu": {name: tensor}, "nu": {name: tensor}, "count": int}: the
+        live tensors, not copies."""
+        return {
+            "mu": dict(zip(self.names, self.mu)),
+            "nu": dict(zip(self.names, self.nu)),
+            "count": self.count,
+        }
+
+    @torch.no_grad()
+    def load_state_dict(self, state: Mapping[str, Any]) -> None:
+        """Copy `state` (as `state_dict` gives it, tensors on any device)
+        into the moments; raises on a missing, unexpected or misshapen leaf."""
+        for key, own in (("mu", self.mu), ("nu", self.nu)):
+            given = state[key]
+            missing = sorted(set(self.names) - set(given))
+            unexpected = sorted(set(given) - set(self.names))
+            if missing or unexpected:
+                raise ValueError(
+                    f"Adamax {key} keys differ from the model's: missing {missing}, "
+                    f"unexpected {unexpected}"
+                )
+            for name, t in zip(self.names, own):
+                v = torch.as_tensor(given[name])
+                if v.shape != t.shape or v.dtype != t.dtype:
+                    raise ValueError(
+                        f"Adamax {key} {name}: checkpoint has {v.dtype}{tuple(v.shape)}, "
+                        f"model {t.dtype}{tuple(t.shape)}"
+                    )
+        for key, own in (("mu", self.mu), ("nu", self.nu)):
+            for name, t in zip(self.names, own):
+                t.copy_(torch.as_tensor(state[key][name]))
+        self.count = int(state["count"])
