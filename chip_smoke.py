@@ -89,13 +89,38 @@ Phases, each of which fails the run (non-zero exit, no result line):
      launches per pass, the score equal to the plain path's and the
      averaged probabilities within ENSEMBLE_PROB_ATOL of it, except for
      counted ties, and the pass's time.
-Counts of launches are set to 0 just before each path of 8-13 runs and read
-just after it; the comparison launches of 3-7 and of the plain-path
-comparisons do not count. Each phase prints its wall time.
+ 14. B1 (eval and train variants) and B2 (shared and per-head bias) at R = 36
+     and 64 query rows, the roi buckets the JAX bench adds to 100, whose last
+     5-row tile is partial: against their plain versions at b = 1, 32, 256
+     under the bounds of 3-5, with the degenerate rows of 3 and 5, each
+     time beside its plain version, its bound and (B2) SDPA, and both
+     wrappers' tiling plans;
+ 15. the feature tables: the synthetic train split of butd_vqa.json held at
+     f32, bf16 and int8, one b=256 batch gathered from each equal bit for
+     bit to numpy's widening or dequantization of the same rows; the
+     tables' bytes;
+ 16. one full-width b=256 train step of butd_vqa.json at `--compute_dtype
+     bfloat16` against f32 (same parameters, batch and masks): the loss
+     within BF16_LOSS_RTOL, each trainable leaf's gradient gap printed;
+     the train step's time at R = 36, 64, 100 in both dtypes;
+ 17. the entry point at the JAX bench's settings (`--feature_dtype bfloat16
+     --compute_dtype bfloat16 --roi_buckets 36,64,100`), butd_vqa.json (B1)
+     and spatial_vqa.json (B2): `--mode train --epochs 1` and `--mode eval`,
+     the launches at each bucket R equal to 2 x (its train steps + its eval
+     batches) as the store counts them, the median step time per bucket;
+ 18. configs/butd_vqa_fixed36.json at b=256: train (1 epoch), eval, serve at
+     b = 1, 8, 32 and predict, all at R=36 (the checks of 8-10 and 12),
+     with f32 and then int8 feature tables.
+Counts of launches are set to 0 just before each path of 8-13 and 17-18
+runs and read just after it; the comparison launches of 3-7 and 14-16 and
+of the plain-path comparisons do not count. Each phase prints its wall
+time. Phases 8-13 run at the configs' full widths and depths, as before.
 Then it prints {"kernels": [...]} (each kernel's time, plain and library
 times, and its bound on an H100 SXM: the larger of the bytes it must move
 over 3.35 TB/s and its f32 operations over 67 TFLOP/s, from this run's
-inputs) and, last, {"ok": true, "device": {...}}.
+inputs; the entries named "... R=36" and "... R=64" hold phase 14's numbers
+and the launches at that R, the others phases 3-5's at R=100 and the
+launches at every R) and, last, {"ok": true, "device": {...}}.
 It imports nothing of JAX and nothing of the JAX package (tf_vqa_regat_tpu).
 """
 
@@ -168,6 +193,11 @@ GRAPH_GRAD_RTOL = 1e-4
 #   difference, as for dW_pos above).
 LOSS_RTOL = 1e-4
 STEP_GRAD_RTOL = 2e-2
+# - one full-width train step at --compute_dtype bfloat16 against f32 (same
+#   parameters, batch and dropout masks): the loss, relative. bf16 keeps 8
+#   bits of mantissa (relative rounding 2^-9 ~ 2e-3) on every stored
+#   activation, through ~10 roundings deep.
+BF16_LOSS_RTOL = 2e-2
 ZERO_GRAD_LEAVES = ("v_relation.gatt.bias.layers.0.b", "joint_emb.att_fusion.linear_out.b",
                     "joint_emb.att_linear0.layers.0.b")
 SHARED_QDROP_ZERO_GRAD_LEAVES = ("joint_emb.att_fusion.merge1.b",)
@@ -192,6 +222,7 @@ ENSEMBLE_PROB_ATOL = 1e-5
 #   may differ from the CPU's by an ulp).
 SECTOR_EPS = 1e-5
 SERVE_SHAPES = dict(R=100, H=16, dh=64, o=64, n=20, P=64)
+FIXED36 = "butd_vqa_fixed36.json"
 GRAD_ARGS = ("q", "k", "vw", "w_pos", "b_pos")
 KERNEL_ARGS = ("q", "k", "vw", "pos_mat", "w_pos", "b_pos", "key_mask")
 CONFIGS = {"implicit": "butd_vqa.json", "spatial": "spatial_vqa.json",
@@ -253,6 +284,8 @@ def reset_counts() -> None:
 
     ia.KERNEL.launches = ia.KERNEL.train_launches = 0
     ga.KERNEL.launches = ga.KERNEL.per_head_launches = 0
+    ia.KERNEL.launches_by_rows.clear()
+    ga.KERNEL.launches_by_rows.clear()
 
 
 def counts() -> dict:
@@ -261,6 +294,31 @@ def counts() -> dict:
 
     return {"B1 eval": ia.KERNEL.launches, "B1 train": ia.KERNEL.train_launches,
             "B2": ga.KERNEL.launches, "B2 per-head": ga.KERNEL.per_head_launches}
+
+
+def rows_counts() -> dict:
+    """The launches since reset_counts() by (kernel, query rows R), with the
+    names of `counts()`, zero entries left out."""
+    from tf_vqa_regat_tpu_torch.ops.kernels import graph_attention as ga
+    from tf_vqa_regat_tpu_torch.ops.kernels import implicit_attention as ia
+
+    names = {"eval": "B1 eval", "train": "B1 train", "v2": "B2", "v1": "B2 per-head"}
+    out = {}
+    for kernel in (ia.KERNEL, ga.KERNEL):
+        for (variant, R), n in kernel.launches_by_rows.items():
+            if n:
+                out[(names[variant], R)] = n
+    return out
+
+
+# the launches by (kernel, R) of every path of 8-18 that records them
+PATH_ROWS = []
+
+
+def read_path_counts() -> dict:
+    """counts() of the path that just ran; its launches by R go to PATH_ROWS."""
+    PATH_ROWS.append(rows_counts())
+    return counts()
 
 
 @contextlib.contextmanager
@@ -315,14 +373,15 @@ def plain_kernels():
         graph_attention.fused_graph_attention = ga.fused_graph_attention
 
 
-def kernel_inputs(b, device, seed):
-    """Serve-shaped inputs for one direction of the implicit attention."""
+def kernel_inputs(b, device, seed, R=SERVE_SHAPES["R"]):
+    """Serve-shaped inputs for one direction of the implicit attention, at
+    R query rows (box counts 10-R)."""
     import torch
 
     from tf_vqa_regat_tpu_torch.ops.position import position_matrix
 
     s = SERVE_SHAPES
-    R, H, dh, o, n, P = s["R"], s["H"], s["dh"], s["o"], s["n"], s["P"]
+    H, dh, o, n, P = s["H"], s["dh"], s["o"], s["n"], s["P"]
     g = torch.Generator(device=device).manual_seed(seed)
 
     def randn(*shape, scale=1.0):
@@ -330,7 +389,7 @@ def kernel_inputs(b, device, seed):
 
     xy = torch.rand(b, R, 2, generator=g, device=device) * 450
     wh = torch.rand(b, R, 2, generator=g, device=device) * 190 + 4
-    num_boxes = torch.randint(10, 101, (b,), generator=g, device=device)
+    num_boxes = torch.randint(10, R + 1, (b,), generator=g, device=device)
     if b > 1:
         num_boxes[-1] = 0  # a padded serve slot: every key masked
     q = randn(b, R, H, dh)
@@ -366,19 +425,19 @@ def implicit_reference(q, k, vw, pos_mat, w_pos, b_pos, key_mask, drop_rate=0.0,
     return (out, pwr) if save_pwr else out
 
 
-def implicit_flops(b):
+def implicit_flops(b, R=SERVE_SHAPES["R"]):
     """f32 operations of one B1 call: per (row, head, key) the q.k dot, the
     pos-FC dot and the weighted sum of vw."""
     s = SERVE_SHAPES
-    return 2.0 * b * s["R"] * s["H"] * s["n"] * (s["dh"] + s["P"] + s["o"])
+    return 2.0 * b * R * s["H"] * s["n"] * (s["dh"] + s["P"] + s["o"])
 
 
-def implicit_plan(b):
-    """B1's tiling plan at the serve shapes and batch b, as a dict."""
+def implicit_plan(b, R=SERVE_SHAPES["R"]):
+    """B1's tiling plan at the serve shapes, R rows and batch b, as a dict."""
     from tf_vqa_regat_tpu_torch.ops.kernels import implicit_attention as ia
 
     s = SERVE_SHAPES
-    return ia.tiling_plan(b, s["R"], s["n"], s["H"], s["dh"], s["o"], s["P"])._asdict()
+    return ia.tiling_plan(b, R, s["n"], s["H"], s["dh"], s["o"], s["P"])._asdict()
 
 
 def check_kernels(device, resources, baseline=None):
@@ -510,8 +569,9 @@ def check_train_kernel(device, resources, baseline=None):
     return rows
 
 
-def graph_inputs(b, device, seed):
-    """Inputs of one direction of B2 at the model's shapes, the bias built
+def graph_inputs(b, device, seed, R=SERVE_SHAPES["R"]):
+    """Inputs of one direction of B2 at the model's shapes and R query rows
+    (box counts 10-R), the bias built
     as the model builds it: spatial labels of random boxes (direction 0),
     a random label bias, non-edges and padded keys at -9e15. Example 0 has
     all 100 boxes; its row 3 has no edge (uniform weights over the valid
@@ -528,13 +588,13 @@ def graph_inputs(b, device, seed):
     )
 
     s = SERVE_SHAPES
-    R, H, dh, o, n = s["R"], s["H"], s["dh"], s["o"], s["n"]
+    H, dh, o, n = s["H"], s["dh"], s["o"], s["n"]
     g = torch.Generator(device=device).manual_seed(seed)
 
     def randn(*shape, scale=1.0):
         return scale * torch.randn(*shape, generator=g, device=device)
 
-    num_boxes = torch.randint(10, 101, (b,), generator=g, device=device)
+    num_boxes = torch.randint(10, R + 1, (b,), generator=g, device=device)
     num_boxes[0] = R
     if b > 1:
         num_boxes[-1] = 0
@@ -559,11 +619,11 @@ def graph_inputs(b, device, seed):
     return dict(q=q, k=k, vw=randn(b, n, H, o), shared=shared, per_head=per_head.contiguous())
 
 
-def graph_flops(b):
+def graph_flops(b, R=SERVE_SHAPES["R"]):
     """f32 operations of one B2 call: per (row, head, key) the q.k dot and
     the weighted sum of vw."""
     s = SERVE_SHAPES
-    return 2.0 * b * s["R"] * s["H"] * s["n"] * (s["dh"] + s["o"])
+    return 2.0 * b * R * s["H"] * s["n"] * (s["dh"] + s["o"])
 
 
 def ptxas_report(text: str) -> dict:
@@ -743,11 +803,12 @@ def check_graph_grads(device):
     return rows
 
 
-def full_width_config(family, extra=()):
+def full_width_config(family, extra=(), config=None):
     from tf_vqa_regat_tpu_torch.config import parse_with_config
 
     return parse_with_config(
-        ["--config", os.path.join(REPO, "configs", CONFIGS[family]), "--synthetic", *extra]
+        ["--config", os.path.join(REPO, "configs", config or CONFIGS[family]), "--synthetic",
+         *extra]
     )
 
 
@@ -953,16 +1014,17 @@ def expected_launches(family, passes, train_passes=0):
     return want
 
 
-def check_entry_point(tmp, smi, family, extra=()):
-    """`--mode train` then `--mode eval` through `main.main`, at the config's
-    widths. Returns (npz path, launches of the train run, median step ms)."""
+def check_entry_point(tmp, smi, family, extra=(), config=None):
+    """`--mode train` then `--mode eval` through `main.main`, at the widths
+    of the family's config (or `config`). Returns (npz path, launches of the
+    train run, median step ms)."""
     import torch
 
     from tf_vqa_regat_tpu_torch import main as port_main
     from tf_vqa_regat_tpu_torch.train import loop
 
-    argv = ["--config", os.path.join(REPO, "configs", CONFIGS[family]), "--synthetic",
-            "--output", tmp, "--device", "cuda", "--print_freq", "4", *extra]
+    argv = entry_argv(family, tmp, "--print_freq", "4", *extra, config=config)
+    label = " ".join([config or family, *extra])
     real_step, records = loop.train_step, []
 
     def timed_step(*args, **kw):
@@ -981,37 +1043,37 @@ def check_entry_point(tmp, smi, family, extra=()):
     finally:
         loop.train_step = real_step
     wall = time.perf_counter() - t0
-    launches = counts()
+    launches = read_path_counts()
     torch.cuda.synchronize()
     step_ms = [ev[0].elapsed_time(ev[1]) for ev, _ in records]
     losses = [float(loss) for _, loss in records]
     with open(os.path.join(tmp, "metrics.jsonl")) as fh:
         last = [json.loads(line) for line in fh][-1]
-    print(f"{family} --mode train: {len(losses)} steps in {wall:.1f} s (run, set-up "
+    print(f"{label} --mode train: {len(losses)} steps in {wall:.1f} s (run, set-up "
           f"included); median step {statistics.median(step_ms)} ms (CUDA events) on {smi}, "
           f"TF32 off; losses {losses}; launches {json.dumps(launches)}; last metrics "
           f"{json.dumps(last)}", flush=True)
-    cfg = full_width_config(family, extra)
+    cfg = full_width_config(family, extra, config)
     if len(losses) != -(-cfg.synthetic_train_size // cfg.batch_size):
-        fail(f"{family} --mode train took {len(losses)} steps")
+        fail(f"{label} --mode train took {len(losses)} steps")
     if not all(map(math.isfinite, losses)) or not losses[-1] < losses[0]:
-        fail(f"{family} --mode train: loss not finite or not falling: {losses}")
+        fail(f"{label} --mode train: loss not finite or not falling: {losses}")
     eval_passes = -(-cfg.synthetic_val_size // cfg.resolved_eval_batch())
     if launches != expected_launches(family, eval_passes, len(losses)):
-        fail(f"{family} --mode train: launches {launches} for {len(losses)} train and "
+        fail(f"{label} --mode train: launches {launches} for {len(losses)} train and "
              f"{eval_passes} eval forward passes")
 
     reset_counts()  # the eval path starts here
     score, loss = port_main.main(argv + ["--mode", "eval", "--checkpoint", path])
     eval_launches = counts()
     rel = abs(loss - last["eval_loss"]) / abs(last["eval_loss"])
-    print(f"{family} --mode eval on {os.path.basename(path)}: score {score} loss {loss} vs "
+    print(f"{label} --mode eval on {os.path.basename(path)}: score {score} loss {loss} vs "
           f"the training run's {last['eval_loss']} (rel {rel}); launches "
           f"{json.dumps(eval_launches)}", flush=True)
     if not rel <= EVAL_LOSS_RTOL:
-        fail(f"{family} --mode eval loss differs from the training run's by rel {rel}")
+        fail(f"{label} --mode eval loss differs from the training run's by rel {rel}")
     if eval_launches != expected_launches(family, eval_passes):
-        fail(f"{family} --mode eval: launches {eval_launches} for {eval_passes} passes")
+        fail(f"{label} --mode eval: launches {eval_launches} for {eval_passes} passes")
     return path, launches, statistics.median(step_ms)
 
 
@@ -1025,21 +1087,23 @@ def http(url, body=None):
         return e.code, json.loads(e.read())
 
 
-def check_serve(ckpt, family):
-    """--mode serve of `ckpt` at the family config's widths. Returns
-    (launches, forward passes, logits max abs diff)."""
+def check_serve(ckpt, family, extra=(), config=None):
+    """--mode serve of `ckpt` at the widths of the family's config (or
+    `config`), with the flags `extra`. Returns (launches, forward passes,
+    logits max abs diff)."""
     import torch
 
     from tf_vqa_regat_tpu_torch.config import parse_with_config
     from tf_vqa_regat_tpu_torch.main import build_dataset, build_server
 
-    argv = ["--config", os.path.join(REPO, "configs", CONFIGS[family]), "--mode",
-            "serve", "--synthetic", "--serve_port", "0"]
+    argv = ["--config", os.path.join(REPO, "configs", config or CONFIGS[family]), "--mode",
+            "serve", "--synthetic", "--serve_port", "0", *extra]
     cfg = parse_with_config(argv)
     ds = build_dataset(cfg)
+    label = " ".join([config or family, *extra])
     t0 = time.perf_counter()
     server, batcher, engine = build_server(argv + ["--checkpoint", ckpt, "--device", "cuda"])
-    print(f"{family} server built and warmed in {time.perf_counter() - t0:.1f} s "
+    print(f"{label} server built and warmed in {time.perf_counter() - t0:.1f} s "
           f"(batch sizes {list(engine.batch_sizes)})", flush=True)
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
@@ -1068,7 +1132,7 @@ def check_serve(ckpt, family):
             fail(f"/predict batch: {code} {body}")
         answers += body
         code, missing = http(url + "/predict", {"question": "what ?", "image_id": 10**9})
-        launches, passes = counts(), forwards[0]
+        launches, passes = read_path_counts(), forwards[0]
         print(f"/healthz {json.dumps(health)}", flush=True)
         print(f"/predict answers {json.dumps(answers)}", flush=True)
         print(f"/predict unknown image: {code} {json.dumps(missing)}", flush=True)
@@ -1077,7 +1141,7 @@ def check_serve(ckpt, family):
         for a in answers:
             if a.get("answer") not in ds.label2ans or not 0.0 < a["confidence"] < 1.0:
                 fail(f"bad answer {a}")
-        print(f"{family} kernel launches {json.dumps(launches)} over {passes} forward "
+        print(f"{label} kernel launches {json.dumps(launches)} over {passes} forward "
               f"passes", flush=True)
         if passes == 0 or launches != expected_launches(family, passes):
             fail(f"expected 2 launches per forward pass, got {launches} for {passes}")
@@ -1096,7 +1160,7 @@ def check_serve(ckpt, family):
         logits_err = (got - want).abs().max().item()
         scale = want.abs().max().item()
         same_argmax = bool((got.argmax(-1) == want.argmax(-1)).all())
-        print(f"{family} logits kernel vs plain: max abs diff {logits_err}, largest |logit| "
+        print(f"{label} logits kernel vs plain: max abs diff {logits_err}, largest |logit| "
               f"{scale} (tol {LOGITS_RTOL} of it), argmax equal {same_argmax}", flush=True)
         if not logits_err <= LOGITS_RTOL * scale or not same_argmax:
             fail("served logits disagree with the plain path")
@@ -1112,7 +1176,7 @@ def check_serve(ckpt, family):
                 engine.infer(qs, im)
                 runs.append((time.perf_counter() - t0) * 1e3)
             latency[B] = statistics.median(runs[3:])
-        print(f"{family} engine.infer median ms by batch size {json.dumps(latency)}",
+        print(f"{label} engine.infer median ms by batch size {json.dumps(latency)}",
               flush=True)
     finally:
         hook.remove()
@@ -1222,7 +1286,7 @@ def check_resume(tmp, smi, device):
     reset_counts()  # the resumed path starts here
     with recorded_saves() as saves:
         path = port_main.main(entry_argv("implicit", outs["b"], *flags, "--resume"))
-    launches = counts()
+    launches = read_path_counts()
     if path is None:
         fail("the resumed run was preempted")
     resumed = read_run(outs["b"])
@@ -1287,26 +1351,29 @@ def check_resume(tmp, smi, device):
 
 
 def batch_passes(store, cfg, device):
-    """The eval batches of the split in entry order, gathered on the card."""
+    """The eval batches of the split in entry order (per bucket under
+    --roi_buckets), gathered on the card."""
     import torch
 
     from tf_vqa_regat_tpu_torch.data.store import gather_batch
+    from tf_vqa_regat_tpu_torch.train.loop import eval_batch_stream
 
-    for idx in store.epoch_indices(0, cfg.resolved_eval_batch(), False, cfg.seed):
-        yield idx, gather_batch(store, torch.from_numpy(idx).to(device),
-                                cfg.resolved_num_rois())
+    for R, idx in eval_batch_stream(cfg, store, cfg.resolved_eval_batch()):
+        yield idx, gather_batch(store, torch.from_numpy(idx).to(device), R)
 
 
-def check_predict(tmp, smi, family, npz, device):
-    """Phase 12 for one family. Returns the launches of the predict path."""
+def check_predict(tmp, smi, family, npz, device, extra=(), config=None):
+    """Phase 12 for one family (with the flags `extra`, under the family's
+    config or `config`). Returns the launches of the predict path."""
     import torch
 
     from tf_vqa_regat_tpu_torch import main as port_main
-    from tf_vqa_regat_tpu_torch.data.store import DeviceStore
     from tf_vqa_regat_tpu_torch.train import loop
 
-    argv = entry_argv(family, tmp, "--mode", "predict", "--checkpoint", npz)
+    argv = entry_argv(family, tmp, "--mode", "predict", "--checkpoint", npz, *extra,
+                      config=config)
     real, timed = loop.run_prediction, []
+    label = " ".join([config or family, *extra])
 
     def timed_prediction(*args, **kw):
         t0 = time.perf_counter()
@@ -1322,7 +1389,7 @@ def check_predict(tmp, smi, family, npz, device):
         path = port_main.main(argv)
     finally:
         loop.run_prediction = port_main.run_prediction = real
-    launches = counts()
+    launches = read_path_counts()
     with open(path) as fh:
         got = json.load(fh)
     cfg = port_main.parse(argv)[0]
@@ -1330,12 +1397,12 @@ def check_predict(tmp, smi, family, npz, device):
     passes = -(-len(ds.entries.question_ids) // cfg.resolved_eval_batch())
     qids = [d["question_id"] for d in got]
     if sorted(qids) != sorted(ds.entries.question_ids.tolist()) or len(set(qids)) != len(qids):
-        fail(f"{family} predictions: {len(qids)} entries, not each question id once")
+        fail(f"{label} predictions: {len(qids)} entries, not each question id once")
     if launches != expected_launches(family, passes):
-        fail(f"{family} --mode predict: launches {launches} for {passes} passes")
+        fail(f"{label} --mode predict: launches {launches} for {passes} passes")
 
     model = port_main.load_model(cfg, ds).to(device).eval()
-    store = DeviceStore(ds, device, targets=False)
+    store = loop.build_store(cfg, ds, device, targets=False)
     batches = list(batch_passes(store, cfg, device))
     kernel, plain = [], []
     with torch.no_grad():
@@ -1359,16 +1426,16 @@ def check_predict(tmp, smi, family, npz, device):
     tie = ((top2.values[:, 0] - top2.values[:, 1]) <= 2 * diff).cpu()
     answers = [ds.label2ans[int(a)] for a in top2.indices[:, 0].cpu()]
     wrong = [i for i, d in enumerate(got) if not tie[i] and d["answer"] != answers[i]]
-    print(f"{family} --mode predict: {len(got)} answers written in a pass of {timed[0]:.3f} s "
+    print(f"{label} --mode predict: {len(got)} answers written in a pass of {timed[0]:.3f} s "
           f"({passes} batches of {cfg.resolved_eval_batch()}, host clock, store upload "
           f"included); the forward passes alone {pass_ms:.2f} ms (CUDA events, median of 5, "
           f"batches gathered) on {smi}; launches {json.dumps(launches)}; logits kernel vs plain max abs "
           f"diff {diff} of scale {scale}; {int(tie.sum())} ties within {2 * diff}; "
           f"{len(wrong)} other answers differ", flush=True)
     if not diff <= LOGITS_RTOL * scale:
-        fail(f"{family} predict logits differ by {diff} > {LOGITS_RTOL} of {scale}")
+        fail(f"{label} predict logits differ by {diff} > {LOGITS_RTOL} of {scale}")
     if wrong:
-        fail(f"{family} predictions differ from the plain path's argmax at {wrong[:10]}")
+        fail(f"{label} predictions differ from the plain path's argmax at {wrong[:10]}")
     return launches
 
 
@@ -1388,7 +1455,7 @@ def check_ensemble(tmp, smi, npz, device):
     member = port_main.main(entry_argv(
         "semantic", os.path.join(out, "implicit"), "--relation_type", "implicit", "--mode",
         "train", "--epochs", "1", "--synthetic_train_size", "1536"))
-    train_launches = counts()
+    train_launches = read_path_counts()
     print(f"ensemble implicit member trained under semantic_vqa.json: {member}; launches "
           f"{json.dumps(train_launches)}", flush=True)
     cfg = full_width_config("semantic", ["--mode", "train"])
@@ -1403,7 +1470,7 @@ def check_ensemble(tmp, smi, npz, device):
     score = port_main.main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = counts()
+    launches = read_path_counts()
     cfg = port_main.parse(argv)[0]
     ds = port_main.build_dataset(cfg)
     passes = -(-len(ds.entries.question_ids) // cfg.resolved_eval_batch())
@@ -1454,6 +1521,336 @@ def check_ensemble(tmp, smi, npz, device):
         fail(f"ensemble score {score} / {score_k} vs plain {score_p} (tie slack "
              f"{100.0 * slack / n})")
     return train_launches, launches
+
+ROWS = (36, 64)  # the roi buckets below 100 of the JAX bench's --roi_buckets 36,64,100
+ROWS_BATCHES = (1, 32, 256)
+BENCH_FLAGS = ("--feature_dtype", "bfloat16", "--compute_dtype", "bfloat16",
+               "--roi_buckets", "36,64,100")
+
+
+def check_kernels_at_rows(device, R):
+    """Phase 14 at R query rows (R = 36 and 64 leave a partial last 5-row
+    tile): B1's eval variant and train variant (keep-mask at 51/256) and B2
+    (v2, the shared and the per-head bias) against their plain versions at
+    b = 1, 32, 256 under the bounds of 3-5, with their degenerate rows;
+    times of each beside its plain version and bound, and SDPA beside B2.
+    Returns per-b rows."""
+    import torch
+    import torch.nn.functional as F
+
+    from tf_vqa_regat_tpu_torch.ops.kernels import graph_attention as ga
+    from tf_vqa_regat_tpu_torch.ops.kernels import implicit_attention as ia
+
+    s = SERVE_SHAPES
+    rows = []
+    for b in ROWS_BATCHES:
+        x = kernel_inputs(b, device, seed=400 + R + b, R=R)
+        args = [x[k] for k in KERNEL_ARGS]
+        g = torch.Generator(device=device).manual_seed(600 + R + b)
+        bits = torch.randint(0, 256, (b, R, s["n"], s["P"]), generator=g, device=device,
+                             dtype=torch.uint8)
+        targs = args + [0.2, (bits >= 51).view(torch.uint8)]
+        y = graph_inputs(b, device, seed=500 + R + b, R=R)
+        q, k, vw = y["q"], y["k"], y["vw"]
+        with torch.no_grad():
+            b1 = ia.fused_implicit_graph_attention(*args)
+            b1_want = implicit_reference(*args)
+            out_t, pwr_t = ia.KERNEL(*targs, save_pwr=True)
+            out_r, pwr_r = implicit_reference(*targs, save_pwr=True)
+            b2 = {w: ga.fused_graph_attention(q, k, vw, y[w]) for w in ("shared", "per_head")}
+            b2_want = {w: ga.graph_attention_plain(q, k, vw, y[w]) for w in b2}
+        torch.cuda.synchronize()
+        for name, t in [("B1", b1), ("B1 train out", out_t), ("B1 train pwr", pwr_t),
+                        *((f"B2 {w}", t) for w, t in b2.items())]:
+            if not torch.isfinite(t).all():
+                fail(f"{name} not finite at R={R}, b={b}")
+        row = dict(R=R, b=b, b1_plan=implicit_plan(b, R),
+                   b2_plan=ga.tiling_plan(b, R, s["n"], s["H"], s["dh"], s["o"])._asdict())
+        row["b1_err"] = (b1 - b1_want).abs().max().item()
+        row["b1_underflow_heads_max"] = b1[0, 7, 1:].abs().max().item()
+        row["b1_fully_masked_err"] = (
+            (b1[-1] - x["vw"][-1].mean(0)[None]).abs().max().item() if b > 1 else 0.0)
+        row["b1_train_out_err"] = (out_t - out_r).abs().max().item()
+        row["b1_train_pwr_err"] = (pwr_t - pwr_r).abs().max().item()
+        uniform = vw[0].mean(0)
+        for w, got in b2.items():
+            tol = GRAPH_RTOL * b2_want[w].abs().max().item()
+            row[f"b2_{w}_err"] = (got - b2_want[w]).abs().max().item()
+            checks = {"empty_row": (got[0, 3] - uniform).abs().max().item()}
+            if b > 1:
+                checks["padded"] = (got[-1] - vw[-1].mean(0)).abs().max().item()
+            row[f"b2_{w}_degenerate"] = checks
+            under = got[0, 7, 1:].abs().max().item()
+            if w == "per_head":
+                under = max(under, got[0, 9, 1:].abs().max().item())
+            row[f"b2_{w}_underflow"] = under
+            if not row[f"b2_{w}_err"] <= tol:
+                fail(f"B2 vs plain max abs diff {row[f'b2_{w}_err']} > {tol} at R={R}, b={b}, "
+                     f"{w} bias")
+            if any(not v <= tol for v in checks.values()):
+                fail(f"B2: degenerate rows {checks} not uniform at R={R}, b={b}, {w} bias")
+            if under != 0.0:
+                fail(f"B2: underflowing heads are not zero ({under}) at R={R}, b={b}, {w} bias")
+        qs, ks, vs = (t.permute(0, 2, 1, 3).contiguous() for t in (q, k, vw))
+        mask = y["shared"].permute(0, 2, 1, 3)
+        fns = {
+            "b1_ms": lambda: ia.fused_implicit_graph_attention(*args),
+            "b1_plain_ms": lambda: ia.implicit_attention_plain(*args),
+            "b1_train_ms": lambda: ia.KERNEL(*targs, save_pwr=True),
+            "b1_train_plain_ms": lambda: ia.implicit_attention_plain(*targs, save_pwr=True),
+            "b2_ms": lambda: ga.fused_graph_attention(q, k, vw, y["shared"]),
+            "b2_plain_ms": lambda: ga.graph_attention_plain(q, k, vw, y["shared"]),
+            "sdpa_ms": lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask),
+        }
+        with torch.no_grad():
+            row.update(zip(fns, median_ms_interleaved(list(fns.values()))))
+        out_bytes = nbytes(q) // q.shape[3] * vw.shape[3]
+        for name, moved, flops in (
+            ("b1", nbytes(*args, b1), implicit_flops(b, R)),
+            ("b1_train", nbytes(*targs[:-2], targs[-1], out_t, pwr_t), implicit_flops(b, R)),
+            ("b2", nbytes(q, k, vw, y["shared"]) + out_bytes, graph_flops(b, R)),
+        ):
+            bnd = bound(moved, flops)
+            row[f"{name}_bound_ms"], row[f"{name}_bound_by"] = bnd["bound_ms"], bnd["bound_by"]
+        print("kernels at rows", json.dumps(row), flush=True)
+        if not row["b1_err"] <= KERNEL_ATOL:
+            fail(f"B1 vs plain max abs diff {row['b1_err']} > {KERNEL_ATOL} at R={R}, b={b}")
+        if row["b1_underflow_heads_max"] != 0.0:
+            fail(f"B1: underflowing heads are not zero at R={R}, b={b}")
+        if not row["b1_fully_masked_err"] <= KERNEL_ATOL:
+            fail(f"B1: fully masked example is not uniform at R={R}, b={b}")
+        if not row["b1_train_out_err"] <= KERNEL_ATOL or not row["b1_train_pwr_err"] <= PWR_ATOL:
+            fail(f"B1 train variant differs from the plain version at R={R}, b={b}: "
+                 f"out {row['b1_train_out_err']}, pwr {row['b1_train_pwr_err']}")
+        rows.append(row)
+    return rows
+
+
+def bf16_round(a):
+    """f32 -> bf16 -> f32 in numpy, rounding to nearest even on the bits
+    (finite inputs)."""
+    import numpy as np
+
+    u = np.ascontiguousarray(a, np.float32).view(np.uint32).astype(np.uint64)
+    r = ((u + 0x7FFF + ((u >> 16) & 1)) & 0xFFFF0000).astype(np.uint32)
+    return r.view(np.float32)
+
+
+def check_tables(device):
+    """Phase 15: the synthetic train split of configs/butd_vqa.json held on
+    the card at f32, bf16 and int8; one b=256 batch gathered at R=100 from
+    each equals, bit for bit, numpy's widening (bf16) or dequantization
+    (int8: q * rowmax/127) of the same rows, zeroed past each box count.
+    Returns the tables' bytes per dtype."""
+    import numpy as np
+    import torch
+
+    from tf_vqa_regat_tpu_torch.data.store import DeviceStore, gather_batch, quantize_rows
+    from tf_vqa_regat_tpu_torch.main import build_dataset
+
+    cfg = full_width_config("implicit", ["--mode", "train"])
+    ds = build_dataset(cfg, "train")
+    R, sizes = 100, {}
+    for dtype in ("float32", "bfloat16", "int8"):
+        store = DeviceStore(ds, device, feature_dtype=dtype)
+        img = store.images
+        sizes[dtype] = nbytes(*(t for t in (img.features, img.feat_scale, img.norm_bb, img.bb,
+                                            img.img_start, img.img_len) if t is not None))
+        idx = next(store.epoch_indices(0, cfg.batch_size, True, cfg.seed))
+        got = gather_batch(store, torch.from_numpy(idx).to(device), R)["features"].cpu().numpy()
+        img = ds.entries.image_index[idx]
+        n_box = np.minimum(ds.pos_boxes[img, 1] - ds.pos_boxes[img, 0], R)
+        rows = np.clip(ds.pos_boxes[img, 0][:, None] + np.arange(R), 0, len(ds.features) - 1)
+        ok = (np.arange(R)[None, :] < n_box[:, None])[..., None]
+        f = ds.features[rows]
+        if dtype == "bfloat16":
+            want = np.where(ok, bf16_round(f), 0.0).astype(np.float32)
+        elif dtype == "int8":
+            q, scale = quantize_rows(f.reshape(-1, f.shape[-1]))
+            want = np.where(ok, q.reshape(f.shape).astype(np.float32), 0.0).astype(np.float32)
+            want = want * scale.reshape(f.shape[:2])[..., None]
+        else:
+            want = np.where(ok, f, 0.0).astype(np.float32)
+        same = np.array_equal(got.view(np.uint32), want.view(np.uint32))
+        print(f"table {dtype}: {sizes[dtype]} B of image tables on the card; a b=256 gather "
+              f"at R={R} equals numpy's bit for bit: {same} (max abs diff "
+              f"{float(np.abs(got - want).max())})", flush=True)
+        if not same:
+            fail(f"{dtype} table: the gathered features differ from numpy's")
+        del store
+    print(f"synthetic train split ({len(ds.entries.question_ids)} questions, "
+          f"{len(ds.features)} rois) image-table bytes {json.dumps(sizes)}", flush=True)
+    return sizes
+
+
+def check_bf16_step(device, smi):
+    """Phase 16: one full-width b=256 train step of configs/butd_vqa.json at
+    --compute_dtype bfloat16 against f32, the same parameters, batch and
+    dropout masks, TF32 off: the loss within BF16_LOSS_RTOL and each
+    trainable leaf's gradient gap over its largest magnitude; then the
+    train step's time (CUDA events, median of 8 after 2 warm-up) at R = 36,
+    64 and 100 in both dtypes. Returns the times."""
+    import torch
+
+    from tf_vqa_regat_tpu_torch.data.store import DeviceStore, gather_batch
+    from tf_vqa_regat_tpu_torch.main import build_dataset
+    from tf_vqa_regat_tpu_torch.models.regat import ReGAT, trainable_mask
+    from tf_vqa_regat_tpu_torch.train.optim import Adamax, make_lr_schedule
+    from tf_vqa_regat_tpu_torch.train.step import train_forward, train_step
+
+    cfg = full_width_config("implicit", ["--mode", "train"])
+    ds = build_dataset(cfg, "train")
+    store = DeviceStore(ds, device)
+    idx = torch.from_numpy(next(store.epoch_indices(0, cfg.batch_size, True, cfg.seed)))
+    idx = idx.to(device)
+    models = {}
+    for dtype in ("float32", "bfloat16"):
+        models[dtype] = ReGAT(cfg.replace(compute_dtype=dtype), ds.ntoken, ds.v_dim,
+                              ds.num_ans).to(device)
+    models["bfloat16"].load_state_dict(models["float32"].state_dict())
+    batch = gather_batch(store, idx, 100)
+    mask = trainable_mask(models["float32"], False)
+    loss, grads, logits = {}, {}, {}
+    for dtype, model in models.items():
+        names = [n for n, _ in model.named_parameters()]
+        out, logits[dtype] = train_forward(model, batch, 0, cfg.seed)
+        loss[dtype] = out.item()
+        grads[dtype] = dict(zip(names, torch.autograd.grad(out, list(model.parameters()))))
+    gap = abs(loss["bfloat16"] - loss["float32"]) / abs(loss["float32"])
+    logits_gap = max_rel(logits["bfloat16"].detach(), logits["float32"].detach())
+    leaves = {n: max_rel(grads["bfloat16"][n], grads["float32"][n])
+              for n, t in mask.items() if t}
+    print(f"bf16 vs f32 train step b={cfg.batch_size} R=100: loss {loss['bfloat16']} vs "
+          f"{loss['float32']} (rel {gap}, limit {BF16_LOSS_RTOL}); answer logits {logits_gap} "
+          f"of their largest magnitude apart; trainable leaves' gradient "
+          f"gaps over their largest magnitude {json.dumps(leaves)}", flush=True)
+    if not all(torch.isfinite(g).all() for g in grads["bfloat16"].values()):
+        fail("bf16 train step: a gradient is not finite")
+    if not gap <= BF16_LOSS_RTOL:
+        fail(f"bf16 train step: loss differs from f32 by rel {gap} > {BF16_LOSS_RTOL}")
+    del grads
+    times = {}
+    for R in (36, 64, 100):
+        batch = gather_batch(store, idx, R)
+        for dtype, model in models.items():
+            opt = Adamax(model, trainable_mask(model, False), make_lr_schedule(
+                cfg.base_lr, 16, cfg.lr_decay_rate, cfg.lr_decay_step), cfg.grad_clip)
+            ms = []
+            for step in range(10):
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                ev[0].record()
+                train_step(model, opt, batch, step, cfg.seed)
+                ev[1].record()
+                ev[1].synchronize()
+                ms.append(ev[0].elapsed_time(ev[1]))
+            times[f"{dtype} R={R}"] = statistics.median(ms[2:])
+    print(f"butd train step b={cfg.batch_size}, median ms (CUDA events, TF32 off) on {smi}: "
+          f"{json.dumps(times)}", flush=True)
+    return times
+
+
+def check_bench_settings(tmp, smi, family):
+    """Phase 17: `--mode train --epochs 1` then `--mode eval` under the
+    family's config at the JAX bench's settings (BENCH_FLAGS): the launches
+    at each bucket R equal 2 x (train steps + eval batches) of that bucket,
+    as the store counts them (B1's train variant for the steps and eval
+    variant for the batches, B2 for both), every step finite, the eval loss
+    equal to the training run's last; the median step time per bucket.
+    Returns (train path launches, the median step ms per bucket)."""
+    import torch
+
+    from tf_vqa_regat_tpu_torch import main as port_main
+    from tf_vqa_regat_tpu_torch.data.store import DeviceStore
+    from tf_vqa_regat_tpu_torch.train import loop
+
+    argv = entry_argv(family, tmp, "--print_freq", "4", *BENCH_FLAGS)
+    cfg = port_main.parse(argv + ["--mode", "train"])[0]
+    buckets = cfg.parsed_roi_buckets()
+    cpu = torch.device("cpu")
+    steps = dict(zip(buckets, DeviceStore(port_main.build_dataset(cfg, "train"), cpu)
+                     .bucketed_batch_counts(cfg.batch_size, buckets)))
+    evals = dict(zip(buckets, DeviceStore(port_main.build_dataset(cfg, "val"), cpu)
+                     .bucketed_batch_counts(cfg.resolved_eval_batch(), buckets)))
+
+    def want(train):
+        out = {}
+        for R in buckets:
+            if family in B1_FAMILIES:
+                out[("B1 train", R)] = 2 * steps[R] if train else 0
+                out[("B1 eval", R)] = 2 * evals[R]
+            else:
+                out[("B2", R)] = 2 * (evals[R] + (steps[R] if train else 0))
+        return {k: v for k, v in out.items() if v}
+
+    real_step, records = loop.train_step, []
+
+    def timed_step(model, opt, batch, *args, **kw):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        m = real_step(model, opt, batch, *args, **kw)
+        ev[1].record()
+        records.append((batch["features"].shape[1], ev, m["loss"]))
+        return m
+
+    loop.train_step = timed_step
+    reset_counts()  # the train path starts here
+    try:
+        path = port_main.main(argv + ["--mode", "train", "--epochs", "1"])
+    finally:
+        loop.train_step = real_step
+    rows = rows_counts()
+    launches = read_path_counts()
+    torch.cuda.synchronize()
+    per_bucket = {R: [ev[0].elapsed_time(ev[1]) for r, ev, _ in records if r == R]
+                  for R in buckets}
+    losses = [float(loss) for _, _, loss in records]
+    step_ms = {R: statistics.median(t) for R, t in per_bucket.items() if t}
+    with open(os.path.join(tmp, "metrics.jsonl")) as fh:
+        last = [json.loads(line) for line in fh][-1]
+    label = f"{CONFIGS[family]} {' '.join(BENCH_FLAGS)}"
+    print(f"{label} --mode train: steps per bucket {json.dumps({R: len(t) for R, t in per_bucket.items()})} "
+          f"(store: {json.dumps(steps)}), eval batches per bucket {json.dumps(evals)}; median "
+          f"step ms per bucket (CUDA events) on {smi}, TF32 off: {json.dumps(step_ms)}; "
+          f"launches by (kernel, R) {rows}; losses {losses}; last metrics {json.dumps(last)}",
+          flush=True)
+    if {R: len(t) for R, t in per_bucket.items()} != steps:
+        fail(f"{label}: steps per bucket differ from the store's counts {steps}")
+    if not all(map(math.isfinite, losses)):
+        fail(f"{label}: a loss is not finite: {losses}")
+    if rows != want(True):
+        fail(f"{label} --mode train: launches {rows}, expected {want(True)}")
+    reset_counts()  # the eval path starts here
+    score, loss = port_main.main(argv + ["--mode", "eval", "--checkpoint", path])
+    rows_eval = rows_counts()
+    launches_eval = read_path_counts()
+    rel = abs(loss - last["eval_loss"]) / abs(last["eval_loss"])
+    print(f"{label} --mode eval: score {score} loss {loss} vs the training run's "
+          f"{last['eval_loss']} (rel {rel}); launches by (kernel, R) {rows_eval}", flush=True)
+    if not rel <= EVAL_LOSS_RTOL:
+        fail(f"{label} --mode eval loss differs from the training run's by rel {rel}")
+    if rows_eval != want(False):
+        fail(f"{label} --mode eval: launches {rows_eval}, expected {want(False)}")
+    return [launches, launches_eval], step_ms
+
+
+def check_fixed36(tmp_root, smi, device):
+    """Phase 18: configs/butd_vqa_fixed36.json at b=256 (train, 1 epoch), then
+    eval, HTTP serve at b = 1, 8, 32 and predict, all at R=36, with f32 and
+    then int8 feature tables (phases 8-10 and 12's checks). Returns the
+    launches of its paths."""
+    launches = []
+    for extra in ((), ("--feature_dtype", "int8")):
+        tmp = os.path.join(tmp_root, "fixed36" + "".join(extra[1:]))
+        flags = ("--batch_size", "256", *extra)
+        npz, train_launches, _ = check_entry_point(tmp, smi, "implicit", flags, FIXED36)
+        serve_launches, _, _ = check_serve(npz, "implicit", extra, FIXED36)
+        launches += [train_launches, serve_launches,
+                     check_predict(tmp, smi, "implicit", npz, device, flags, FIXED36)]
+        shutil.rmtree(os.path.join(tmp, "checkpoints"))
+    rows = PATH_ROWS[-6:]
+    if any(R != 36 for path in rows for _, R in path):
+        fail(f"fixed-36 paths launched at other row counts: {rows}")
+    return launches
 
 
 def build_kernels():
@@ -1520,6 +1917,10 @@ def main() -> None:
             load_baseline(args.baseline, "graph_attention"))
     with phase("6, B2 gradients"):
         check_graph_grads(device)
+    rows_at = {}
+    for R in ROWS:
+        with phase(f"14, B1 and B2 at R={R}"):
+            rows_at[R] = check_kernels_at_rows(device, R)
     for family, extra in (("implicit", ()), ("spatial", ()), ("semantic", ()), ("ban", ()),
                           ("mutan", ()), ("mutan", ("--mutan_shared_qdrop",))):
         label = " ".join([family, *extra])
@@ -1531,6 +1932,12 @@ def main() -> None:
               flush=True)
     with phase("7, mutan formulations"):
         check_mutan_branches(device)
+    torch.cuda.empty_cache()
+    with phase("15, feature tables"):
+        check_tables(device)
+    torch.cuda.empty_cache()
+    with phase("16, bf16 train step"):
+        check_bf16_step(device, smi_line)
     torch.cuda.empty_cache()
     launches = []  # the launch counts of every path of 8-13
     npz = {}
@@ -1557,6 +1964,15 @@ def main() -> None:
         with phase("13, ensemble"):
             launches += check_ensemble(tmp_root, smi_line, npz, device)
         torch.cuda.empty_cache()
+        for family in ("implicit", "spatial"):
+            with phase(f"17, {family} at the bench's settings"):
+                paths, _ = check_bench_settings(os.path.join(tmp_root, f"bench_{family}"),
+                                                smi_line, family)
+                launches += paths
+            torch.cuda.empty_cache()
+        with phase("18, fixed-36"):
+            launches += check_fixed36(tmp_root, smi_line, device)
+        torch.cuda.empty_cache()
 
     if any(m.split(".")[0] in ("jax", "jaxlib", "tf_vqa_regat_tpu") for m in sys.modules):
         fail("JAX or the JAX package was imported")
@@ -1567,8 +1983,44 @@ def main() -> None:
     big = next(r for r in rows if r["b"] == 32)
     train_big, graph_big = train_rows[-1], graph_rows[-1]
     bound_keys = ("bound_ms", "bound_by")
-    def total(kernel):  # over every path of 8-13
+    def total(kernel):  # over every path of 8-18, all R
         return sum(run[kernel] for run in launches)
+
+    def at_rows(kernel, R):  # over every path of 8-18, at R
+        return sum(run.get((kernel, R), 0) for run in PATH_ROWS)
+
+    def rows_entries(R):
+        """B1's two variants and B2 at R (14's rows: B1 eval at b=32, the
+        others at b=256); launches at R over the paths of 8-18."""
+        by_b = {r["b"]: r for r in rows_at[R]}
+        small, big = by_b[32], by_b[256]
+        return [{
+            "name": f"implicit_attention R={R}", "route": "cuda", "source": b1_source,
+            "replaces": "tf_vqa_regat_tpu/ops/pallas/implicit_attention.py:99",
+            "launches": at_rows("B1 eval", R),
+            "max_abs_err": max(r["b1_err"] for r in rows_at[R]),
+            "ms": small["b1_ms"], "plain_ms": small["b1_plain_ms"],
+            "bound_ms": small["b1_bound_ms"], "bound_by": small["b1_bound_by"],
+            "library_ms": None,
+        }, {
+            "name": f"implicit_attention_train R={R}", "route": "cuda", "source": b1_source,
+            "replaces": "tf_vqa_regat_tpu/ops/pallas/implicit_attention.py:208",
+            "launches": at_rows("B1 train", R),
+            "max_abs_err": max(max(r["b1_train_out_err"], r["b1_train_pwr_err"])
+                               for r in rows_at[R]),
+            "ms": big["b1_train_ms"], "plain_ms": big["b1_train_plain_ms"],
+            "bound_ms": big["b1_train_bound_ms"], "bound_by": big["b1_train_bound_by"],
+            "library_ms": None,
+        }, {
+            "name": f"graph_attention R={R}", "route": "cuda", "source": b2_source,
+            "replaces": "tf_vqa_regat_tpu/ops/pallas/graph_attention.py:66",
+            "launches": at_rows("B2", R),
+            "max_abs_err": max(max(r["b2_shared_err"], r["b2_per_head_err"])
+                               for r in rows_at[R]),
+            "ms": big["b2_ms"], "plain_ms": big["b2_plain_ms"],
+            "bound_ms": big["b2_bound_ms"], "bound_by": big["b2_bound_by"],
+            "library_ms": big["sdpa_ms"],
+        }]
 
     print(json.dumps({"kernels": [{
         "name": "implicit_attention",
@@ -1614,7 +2066,7 @@ def main() -> None:
         "plain_ms": graph_big["v1_plain_ms"],
         **{k: graph_big[k] for k in bound_keys},
         "library_ms": graph_big["sdpa_ms"],
-    }]}), flush=True)
+    }, *(e for R in ROWS for e in rows_entries(R))]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

@@ -1,7 +1,8 @@
 """The B2 wrapper's tiling plan (`tiling_plan`), which sizes the CUDA
-kernel's launch, at the configs' shapes: R = 100 rows, n = 20 keys, H = 16
-heads, dh = o = 64 (configs/{spatial,semantic}_vqa.json), at the batch sizes
-the port runs (serve 1, 8, 32; train 256). The kernel itself runs only on a
+kernel's launch, at the configs' shapes: R = 100 rows (and 36 and 64, the
+other roi buckets of --roi_buckets 36,64,100 and the fixed-36 layout), n =
+20 keys, H = 16 heads, dh = o = 64 (configs/{spatial,semantic}_vqa.json), at
+the batch sizes the port runs (serve 1, 8, 32; eval 64; train 256). The kernel itself runs only on a
 GPU (chip_smoke.py); these checks need none."""
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ def _plan(b, **over):
     return ga.tiling_plan(b, s["R"], s["n"], s["H"], s["dh"], s["o"])
 
 
-@pytest.mark.parametrize("R", [1, 7, 8, 9, 100, 101])
+@pytest.mark.parametrize("R", [1, 7, 8, 9, 36, 64, 100, 101])
 @pytest.mark.parametrize("b", BATCHES + (3, 12, 13))
 def test_chunks_cover_every_row_once(b, R):
     plan = _plan(b, R=R)
@@ -50,6 +51,24 @@ def test_chunk_sizes_at_the_model_batches():
     b <= 8."""
     got = {b: (_plan(b).rows, _plan(b).grid) for b in BATCHES}
     assert got == {1: (8, (13, 1)), 8: (8, (13, 8)), 32: (20, (5, 32)), 256: (100, (1, 256))}
+
+
+@pytest.mark.parametrize("R, want", [
+    (36, {1: (8, (5, 1)), 8: (8, (5, 8)), 32: (8, (5, 32)), 64: (12, (3, 64)),
+          256: (36, (1, 256))}),
+    (64, {1: (8, (8, 1)), 8: (8, (8, 8)), 32: (13, (5, 32)), 64: (22, (3, 64)),
+          256: (64, (1, 256))}),
+])
+def test_chunk_sizes_at_the_bucket_rows(R, want):
+    """The roi buckets 36 and 64 of --roi_buckets 36,64,100, at the serve,
+    eval and train batches: whole examples per block at b=256, the card
+    filled where the rows allow it."""
+    got = {b: (_plan(b, R=R).rows, _plan(b, R=R).grid) for b in want}
+    assert got == want
+    for b, (rows, (chunks, grid_b)) in got.items():
+        assert (chunks - 1) * rows < R <= chunks * rows
+        if b * -(-R // 8) >= ga.SMS:
+            assert chunks * grid_b >= ga.SMS
 
 
 @pytest.mark.parametrize("over", [dict(n=40), dict(H=32), dict(dh=6), dict(o=10), dict(n=0)])

@@ -1,7 +1,9 @@
 """The B1 wrapper's tiling plan (`tiling_plan`) and shared-memory function,
 which size the CUDA kernel's launch, at the implicit config's shapes: R = 100
-rows, n = 20 keys, H = 16 heads, dh = o = 64, P = 64 (configs/butd_vqa.json),
-at the batch sizes the port runs (serve 1, 8, 32; eval 64; train 256). The
+rows (and 36 and 64, the other roi buckets of --roi_buckets 36,64,100 and the
+fixed-36 layout), n = 20 keys, H = 16 heads, dh = o = 64, P = 64
+(configs/butd_vqa.json), at the batch sizes the port runs (serve 1, 8, 32;
+eval 64; train 256). The
 kernel itself runs only on a GPU (chip_smoke.py); these checks need none."""
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ def _plan(b, **over):
     return ia.tiling_plan(b, s["R"], s["n"], s["H"], s["dh"], s["o"], s["P"])
 
 
-@pytest.mark.parametrize("R", [1, 7, 8, 9, 100, 101])
+@pytest.mark.parametrize("R", [1, 7, 8, 9, 36, 64, 100, 101])
 @pytest.mark.parametrize("b", BATCHES + (3, 12, 13))
 def test_chunks_cover_every_row_once(b, R):
     plan = _plan(b, R=R)
@@ -62,6 +64,24 @@ def test_chunk_sizes_at_the_model_batches():
                    256: (100, (1, 256))}
     for b in BATCHES:
         assert _plan(b).rows == ga.tiling_plan(b, 100, 20, 16, 64, 64).rows
+
+
+@pytest.mark.parametrize("R, want", [
+    (36, {1: (8, (5, 1)), 8: (8, (5, 8)), 32: (8, (5, 32)), 64: (12, (3, 64)),
+          256: (36, (1, 256))}),
+    (64, {1: (8, (8, 1)), 8: (8, (8, 8)), 32: (13, (5, 32)), 64: (22, (3, 64)),
+          256: (64, (1, 256))}),
+])
+def test_chunk_sizes_at_the_bucket_rows(R, want):
+    """The roi buckets 36 and 64 of --roi_buckets 36,64,100, at the serve,
+    eval and train batches: whole examples per block at b=256, the card
+    filled where the rows allow it."""
+    got = {b: (_plan(b, R=R).rows, _plan(b, R=R).grid) for b in want}
+    assert got == want
+    for b, (rows, (chunks, grid_b)) in got.items():
+        assert (chunks - 1) * rows < R <= chunks * rows
+        if b * -(-R // 8) >= ga.SMS:
+            assert chunks * grid_b >= ga.SMS
 
 
 @pytest.mark.parametrize("over", [dict(P=12), dict(P=40), dict(dh=6), dict(o=10), dict(n=40),

@@ -3,7 +3,8 @@ configs/butd_vqa.json, ban_vqa.json and mutan_vqa_cp.json (MuTAN at rank 3,
 with and without `--mutan_shared_qdrop`): `--mode train` writes the log, one
 metrics line per epoch and the final `.npz`; `--mode eval` on that file
 reproduces the last eval loss exactly; `--mode serve` loads it and answers a
-/predict over HTTP; flags of unported features are refused."""
+/predict over HTTP; flags of unported features are refused, and so is
+`--compute_dtype bfloat16` with BAN or MuTAN."""
 
 import json
 import os
@@ -94,7 +95,16 @@ def test_serve_loads_the_trained_model(trained):
     assert not thread.is_alive()
 
 
-@pytest.mark.parametrize("flag", [["--grad_accum", "2"], ["--roi_buckets", "36,64,100"]])
+@pytest.mark.parametrize("flag", [["--grad_accum", "2"], ["--data_mode", "host"]])
 def test_unported_training_flags_are_refused(flag):
     with pytest.raises(SystemExit):
         parse(SMALL + ["--mode", "train"] + flag)
+
+
+@pytest.mark.parametrize("fusion", ["ban", "mutan"])
+def test_bf16_compute_with_ban_or_mutan_is_refused(fusion):
+    """bf16 is ported for BUTD only: BAN and MuTAN refuse it, naming the
+    ROADMAP item, rather than run in f32."""
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue A.*bf16 for BAN and MuTAN"):
+        parse(SMALL + ["--mode", "train", "--compute_dtype", "bfloat16", "--fusion", fusion])
+    assert parse(SMALL + ["--compute_dtype", "bfloat16"])[0].compute_dtype == "bfloat16"

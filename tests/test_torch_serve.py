@@ -80,7 +80,7 @@ def test_config_parses_as_the_jax_config(path):
     assert ours.resolved_num_rois() == ref.resolved_num_rois() == 36
     assert ours.word_dim == ref.word_dim
     with pytest.raises(SystemExit):  # a flag of a feature not ported is refused
-        tconfig.parse_with_config(["--feature_dtype", "int8"])
+        tconfig.parse_with_config(["--packed_cache", "/nonexistent"])
 
 
 def test_tokenizer_matches_the_jax_tokenizer():

@@ -71,6 +71,21 @@ class Config:
     # --- extensions the port implements ---
     # Static roi padding; 0 = 36 for the fixed layout, 100 adaptive.
     num_rois: int = 0
+    # bf16 matmuls and bf16 activation storage; the parameters, the Adamax
+    # state, the softmax statistics, the kernels' inputs and outputs, the
+    # loss and the answer logits stay f32. Explicit casts where the JAX
+    # package casts (models/regat.py). BUTD fusion only for now.
+    compute_dtype: str = "float32"
+    # The resident feature table's dtype: "bfloat16" (round to nearest even)
+    # or "int8" (per-row symmetric quantization, scale = rowmax/127); the
+    # gather widens to f32 (and dequantizes). Box tables stay f32: spatial
+    # edge labels are discrete in them.
+    feature_dtype: str = "float32"
+    # Roi bucketing: comma-separated static roi sizes, e.g. "36,64,100";
+    # each batch holds entries of one bucket and runs at that size. Images
+    # with more boxes than the largest bucket are cut to it. Empty = one
+    # static size (resolved_num_rois()).
+    roi_buckets: str = ""
     # Eval batch size; 0 = the reference's batch_size // 4.
     eval_batch: int = 0
     # --mode serve: port, fixed batch sizes, straggler wait.
@@ -101,6 +116,11 @@ class Config:
     synthetic_val_size: int = 1024
 
     def __post_init__(self) -> None:
+        for field, allowed in (("feature_dtype", ("float32", "bfloat16", "int8")),
+                               ("compute_dtype", ("float32", "bfloat16"))):
+            v = getattr(self, field)
+            if v not in allowed:
+                raise ValueError(f"--{field} {v!r} is not one of {'|'.join(allowed)}")
         sizes = [x for x in self.serve_batch_sizes.split(",") if x.strip()]
         if not sizes or any(int(x) <= 0 for x in sizes):
             raise ValueError(
@@ -119,6 +139,10 @@ class Config:
         if self.num_rois > 0:
             return self.num_rois
         return 100 if self.adaptive else 36
+
+    def parsed_roi_buckets(self) -> Optional[List[int]]:
+        buckets = sorted(int(x) for x in self.roi_buckets.split(",") if x.strip())
+        return buckets or None
 
     @property
     def word_dim(self) -> int:

@@ -1,26 +1,30 @@
 """Device-resident tables and the on-device gather (counterpart of
-tf_vqa_regat_tpu/data/device_store.py: `build_image_arrays` for the adaptive
-layout, `build_entry_arrays`, `DeviceStore.epoch_indices`, `gather_batch`
-and `gather_image_features`, `gather_adj`).
+tf_vqa_regat_tpu/data/device_store.py: `quantize_rows`,
+`build_image_arrays` for the adaptive and fixed-36 layouts,
+`build_entry_arrays`, `DeviceStore.epoch_indices` and its roi-bucketed
+stream, `gather_batch`, `gather_image_features` and `gather_adj`).
 
-The split's feature and box tables are uploaded once, at f32; a request or a
-train step then ships only indices, and its rows are gathered on the device,
-clipped to the table and zeroed past the example's box count. The entry
-tables (image index, question tokens, soft targets packed to MAX_LABELS)
-live there too, so a batch is assembled from a [B] index vector. A semantic
-split also carries its per-image edge labels as an int8 table, gathered into
-the batch's `adj_label`. bf16 and int8 feature tables are in ROADMAP Queue
-A, main-path runtime.
+The split's feature and box tables are uploaded once; a request or a train
+step then ships only indices, and its rows are gathered on the device,
+clipped to the table, widened to f32 and zeroed past the example's box
+count. The feature table is held at `feature_dtype`: f32, bf16 (rounded to
+nearest even) or int8 with a per-row f32 scale (rowmax/127), which the
+gather multiplies back in. The box tables stay f32. A fixed-36 split is
+flattened to 36 rows per image. The entry tables (image index, question
+tokens, soft targets packed to MAX_LABELS) live there too, so a batch is
+assembled from a [B] index vector. A semantic split also carries its
+per-image edge labels as an int8 table, gathered into the batch's
+`adj_label`.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Iterator, Optional, Tuple
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from tf_vqa_regat_tpu_torch.data.ordering import epoch_perm_rng
+from tf_vqa_regat_tpu_torch.data.ordering import batch_shuffle_rng, epoch_perm_rng
 from tf_vqa_regat_tpu_torch.data.synthetic import EntryTable, SyntheticDataset
 
 MAX_LABELS = 16  # VQA soft targets have <= 10 answers
@@ -30,17 +34,56 @@ def _put(a: np.ndarray, dtype: torch.dtype, device: torch.device) -> torch.Tenso
     return torch.from_numpy(np.ascontiguousarray(a)).to(device=device, dtype=dtype)
 
 
-class ImageStore:
-    """`features` [T, v], `norm_bb` [T, 6] and `bb` [T, 4] f32, per-image
-    `img_start` and `img_len` [num_images] int64, and for a semantic split
-    `adj` [num_images, 100, 100] int8 (else None), all on `device`."""
+def quantize_rows(chunk: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """Symmetric per-row int8 quantization: (q int8, scale f32 [rows]) with
+    scale = rowmax/127 (the JAX package's formula, device_store.py:53-59)."""
+    s = np.maximum(np.abs(chunk).max(axis=-1), 1e-12) / 127.0
+    q = np.clip(np.round(chunk / s[..., None]), -127, 127).astype(np.int8)
+    return q, s.astype(np.float32)
 
-    def __init__(self, ds: SyntheticDataset, device: torch.device):
-        self.features = _put(ds.features, torch.float32, device)
-        self.norm_bb = _put(ds.normalized_bb, torch.float32, device)
-        self.bb = _put(ds.bb, torch.float32, device)
-        self.img_start = _put(ds.pos_boxes[:, 0], torch.int64, device)
-        self.img_len = _put(ds.pos_boxes[:, 1] - ds.pos_boxes[:, 0], torch.int64, device)
+
+def feature_table(
+    features: np.ndarray, feature_dtype: str
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The flat [T, v] feature table at `feature_dtype`, on the host, and
+    for int8 its per-row scale [T] f32 (else None)."""
+    flat = features.reshape(-1, features.shape[-1])
+    if feature_dtype == "float32":
+        return torch.from_numpy(np.ascontiguousarray(flat)), None
+    if feature_dtype == "bfloat16":  # round to nearest even
+        return torch.from_numpy(np.ascontiguousarray(flat)).to(torch.bfloat16), None
+    if feature_dtype == "int8":
+        q, scale = quantize_rows(np.asarray(flat, np.float32))
+        return torch.from_numpy(q), torch.from_numpy(scale)
+    raise ValueError(f"unknown feature_dtype {feature_dtype!r}")
+
+
+def image_rows(ds: SyntheticDataset) -> Tuple[np.ndarray, np.ndarray]:
+    """(first row, row count) of each image in the flat tables: `pos_boxes`
+    for an adaptive split, 36 rows per image for a fixed-36 one."""
+    if ds.adaptive:
+        return ds.pos_boxes[:, 0], ds.pos_boxes[:, 1] - ds.pos_boxes[:, 0]
+    n_img, n_box = ds.features.shape[:2]
+    return np.arange(n_img) * n_box, np.full(n_img, n_box)
+
+
+class ImageStore:
+    """`features` [T, v] at `feature_dtype` (with `feat_scale` [T] f32 for
+    int8, else None), `norm_bb` [T, 6] and `bb` [T, 4] f32, per-image
+    `img_start` and `img_len` [num_images] int64, and for a semantic split
+    `adj` [num_images, 100, 100] int8 (else None), all on `device`. A
+    fixed-36 split's image i holds rows 36 i to 36 i + 35."""
+
+    def __init__(self, ds: SyntheticDataset, device: torch.device,
+                 feature_dtype: str = "float32"):
+        features, scale = feature_table(ds.features, feature_dtype)
+        self.features = features.to(device)
+        self.feat_scale = None if scale is None else scale.to(device)
+        self.norm_bb = _put(ds.normalized_bb.reshape(-1, 6), torch.float32, device)
+        self.bb = _put(ds.bb.reshape(-1, 4), torch.float32, device)
+        start, length = image_rows(ds)
+        self.img_start = _put(start, torch.int64, device)
+        self.img_len = _put(length, torch.int64, device)
         self.adj = (
             None if ds.semantic_adj is None else _put(ds.semantic_adj, torch.int8, device)
         )
@@ -83,9 +126,12 @@ class DeviceStore:
     [N, MAX_LABELS]. With `targets` False (prediction, which may run on an
     answerless split) the soft targets are neither read nor stored."""
 
-    def __init__(self, ds: SyntheticDataset, device: torch.device, targets: bool = True):
+    def __init__(
+        self, ds: SyntheticDataset, device: torch.device, targets: bool = True,
+        feature_dtype: str = "float32",
+    ):
         ent = ds.entries
-        self.images = ImageStore(ds, device)
+        self.images = ImageStore(ds, device, feature_dtype)
         self.entry_img = _put(ent.image_index, torch.int64, device)
         self.questions = _put(ent.q_tokens, torch.int64, device)
         self.labels = self.scores = None
@@ -96,6 +142,8 @@ class DeviceStore:
         self.num_entries = len(ent.question_ids)
         self.num_ans = ds.num_ans
         self.padding_idx = ds.padding_idx
+        # per-entry box counts, for the roi buckets (on the host)
+        self.entry_nbox = image_rows(ds)[1][ent.image_index].astype(np.int32)
 
     def steps_per_epoch(self, batch_size: int) -> int:
         return -(-self.num_entries // batch_size)
@@ -112,6 +160,47 @@ class DeviceStore:
             if len(idx) < batch_size:
                 idx = np.concatenate([idx, np.full(batch_size - len(idx), -1, np.int32)])
             yield idx
+
+    def epoch_indices_bucketed(
+        self, epoch: int, batch_size: int, buckets: List[int], shuffle: bool, seed: int
+    ) -> Iterator[Tuple[int, np.ndarray]]:
+        """Roi-bucketed (R, idx) batches: each batch holds entries of one
+        bucket only (images with <= R boxes, the oversized clamped to the
+        last bucket), padded with -1. With `shuffle` the entries within each
+        bucket, then the batches across buckets, are permuted by the epoch's
+        `batch_shuffle_rng`; every entry appears once per epoch."""
+        buckets = sorted(buckets)
+        bucket_of = self._bucket_of(buckets)
+        rng = batch_shuffle_rng(seed, epoch)
+        jobs = []
+        for bi, R in enumerate(buckets):
+            ids = np.where(bucket_of == bi)[0].astype(np.int32)
+            if len(ids) == 0:
+                continue
+            if shuffle:
+                ids = ids[rng.permutation(len(ids))]
+            for start in range(0, len(ids), batch_size):
+                idx = ids[start : start + batch_size]
+                if len(idx) < batch_size:
+                    idx = np.concatenate([idx, np.full(batch_size - len(idx), -1, np.int32)])
+                jobs.append((R, idx))
+        if shuffle:
+            jobs = [jobs[i] for i in rng.permutation(len(jobs))]
+        yield from jobs
+
+    def _bucket_of(self, buckets: List[int]) -> np.ndarray:
+        """Bucket index per entry; oversized images clamp to the last bucket."""
+        return np.minimum(
+            np.searchsorted(np.asarray(buckets), self.entry_nbox), len(buckets) - 1
+        )
+
+    def bucketed_batch_counts(self, batch_size: int, buckets: List[int]) -> List[int]:
+        """Per bucket (sorted): the number of batches an epoch yields."""
+        bucket_of = self._bucket_of(sorted(buckets))
+        return [-(-int((bucket_of == bi).sum()) // batch_size) for bi in range(len(buckets))]
+
+    def bucketed_steps_per_epoch(self, batch_size: int, buckets: List[int]) -> int:
+        return int(sum(self.bucketed_batch_counts(batch_size, buckets)))
 
 
 def gather_batch(
@@ -175,14 +264,19 @@ def gather_image_features(
     n_box: torch.Tensor,  # [B] valid box count per example (0 = fully padded)
     num_rois: int,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(features, norm_bb, bb), each [B, num_rois, ...]."""
+    """(features, norm_bb, bb), each [B, num_rois, ...] f32: the rows
+    widened to f32 and zeroed past `n_box`, int8 features then multiplied by
+    their rows' scales (the JAX order)."""
     r = torch.arange(num_rois, device=img.device)
     rows = store.img_start[img][:, None] + r[None, :]  # [B, R]
     roi_ok = (r[None, :] < n_box[:, None])[..., None]
     rows = torch.clamp(rows, 0, store.features.shape[0] - 1)
 
     def take(tab):
-        out = tab[rows]
+        out = tab[rows].to(torch.float32)
         return torch.where(roi_ok, out, torch.zeros_like(out))
 
-    return take(store.features), take(store.norm_bb), take(store.bb)
+    features = take(store.features)
+    if store.feat_scale is not None:
+        features = features * store.feat_scale[rows][..., None]
+    return features, take(store.norm_bb), take(store.bb)

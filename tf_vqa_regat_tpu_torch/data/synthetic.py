@@ -1,12 +1,14 @@
 """In-memory synthetic VQA split with the real shapes (counterpart of
-tf_vqa_regat_tpu/data/fixtures.py: `synthetic_dataset(adaptive=True)`,
-`make_dictionary`, `_rand_boxes`).
+tf_vqa_regat_tpu/data/fixtures.py: `synthetic_dataset`, `make_dictionary`,
+`_rand_boxes`).
 
 It draws the same numbers in the same order from `np.random.RandomState`, so
 a seed gives the JAX package's split array for array (a CPU test checks).
 It exists because the port runs without the JAX package, and fixtures.py
-imports h5py at module top, which the GPU machine may not have. Adaptive
-layout only: 10-100 rois per image, 2048-d features, 3,129 answers; with
+imports h5py at module top, which the GPU machine may not have. Two
+layouts, as JAX has them: adaptive (10-100 rois per image, flat [T, v]
+tables and per-image `pos_boxes` rows) and fixed-36 (36 rois per image,
+[num_images, 36, v] tables). 2048-d features, 3,129 answers; with
 `semantic`, a per-image [100, 100] table of semantic edge labels 0-15 too.
 """
 
@@ -61,19 +63,23 @@ class EntryTable:
 
 @dataclass
 class SyntheticDataset:
-    """One split: entries plus the adaptive feature tables (the fields the
-    JAX package keeps on `VQADataset` and its `FeatureStore`)."""
+    """One split: entries plus the feature tables (the fields the JAX
+    package keeps on `VQADataset` and its `FeatureStore`). Adaptive:
+    features [total_boxes, v], boxes [total_boxes, 6 | 4] and `pos_boxes`;
+    fixed-36: features [num_images, 36, v], boxes [num_images, 36, 6 | 4]
+    and no `pos_boxes`."""
 
     name: str
     entries: EntryTable
-    features: np.ndarray  # [total_boxes, v_dim] f32
-    normalized_bb: np.ndarray  # [total_boxes, 6] f32
-    bb: np.ndarray  # [total_boxes, 4] f32
-    pos_boxes: np.ndarray  # [num_images, 2] int64 (start, end) rows
+    features: np.ndarray  # f32
+    normalized_bb: np.ndarray  # f32
+    bb: np.ndarray  # f32
+    pos_boxes: Optional[np.ndarray]  # [num_images, 2] int64 (start, end) rows, adaptive
     num_ans: int
     label2ans: List[str]
     dictionary: Dictionary
     semantic_adj: Optional[np.ndarray] = None  # [num_images, 100, 100] int32
+    adaptive: bool = True
 
     @property
     def ntoken(self) -> int:
@@ -96,22 +102,31 @@ def synthetic_dataset(
     seed: int = 0,
     semantic: bool = False,
     name: str = "train",
+    adaptive: bool = True,
 ) -> SyntheticDataset:
     rng = np.random.RandomState(seed)
     d = make_dictionary()
-    counts = rng.randint(10, 101, size=num_images)
-    total = int(counts.sum())
-    feats = rng.randn(total, v_dim).astype(np.float32)
-    bbs = np.zeros((total, 4), np.float32)
-    norms = np.zeros((total, 6), np.float32)
-    pos = np.zeros((num_images, 2), np.int64)
-    off = 0
-    for i, c in enumerate(counts):
-        bb, nb = _rand_boxes(rng, c)
-        bbs[off : off + c] = bb
-        norms[off : off + c] = nb
-        pos[i] = (off, off + c)
-        off += c
+    pos = None
+    if adaptive:
+        counts = rng.randint(10, 101, size=num_images)
+        total = int(counts.sum())
+        feats = rng.randn(total, v_dim).astype(np.float32)
+        bbs = np.zeros((total, 4), np.float32)
+        norms = np.zeros((total, 6), np.float32)
+        pos = np.zeros((num_images, 2), np.int64)
+        off = 0
+        for i, c in enumerate(counts):
+            bb, nb = _rand_boxes(rng, c)
+            bbs[off : off + c] = bb
+            norms[off : off + c] = nb
+            pos[i] = (off, off + c)
+            off += c
+    else:  # every feature first, then the boxes image by image
+        feats = rng.randn(num_images, 36, v_dim).astype(np.float32)
+        bbs = np.zeros((num_images, 36, 4), np.float32)
+        norms = np.zeros((num_images, 36, 6), np.float32)
+        for i in range(num_images):
+            bbs[i], norms[i] = _rand_boxes(rng, 36)
     semantic_adj = None
     if semantic:  # drawn here, between the boxes and the answers, as JAX does
         semantic_adj = rng.randint(0, 16, size=(num_images, 100, 100)).astype(np.int32)
@@ -145,4 +160,5 @@ def synthetic_dataset(
         label2ans=["ans%d" % i for i in range(num_ans)],
         dictionary=d,
         semantic_adj=semantic_adj,
+        adaptive=adaptive,
     )

@@ -14,9 +14,12 @@ and no visible GPU the run fails; it never moves to the CPU on its own.
 `--device cpu` runs every kernel's plain PyTorch version.
 
 Ported so far: `--mode train`, `eval`, `serve`, `predict` and
-`ensemble_eval` on `--synthetic` data, for implicit, spatial and semantic
+`ensemble_eval` on `--synthetic` data, adaptive or fixed-36
+(configs/butd_vqa_fixed36.json), for implicit, spatial and semantic
 relations with BUTD fusion, and implicit relations with BAN and MuTAN fusion
-(configs/ban_vqa.json, mutan_vqa_cp.json). Training writes checkpoints under
+(configs/ban_vqa.json, mutan_vqa_cp.json); `--feature_dtype
+float32|bfloat16|int8`, `--roi_buckets` and, with BUTD, `--compute_dtype
+bfloat16`. Training writes checkpoints under
 `{output}/checkpoints/` (train/checkpoint.py; `--resume` continues from the
 newest) and, at its end, `{output}/{relation_type}-{fusion}-pretrained_model.npz`
 (params.py). A preempted run (SIGTERM) saves a step checkpoint, prints how
@@ -82,20 +85,16 @@ def resolve_device(name: str) -> torch.device:
 
 
 def build_dataset(cfg: Config, name: str = "val") -> SyntheticDataset:
-    """The JAX entry point's synthetic split: `val` (seed + 1,
-    synthetic_val_size questions), which eval, serve, predict and the
-    ensemble read, or `train` (seed, synthetic_train_size questions); with
+    """The JAX entry point's synthetic split, in the config's layout
+    (adaptive or fixed-36): `val` (seed + 1, synthetic_val_size questions),
+    which eval, serve, predict and the ensemble read, or `train` (seed,
+    synthetic_train_size questions); with
     per-image semantic edge labels when the relation type is semantic or an
     ensemble has a semantic member (the table's draws change the answers)."""
     if not cfg.synthetic:
         raise NotImplementedError(
             "real VQA features are not ported yet (ROADMAP Queue A, real VQA "
             "data without h5py); pass --synthetic"
-        )
-    if not cfg.adaptive:
-        raise NotImplementedError(
-            "the fixed-36 layout is not ported yet (ROADMAP Queue A, main-path "
-            "runtime); use an adaptive config"
         )
     size, seed = (
         (cfg.synthetic_train_size, cfg.seed) if name == "train"
@@ -106,7 +105,7 @@ def build_dataset(cfg: Config, name: str = "val") -> SyntheticDataset:
     )
     return synthetic_dataset(
         num_images=max(size // 8, 8), num_questions=size, seed=seed,
-        semantic=semantic, name=name,
+        semantic=semantic, name=name, adaptive=cfg.adaptive,
     )
 
 

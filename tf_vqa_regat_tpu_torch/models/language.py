@@ -7,6 +7,11 @@ the fusion. In training, dropout at the `drop_rate` given (the config's
 follows the pooled vector (language.py:89, :125, :146). The self-attention softmaxes over the SEQUENCE axis per example
 (the PyTorch original's semantics; the TF reference's batch-axis softmax is
 the JAX package's `ref_compat_q_att`, not ported).
+
+Under a bf16 `dtype` (language.py:83-143): the word embedding is bf16; the
+GRU states are f32; the self-attention's FCNets store bf16, its logits are
+widened to f32 for the softmax, and the pooled vector is the f32 product of
+the bf16-rounded weights and states.
 """
 
 from __future__ import annotations
@@ -28,11 +33,11 @@ class WordEmbedding(nn.Module):
 
     def __init__(
         self, ntoken: int, emb_dim: int, op: str, generator: torch.Generator,
-        drop_rate: float = 0.0,
+        drop_rate: float = 0.0, dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
-        self.emb = Embedding(ntoken + 1, emb_dim, generator)
-        self.emb_ = Embedding(ntoken + 1, emb_dim, generator) if "c" in op else None
+        self.emb = Embedding(ntoken + 1, emb_dim, generator, dtype)
+        self.emb_ = Embedding(ntoken + 1, emb_dim, generator, dtype) if "c" in op else None
         self.drop_rate = drop_rate
 
     def forward(
@@ -46,9 +51,12 @@ class WordEmbedding(nn.Module):
 
 
 class QuestionEmbedding(nn.Module):
-    def __init__(self, in_dim: int, num_hid: int, generator: torch.Generator):
+    def __init__(
+        self, in_dim: int, num_hid: int, generator: torch.Generator,
+        dtype: torch.dtype = torch.float32,
+    ):
         super().__init__()
-        self.gru = GRU(in_dim, num_hid, generator)
+        self.gru = GRU(in_dim, num_hid, generator, dtype)
 
     def forward(self, w_emb: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """(all hidden states [b, T, h], last state [b, h])."""
@@ -57,19 +65,26 @@ class QuestionEmbedding(nn.Module):
 
 
 class QuestionSelfAttention(nn.Module):
-    def __init__(self, num_hid: int, generator: torch.Generator, drop_rate: float = 0.0):
+    def __init__(
+        self, num_hid: int, generator: torch.Generator, drop_rate: float = 0.0,
+        dtype: torch.dtype = torch.float32,
+    ):
         super().__init__()
         self.linear1 = FCNet(
-            [num_hid, num_hid], generator, activation=None, drop_rate=drop_rate
+            [num_hid, num_hid], generator, activation=None, drop_rate=drop_rate, dtype=dtype
         )
-        self.linear2 = FCNet([num_hid, 1], generator, activation=None)
+        self.linear2 = FCNet([num_hid, 1], generator, activation=None, dtype=dtype)
         self.drop_rate = drop_rate
+        self.dtype = dtype
 
     def forward(
         self, q_seq: torch.Tensor, generator: Optional[torch.Generator] = None
     ) -> torch.Tensor:
         """[b, T, h] -> pooled [b, h]."""
-        logits = self.linear2(torch.tanh(self.linear1(q_seq, generator)))[..., 0]
-        weights = torch.softmax(logits, dim=-1)  # [b, T]
-        pooled = torch.einsum("bt,bth->bh", weights, q_seq)
+        logits = self.linear2(torch.tanh(self.linear1(q_seq, generator)))[..., 0].float()
+        weights = torch.softmax(logits, dim=-1)  # [b, T], f32 statistics
+        cd = self.dtype
+        pooled = torch.einsum(
+            "bt,bth->bh", weights.to(cd).float(), q_seq.to(cd).float()
+        )  # f32, as dot_f32
         return dropout(pooled, self.drop_rate, self.training, generator)

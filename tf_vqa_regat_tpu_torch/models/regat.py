@@ -16,6 +16,12 @@ itself and MuTAN its input rate (models/ban.py, models/mutan.py).
 BUTD and MuTAN take the GRU's last state, BAN its whole sequence. MuTAN
 scores the answers itself, so a MuTAN model has no `classifier`.
 
+`--compute_dtype bfloat16` (BUTD fusion only, as yet) casts where the JAX
+package casts (regat.py:132-242), with explicit `.to()` in each module, not
+torch.autocast, whose per-op list is not JAX's: bf16 matmuls and stored
+activations; f32 parameters, softmax statistics, GRU state, kernel inputs
+and outputs, and answer logits.
+
 The batch is a dict of tensors on the model's device:
   features  [b, R, v_dim] float32   region features
   bb        [b, R, 4]     float32   raw boxes
@@ -47,6 +53,7 @@ from tf_vqa_regat_tpu_torch.models.relation import (
     ExplicitRelationEncoder,
     ImplicitRelationEncoder,
 )
+from tf_vqa_regat_tpu_torch.nn import DTYPES
 from tf_vqa_regat_tpu_torch.ops.position import position_matrix
 from tf_vqa_regat_tpu_torch.ops.spatial_graph import (
     broadcast_adj_labels,
@@ -58,13 +65,19 @@ FUSIONS = ("butd", "ban", "mutan")
 
 
 def check_supported(cfg: Config) -> None:
-    """Raise for an unknown relation type or fusion. (Flags of features not
-    ported yet, such as bf16, are not in the port's Config: the parser
-    rejects them.)"""
+    """Raise for an unknown relation type or fusion, and for bf16 compute
+    with a fusion whose bf16 path is not ported. (Flags of features not
+    ported yet are not in the port's Config: the parser rejects them.)"""
     if cfg.relation_type not in RELATION_TYPES:
         raise ValueError(f"unknown relation_type {cfg.relation_type!r}")
     if cfg.fusion not in FUSIONS:
         raise ValueError(f"unknown fusion {cfg.fusion!r}")
+    if cfg.compute_dtype != "float32" and cfg.fusion != "butd":
+        raise NotImplementedError(
+            f"--compute_dtype {cfg.compute_dtype} with --fusion {cfg.fusion} is not "
+            f"ported yet (ROADMAP Queue A, main-path runtime: bf16 for BAN and MuTAN); "
+            f"use --fusion butd or --compute_dtype float32"
+        )
 
 
 class ReGAT(nn.Module):
@@ -80,14 +93,15 @@ class ReGAT(nn.Module):
         self.relation_type = cfg.relation_type
         drop = cfg.dropout
         graph_drop = 0.2 if drop > 0 else 0.0
-        self.w_emb = WordEmbedding(ntoken, 300, cfg.op, g, drop)
-        self.q_emb = QuestionEmbedding(cfg.word_dim, cfg.num_hid, g)
-        self.q_att = QuestionSelfAttention(cfg.num_hid, g, drop)
+        cd = DTYPES[cfg.compute_dtype]
+        self.w_emb = WordEmbedding(ntoken, 300, cfg.op, g, drop, cd)
+        self.q_emb = QuestionEmbedding(cfg.word_dim, cfg.num_hid, g, cd)
+        self.q_att = QuestionSelfAttention(cfg.num_hid, g, drop, cd)
         if cfg.relation_type == "implicit":
             self.v_relation = ImplicitRelationEncoder(
                 v_dim, cfg.num_hid, cfg.relation_dim, cfg.dir_num,
                 cfg.imp_pos_emb_dim, cfg.num_heads, cfg.num_steps,
-                cfg.residual_connection, g, graph_drop,
+                cfg.residual_connection, g, graph_drop, cd,
             )
         else:
             self.label_num = (
@@ -96,11 +110,11 @@ class ReGAT(nn.Module):
             self.v_relation = ExplicitRelationEncoder(
                 v_dim, cfg.num_hid, cfg.relation_dim, cfg.dir_num, self.label_num,
                 cfg.num_heads, cfg.num_steps, cfg.nongt_dim, cfg.residual_connection,
-                cfg.label_bias, g, graph_drop,
+                cfg.label_bias, g, graph_drop, cd,
             )
         self.fusion = cfg.fusion
         if cfg.fusion == "butd":
-            self.joint_emb = BUTD(cfg.relation_dim, cfg.num_hid, cfg.num_hid, g, graph_drop)
+            self.joint_emb = BUTD(cfg.relation_dim, cfg.num_hid, cfg.num_hid, g, graph_drop, cd)
         elif cfg.fusion == "ban":
             self.joint_emb = BAN(cfg.relation_dim, cfg.num_hid, cfg.ban_glimpse, g, drop)
         else:
@@ -110,7 +124,7 @@ class ReGAT(nn.Module):
             )
         self.classifier = (
             None if cfg.fusion == "mutan"
-            else Classifier(cfg.num_hid, cfg.num_hid * 2, num_ans, g, drop)
+            else Classifier(cfg.num_hid, cfg.num_hid * 2, num_ans, g, drop, cd)
         )
 
     def forward(

@@ -18,6 +18,12 @@ label FC (explicit), then before Q and K; and on the summed output before
 the relu (relation.py:85-108, :159). The implicit `v2out` drops its input
 too, at the same rate (the reference pins it at 0.2 apart from `--dropout`;
 relation.py:221-229); the explicit `v2out` has no dropout (:290-294).
+
+Under a bf16 `dtype` the FCNets (v2out, self_weights, the label FC, Q and
+K) store bf16 and the question vector takes the visual dtype before the
+concat (relation.py:173-175); each direction's attention comes back in f32
+(ops/graph_attention.py), so the sum on top of `self_feat`, and with it the
+encoder's output, is f32, as JAX's is.
 """
 
 from __future__ import annotations
@@ -40,7 +46,7 @@ def concat_visual_question(
     """The question vector on every valid roi, zeros on padded ones,
     concatenated after the visual features (relation_encoder.py:13-37)."""
     b, R, _ = visual.shape
-    q = question[:, None, :].expand(b, R, question.shape[-1])
+    q = question.to(visual.dtype)[:, None, :].expand(b, R, question.shape[-1])
     q = torch.where(roi_mask[..., None], q, torch.zeros_like(q))
     return torch.cat([visual, q], dim=-1)
 
@@ -54,23 +60,25 @@ class GAttNet(nn.Module):
     def __init__(
         self, dir_num: int, in_feat_dim: int, out_feat_dim: int, num_heads: int,
         pos_emb_dim: int, generator: torch.Generator, drop_rate: float = 0.0,
-        label_num: int = 0, label_bias: bool = True,
+        label_num: int = 0, label_bias: bool = True, dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
         if dir_num > 2:
             raise ValueError("Got more than two directions in a graph.")
         self.self_weights = FCNet(
-            [in_feat_dim, out_feat_dim], generator, activation=None, drop_rate=drop_rate
+            [in_feat_dim, out_feat_dim], generator, activation=None, drop_rate=drop_rate,
+            dtype=dtype,
         )
         self.neighbor = nn.ModuleList(
-            GraphSelfAttention(out_feat_dim, num_heads, pos_emb_dim, generator, drop_rate)
+            GraphSelfAttention(out_feat_dim, num_heads, pos_emb_dim, generator, drop_rate,
+                               dtype)
             for _ in range(dir_num)
         )
         # The reference pins the label FC's dropout at 0.2 apart from
         # --dropout; 0 turns it off with the rest (relation.py:98-103).
         self.bias = (
             FCNet([label_num, 1], generator, activation=None,
-                  drop_rate=0.2 if drop_rate > 0 else 0.0, use_bias=label_bias)
+                  drop_rate=0.2 if drop_rate > 0 else 0.0, use_bias=label_bias, dtype=dtype)
             if label_num > 0 else None
         )
         self.drop_rate = drop_rate
@@ -107,15 +115,15 @@ class ImplicitRelationEncoder(nn.Module):
         self, v_dim: int, q_dim: int, out_dim: int, dir_num: int,
         pos_emb_dim: int, num_heads: int, num_steps: int,
         residual_connection: bool, generator: torch.Generator,
-        drop_rate: float = 0.0,
+        drop_rate: float = 0.0, dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
         self.gatt = GAttNet(
             dir_num, out_dim + q_dim, out_dim, num_heads, pos_emb_dim, generator,
-            drop_rate,
+            drop_rate, dtype=dtype,
         )
         self.v2out = (
-            FCNet([v_dim, out_dim], generator, drop_rate=drop_rate)
+            FCNet([v_dim, out_dim], generator, drop_rate=drop_rate, dtype=dtype)
             if v_dim != out_dim else None
         )
         self.num_steps = num_steps
@@ -149,13 +157,16 @@ class ExplicitRelationEncoder(nn.Module):
         self, v_dim: int, q_dim: int, out_dim: int, dir_num: int, label_num: int,
         num_heads: int, num_steps: int, nongt_dim: int, residual_connection: bool,
         label_bias: bool, generator: torch.Generator, drop_rate: float = 0.0,
+        dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
         self.gatt = GAttNet(
             dir_num, out_dim + q_dim, out_dim, num_heads, -1, generator, drop_rate,
-            label_num, label_bias,
+            label_num, label_bias, dtype,
         )
-        self.v2out = FCNet([v_dim, out_dim], generator) if v_dim != out_dim else None
+        self.v2out = (
+            FCNet([v_dim, out_dim], generator, dtype=dtype) if v_dim != out_dim else None
+        )
         self.num_steps = num_steps
         self.nongt_dim = nongt_dim
         self.residual_connection = residual_connection

@@ -1,5 +1,5 @@
-"""Initialisers, dropout and the per-step generator (counterpart of
-tf_vqa_regat_tpu/nn.py).
+"""Initialisers, dropout, the per-step generator and the compute dtypes
+(counterpart of tf_vqa_regat_tpu/nn.py).
 
 Initialisers follow Keras' defaults, as the JAX package's do, and draw from an
 explicit `torch.Generator` on the CPU, so one seed gives one model on every
@@ -17,6 +17,19 @@ import math
 from typing import Optional, Sequence
 
 import torch
+
+# --compute_dtype -> torch dtype (JAX models/regat.py `_DTYPES`)
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def dot_f32(x: torch.Tensor, w: torch.Tensor, compute_dtype: torch.dtype) -> torch.Tensor:
+    """x @ w of the operands rounded to `compute_dtype`, summed and returned
+    in f32, unrounded: JAX's `jnp.dot(x.astype(cd), w.astype(cd),
+    preferred_element_type=jnp.float32)`. A bf16 matmul would round its
+    output to bf16, so the rounded operands are widened back to f32 and
+    multiplied in f32, which is exact: a product of two bf16 values fits
+    f32's mantissa. At f32 it is a plain matmul."""
+    return torch.matmul(x.to(compute_dtype).float(), w.to(compute_dtype).float())
 
 
 def glorot_uniform(shape: Sequence[int], generator: torch.Generator) -> torch.Tensor:
@@ -79,7 +92,9 @@ def dropout(
 ) -> torch.Tensor:
     """Inverted dropout with the JAX package's 8-bit scheme (nn.py:52-77):
     the drop probability quantises to t/256 and the scale uses the quantised
-    value, so E[dropout(x)] == x exactly. Identity unless `train`."""
+    value, so E[dropout(x)] == x exactly; the scale is rounded to x's dtype
+    first (1.25 for rate 0.2 in bf16), as JAX's is. Identity unless
+    `train`."""
     if not train or rate <= 0.0:
         return x
     if generator is None:
@@ -88,4 +103,6 @@ def dropout(
         return torch.zeros_like(x)
     keep = keep_mask(x.shape, rate, generator, x.device)
     scale = 256.0 / (256 - drop_threshold(rate))
+    if x.dtype != torch.float32:
+        scale = float(torch.tensor(scale, dtype=x.dtype))
     return torch.where(keep, x * scale, torch.zeros_like(x))

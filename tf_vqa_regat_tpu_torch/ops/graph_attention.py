@@ -18,6 +18,14 @@ In training, dropout at `drop_rate` precedes the Q and K projections
 (FCNet), and the sinusoid embedding's uint8 keep-mask [b, R, n, P] is drawn
 here with the step's generator and handed to the kernel, as the JAX fused
 branch draws it (graph_attention.py:155-170).
+
+Under a bf16 `dtype` Q, K and V·W are computed and stored in bf16 and cast
+to f32 here, at the kernel's edge, where the JAX kernel wrappers cast them
+(ops/pallas/implicit_attention.py:331-334, graph_attention.py:266-268):
+both kernels take f32 only. B2's bias is f32 (a bf16 label bias meets f32
+zeros first), B1's pos-FC weight is materialised in f32, and the output
+and `+ b` stay f32 (graph_attention.py:171-176, :254-255). This is the JAX
+`--use_pallas` path, where the sinusoid and the pos-FC stay f32 inside B1.
 """
 
 from __future__ import annotations
@@ -60,15 +68,19 @@ class GraphSelfAttention(nn.Module):
     def __init__(
         self, hidden_dim: int, num_heads: int, pos_emb_dim: int,
         generator: torch.Generator, drop_rate: float = 0.0,
+        dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
         self.num_heads = num_heads
         self.drop_rate = drop_rate
+        self.dtype = dtype
         self.query = FCNet(
-            [hidden_dim, hidden_dim], generator, activation=None, drop_rate=drop_rate
+            [hidden_dim, hidden_dim], generator, activation=None, drop_rate=drop_rate,
+            dtype=dtype,
         )
         self.key = FCNet(
-            [hidden_dim, hidden_dim], generator, activation=None, drop_rate=drop_rate
+            [hidden_dim, hidden_dim], generator, activation=None, drop_rate=drop_rate,
+            dtype=dtype,
         )
         self.out = GroupedProjection(hidden_dim, num_heads, generator)
         self.pair_pos_fc = (
@@ -89,9 +101,12 @@ class GraphSelfAttention(nn.Module):
         n = key_mask.shape[1]
         H = self.num_heads
         trunc = roi[:, :n]
+        cd = self.dtype
         q = self.query(roi, generator).view(b, R, H, D // H)
         k = self.key(trunc, generator).view(b, n, H, D // H)
-        vw = torch.einsum("bnd,hdo->bnho", trunc, self.out.kernel()).contiguous()
+        vw = torch.einsum("bnd,hdo->bnho", trunc.to(cd), self.out.kernel().to(cd))
+        # the kernels' edge: f32 in (the kernels take f32 only), f32 out
+        q, k, vw = q.float(), k.float(), vw.float().contiguous()
         if pos_mat is None:
             out = fused_graph_attention(q, k, vw, explicit_bias(adj_mask, label_bias, key_mask))
             return out.reshape(b, R, D) + self.out.b

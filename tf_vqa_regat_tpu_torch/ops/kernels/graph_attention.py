@@ -37,6 +37,7 @@ no fallback.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import math
 from typing import NamedTuple
@@ -154,13 +155,15 @@ class _Launch(ctypes.Structure):
 
 class _Kernel:
     """The compiled kernel, built at first launch, and its launch counts:
-    `launches` of the global-max (v2) mode, `per_head_launches` of v1.
+    `launches` of the global-max (v2) mode, `per_head_launches` of v1,
+    and both by query rows R in `launches_by_rows[("v2" | "v1", R)]`.
     Per-shape work (the tiling plan, the launch's scalars, the shared-memory
     attribute per device) is done once and cached."""
 
     def __init__(self):
         self.launches = 0
         self.per_head_launches = 0
+        self.launches_by_rows = collections.Counter()
         self._lib = None
         self._launch_args = {}  # (shapes, bias strides) -> (_Launch, copy the bias)
         self._smem_set = {}  # device index -> dynamic shared memory allowed
@@ -249,6 +252,7 @@ class _Kernel:
             self.per_head_launches += 1
         else:
             self.launches += 1
+        self.launches_by_rows["v1" if per_head else "v2", args.R] += 1
         return out
 
 

@@ -33,6 +33,7 @@ Pallas kernel; a fused backward kernel is a later performance item.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 import math
@@ -209,7 +210,8 @@ class _Launch(ctypes.Structure):
 
 class _Kernel:
     """The compiled kernel, built at first launch, and its launch counts:
-    `launches` of the eval variant, `train_launches` of the train variant.
+    `launches` of the eval variant, `train_launches` of the train variant,
+    and both by query rows R in `launches_by_rows[("eval" | "train", R)]`.
     Per-shape work (the checks of shapes, the tiling plan, the launch's
     scalars, the shared-memory attribute per device) is done once and
     cached."""
@@ -217,6 +219,7 @@ class _Kernel:
     def __init__(self):
         self.launches = 0
         self.train_launches = 0
+        self.launches_by_rows = collections.Counter()
         self._lib = None
         self._launch_args = {}  # shapes and key-mask strides -> _Launch
         self._smem_set = {}  # device index -> dynamic shared memory allowed
@@ -327,6 +330,7 @@ class _Kernel:
         )
         if err != 0:
             raise RuntimeError(f"implicit attention kernel launch failed: CUDA error {err}")
+        self.launches_by_rows["train" if save_pwr else "eval", args.R] += 1
         if save_pwr:
             self.train_launches += 1
             return out, pwr

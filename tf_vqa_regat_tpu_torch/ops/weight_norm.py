@@ -7,6 +7,12 @@ initialised to the norm of the fresh kernel. Kernels are kept in the JAX
 layout [in, out], so parameters carry across leaf for leaf; a layer built
 with `use_bias=False` has no `b`, as the JAX pytree has none. FCNet puts the
 (train-only) dropout before each dense and the activation after it.
+
+Under a bf16 `dtype` a layer computes as JAX's `wn_dense_apply`: the kernel
+is materialised in f32 and rounded, the input is cast, the product and the
+bias are stored in bf16, or with `out_dtype=torch.float32` (the answer
+logits) the product of the rounded operands comes out unrounded in f32
+(`nn.dot_f32`). The parameters stay f32.
 """
 
 from __future__ import annotations
@@ -16,7 +22,7 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
-from tf_vqa_regat_tpu_torch.nn import dropout, glorot_uniform
+from tf_vqa_regat_tpu_torch.nn import dot_f32, dropout, glorot_uniform
 
 _ACTS = {"relu": torch.relu, None: lambda x: x}
 
@@ -27,23 +33,30 @@ def wn_scale(v: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
 
 
 class WNLinear(nn.Module):
-    """Parameters `v` [in, out], scalar `g` and, with `use_bias`, `b` [out]."""
+    """Parameters `v` [in, out], scalar `g` and, with `use_bias`, `b` [out];
+    matmuls in `dtype`."""
 
     def __init__(
-        self, in_dim: int, out_dim: int, generator: torch.Generator, use_bias: bool = True
+        self, in_dim: int, out_dim: int, generator: torch.Generator, use_bias: bool = True,
+        dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
         v = glorot_uniform((in_dim, out_dim), generator)
         self.v = nn.Parameter(v)
         self.g = nn.Parameter(torch.linalg.vector_norm(v))
         self.b = nn.Parameter(torch.zeros(out_dim)) if use_bias else None
+        self.dtype = dtype
 
-    def kernel(self) -> torch.Tensor:
-        return self.v * wn_scale(self.v, self.g)
+    def kernel(self, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+        return (self.v * wn_scale(self.v, self.g)).to(dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = torch.matmul(x, self.kernel())
-        return y if self.b is None else y + self.b
+    def forward(self, x: torch.Tensor, out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        cd = self.dtype
+        if out_dtype is None or out_dtype == cd:
+            y = torch.matmul(x.to(cd), self.kernel(cd))
+        else:
+            y = dot_f32(x, self.kernel(cd), cd).to(out_dtype)
+        return y if self.b is None else y + self.b.to(y.dtype)
 
 
 class FCNet(nn.Module):
@@ -54,11 +67,11 @@ class FCNet(nn.Module):
     def __init__(
         self, dims: Sequence[int], generator: torch.Generator,
         activation: Optional[str] = "relu", drop_rate: float = 0.0,
-        use_bias: bool = True,
+        use_bias: bool = True, dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
         self.layers = nn.ModuleList(
-            WNLinear(dims[i], dims[i + 1], generator, use_bias)
+            WNLinear(dims[i], dims[i + 1], generator, use_bias, dtype)
             for i in range(len(dims) - 1)
         )
         self.act = _ACTS[activation]

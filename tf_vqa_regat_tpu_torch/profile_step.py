@@ -3,14 +3,16 @@ config (default configs/butd_vqa.json) at its batch size (256), one batch of
 the synthetic train split, traced with torch.profiler.
 
     python -m tf_vqa_regat_tpu_torch.profile_step [--config configs/spatial_vqa.json]
-        [--steps 5] [--trace out.json] [config flags, e.g. --mutan_shared_qdrop]
+        [--steps 5] [--trace out.json] [config flags, e.g. --mutan_shared_qdrop,
+        --compute_dtype bfloat16, --num_rois 36]
 
 Prints, for the traced steps: the step time on the host clock with and
 without the profiler, the device's busy time (sum of kernel times) and idle
 share, kernels launched per step, the shares of B1 (both variants), B2 and
 the GEMMs, the peak device memory, and the kernels that took the most time.
-Flags it does not know go to the config parser after the JSON's values.
-Needs a CUDA device; TF32 is off, as in chip_smoke.py.
+Flags it does not know go to the config parser after the JSON's values
+(e.g. `--compute_dtype bfloat16 --num_rois 36`). Needs a CUDA device; TF32
+is off, as in chip_smoke.py.
 """
 
 from __future__ import annotations
@@ -34,7 +36,8 @@ from tf_vqa_regat_tpu_torch.train.step import train_step
 
 CONFIG = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                       "configs", "butd_vqa.json")
-GEMM = re.compile(r"gemm|xmma|cutlass|gemv", re.IGNORECASE)
+# cuBLAS names its Hopper bf16 GEMMs nvjet_*, its f32 ones *xmma_gemm* / cutlass
+GEMM = re.compile(r"gemm|xmma|cutlass|gemv|nvjet", re.IGNORECASE)
 
 
 def main() -> None:
@@ -57,7 +60,7 @@ def main() -> None:
         ["--config", args.config, "--synthetic", "--mode", "train", *config_flags]
     )
     ds = build_dataset(cfg, "train")
-    store = DeviceStore(ds, device)
+    store = DeviceStore(ds, device, feature_dtype=cfg.feature_dtype)
     idx = next(store.epoch_indices(0, cfg.batch_size, True, cfg.seed))
     batch = gather_batch(store, torch.from_numpy(idx).to(device), cfg.resolved_num_rois())
     model = ReGAT(cfg, ds.ntoken, ds.v_dim, ds.num_ans).to(device)
@@ -90,7 +93,7 @@ def main() -> None:
     gemm = sum(ms for k, (ms, _) in busy.items() if GEMM.search(k))
     print(f"train step b={cfg.batch_size} at the widths of {os.path.basename(args.config)} "
           f"({cfg.relation_type}-{cfg.fusion}{' ' if config_flags else ''}"
-          f"{' '.join(config_flags)}), f32, TF32 off, on {smi}")
+          f"{' '.join(config_flags)}), compute {cfg.compute_dtype}, TF32 off, on {smi}")
     print(f"host ms/step: {plain_ms:.3f} (no profiler), {traced_ms:.3f} (profiled)")
     print(f"device busy ms/step: {total:.3f}; idle share of the profiled step: "
           f"{1 - total / traced_ms:.3f}, of the unprofiled step: {max(0.0, 1 - total / plain_ms):.3f}")

@@ -4,8 +4,9 @@ tf_vqa_regat_tpu/serve.py, replicated store only).
 - Requests are micro-batched to a small set of fixed batch sizes
   (`--serve_batch_sizes`, default 1,8,32); each size runs once at startup,
   which also builds the CUDA kernels, so the first request pays neither.
-- The split's feature tables live on the device (data/store.py); a request
-  ships its 14 token ids and an image index.
+- The split's feature tables live on the device (data/store.py), at
+  --feature_dtype; a request ships its 14 token ids and an image index, and
+  its rows are gathered at `resolved_num_rois()` (36 under fixed-36).
 - Concurrent requests are coalesced for up to `--serve_max_delay_ms` into
   one forward pass at the smallest fixed size that fits.
 
@@ -57,7 +58,7 @@ class InferenceEngine:
         self.ds = ds
         self.device = torch.device(device)
         self.model = model.to(self.device).eval()
-        self.store = ImageStore(ds, self.device)
+        self.store = ImageStore(ds, self.device, cfg.feature_dtype)
         self.num_rois = cfg.resolved_num_rois()
         self.img_index = {
             int(i): int(x)

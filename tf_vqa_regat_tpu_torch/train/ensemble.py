@@ -7,7 +7,9 @@ with `cfg.replace(relation_type=rt)` and loaded from its `.npz` or
 checkpoint directory. At eval time every member runs on the same batch and
 the sigmoid answer probabilities are averaged before the argmax VQA score.
 
-The split's tables are uploaded once and shared. The shared batch carries no
+The split's tables are uploaded once, at --feature_dtype, and shared; the
+batches are the ones eval and predict read (train/loop.py::
+eval_batch_stream), per bucket under --roi_buckets. The shared batch carries no
 edge labels: a semantic member adds the split's semantic label table,
 gathered for the batch, and a spatial member builds its labels from the
 boxes in the step, as it does in training.
@@ -31,6 +33,7 @@ from tf_vqa_regat_tpu_torch.models.regat import ReGAT
 from tf_vqa_regat_tpu_torch.params import load_jax_arrays
 from tf_vqa_regat_tpu_torch.train.checkpoint import load_params
 from tf_vqa_regat_tpu_torch.train.logging import Logger
+from tf_vqa_regat_tpu_torch.train.loop import build_store, eval_batch_stream
 from tf_vqa_regat_tpu_torch.train.loss import vqa_score_sum
 
 Member = Tuple[str, ReGAT]
@@ -101,12 +104,11 @@ def run_ensemble_eval(
 ) -> float:
     """The ensemble's VQA score (%) over the split, in entry order."""
     members = load_members(cfg, val_ds, device, logger)
-    store = DeviceStore(val_ds, device)
-    B, R = cfg.resolved_eval_batch(), cfg.resolved_num_rois()
+    store = build_store(cfg, val_ds, device)
     score = torch.zeros((), device=device)
     n = torch.zeros((), device=device)
     start = time.time()
-    for idx in store.epoch_indices(0, B, shuffle=False, seed=cfg.seed):
+    for R, idx in eval_batch_stream(cfg, store, cfg.resolved_eval_batch()):
         probs, batch = averaged_probs(members, store, torch.from_numpy(idx).to(device), R)
         score += vqa_score_sum(probs, batch["target"], batch["valid"])
         n += batch["valid"].to(torch.float32).sum()

@@ -19,9 +19,15 @@ newest and, from a step checkpoint, skips the epoch's steps already taken
 and restores its accumulators: dropout masks follow (seed, count) and the
 epoch order (seed, epoch), so the resumed run equals the uninterrupted one.
 
+Under --roi_buckets the train epoch is the store's bucketed stream (each
+batch at its bucket's roi count) and its steps are the bucket counts; eval,
+predict and the ensemble read one batch composition, `eval_batch_stream`.
+The feature tables are held at --feature_dtype.
+
 Not ported (ROADMAP Queue A): --grad_accum, the multi-process preemption
-sync and checkpoint barrier (multi-device); --train_block, roi buckets and
-bf16 or int8 tables (main-path runtime); host streaming (real VQA data).
+sync and checkpoint barrier (multi-device); --train_block and --eval_block
+(one step per dispatch, as JAX's --train_block 1); host streaming (real VQA
+data).
 """
 
 from __future__ import annotations
@@ -31,7 +37,8 @@ import os
 import signal
 import threading
 import time
-from typing import Any, Dict, Iterable, Optional, Tuple
+from itertools import islice
+from typing import Any, Dict, Iterable, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -98,14 +105,15 @@ class _PreemptWatcher:
 def _run_signature(cfg: Config, steps_per_epoch: int) -> Dict[str, Any]:
     """Everything the seeded epoch order depends on, with the JAX keys: a
     step checkpoint records it and a mid-epoch resume refuses another. The
-    port has one data path (the device store, one process, no roi buckets)
-    and dispatches one step at a time."""
+    port has one data path (the device store, one process) and dispatches
+    one step at a time; the bucket list is the parsed one, so '100,64' and
+    '64, 100' sign alike."""
     return {
         "batch_size": int(cfg.batch_size),
         "seed": int(cfg.seed),
         "steps_per_epoch": int(steps_per_epoch),
         "order": int(ORDER_VERSION),
-        "roi_buckets": [],
+        "roi_buckets": list(cfg.parsed_roi_buckets() or []),
         "data_mode": "device",
         "dp": 1,
         "train_block": 1,  # one optimizer step per dispatch (JAX: --train_block 1)
@@ -185,26 +193,84 @@ def _log_progress(logger, acc: Metrics, last: torch.Tensor, epoch, i, N, start) 
 
 
 def _batches(
-    store: DeviceStore, indices: Iterable[np.ndarray], num_rois: int, device: torch.device
+    store: DeviceStore, indices: Iterable[Tuple[int, np.ndarray]], device: torch.device
 ):
-    for idx in indices:
-        yield gather_batch(store, torch.from_numpy(idx).to(device), num_rois)
+    for R, idx in indices:
+        yield gather_batch(store, torch.from_numpy(idx).to(device), R)
+
+
+def build_store(
+    cfg: Config, ds: SyntheticDataset, device: torch.device, targets: bool = True
+) -> DeviceStore:
+    """The split's device store at --feature_dtype; under --roi_buckets,
+    prints the JAX package's clamp warning when an image has more boxes
+    than the largest bucket."""
+    store = DeviceStore(ds, device, targets, cfg.feature_dtype)
+    buckets = cfg.parsed_roi_buckets()
+    if buckets and store.num_entries:
+        max_boxes = int(store.entry_nbox.max())
+        if max_boxes > max(buckets):
+            print(
+                f"[roi_buckets] images with up to {max_boxes} boxes "
+                f"truncate to the largest bucket ({max(buckets)}) "
+                f"— same clamp as --num_rois {max(buckets)}"
+            )
+    return store
+
+
+def steps_per_epoch(cfg: Config, store: DeviceStore, batch_size: int) -> int:
+    """Batches of one pass over the store at `batch_size`: the bucket counts
+    under --roi_buckets."""
+    buckets = cfg.parsed_roi_buckets()
+    if buckets:
+        return store.bucketed_steps_per_epoch(batch_size, buckets)
+    return store.steps_per_epoch(batch_size)
+
+
+def train_batch_stream(
+    cfg: Config, store: DeviceStore, epoch: int, skip: int = 0
+) -> Iterator[Tuple[int, np.ndarray]]:
+    """The epoch's shuffled (R, idx) train batches past the first `skip`
+    (a mid-epoch resume): the bucketed stream under --roi_buckets, else the
+    epoch permutation at the one static roi count."""
+    buckets = cfg.parsed_roi_buckets()
+    if buckets:
+        it = store.epoch_indices_bucketed(epoch, cfg.batch_size, buckets, True, cfg.seed)
+    else:
+        R0 = cfg.resolved_num_rois()
+        it = ((R0, idx) for idx in store.epoch_indices(epoch, cfg.batch_size, True, cfg.seed))
+    return islice(it, skip, None)
+
+
+def eval_batch_stream(
+    cfg: Config, store: DeviceStore, eval_batch: int
+) -> Iterator[Tuple[int, np.ndarray]]:
+    """The one eval batch composition, which eval, predict and the ensemble
+    all read, so they cannot disagree on which entries a batch holds: the
+    in-order (R, idx) stream, per bucket under --roi_buckets (JAX
+    loop.py::eval_batch_stream)."""
+    buckets = cfg.parsed_roi_buckets()
+    if buckets:
+        return store.epoch_indices_bucketed(0, eval_batch, buckets, False, cfg.seed)
+    R0 = cfg.resolved_num_rois()
+    return ((R0, idx) for idx in store.epoch_indices(0, eval_batch, False, cfg.seed))
 
 
 def _run_eval(
     model: ReGAT, store: DeviceStore, cfg: Config, epoch: int, logger: Logger,
     device: torch.device,
 ) -> Tuple[float, float, float]:
-    """One pass over the split in entry order -> (score %, mean loss, s)."""
+    """One pass over the split in entry order (per bucket under
+    --roi_buckets) -> (score %, mean loss, s)."""
     B = cfg.resolved_eval_batch()
-    N = store.steps_per_epoch(B)
+    N = steps_per_epoch(cfg, store, B)
     logger.write("[DEBUG] Evaluation Start")
     logger.write(f"[DEBUG] total eval data len: {store.num_entries}")
     logger.write(f"[DEBUG] eval data loader len: {N}")
     acc = _zeros(device)
     start = time.time()
-    indices = store.epoch_indices(0, B, shuffle=False, seed=cfg.seed)
-    for i, batch in enumerate(_batches(store, indices, cfg.resolved_num_rois(), device)):
+    indices = eval_batch_stream(cfg, store, B)
+    for i, batch in enumerate(_batches(store, indices, device)):
         m = eval_step(model, batch)
         _accumulate(acc, m)
         if cfg.print_freq > 0 and (i + 1) % cfg.print_freq == 0:
@@ -226,10 +292,9 @@ def run_training(
     after each, or from the newest checkpoint under --resume. Returns
     (model, best eval score %); raises `Preempted` after a preemption save."""
     model.to(device)
-    train_store = DeviceStore(train_ds, device)
-    eval_store = DeviceStore(val_ds, device)
-    R = cfg.resolved_num_rois()
-    N = train_store.steps_per_epoch(cfg.batch_size)
+    train_store = build_store(cfg, train_ds, device)
+    eval_store = DeviceStore(val_ds, device, feature_dtype=cfg.feature_dtype)
+    N = steps_per_epoch(cfg, train_store, cfg.batch_size)
     lr_fn = make_lr_schedule(cfg.base_lr, N, cfg.lr_decay_rate, cfg.lr_decay_step)
     opt = Adamax(model, trainable_mask(model, emb2_trainable), lr_fn, cfg.grad_clip)
 
@@ -276,10 +341,8 @@ def run_training(
                     }
                     n_restored = float(acc_resume.get("n", 0.0))
                 start = time.time()
-                indices = list(
-                    train_store.epoch_indices(epoch, cfg.batch_size, True, cfg.seed)
-                )[skip:]
-                for i, batch in enumerate(_batches(train_store, indices, R, device), skip):
+                indices = train_batch_stream(cfg, train_store, epoch, skip)
+                for i, batch in enumerate(_batches(train_store, indices, device), skip):
                     m = train_step(model, opt, batch, opt.count, cfg.seed)
                     _accumulate(acc, m)
                     if cfg.print_freq > 0 and (i + 1) % cfg.print_freq == 0:
@@ -360,7 +423,7 @@ def run_evaluation(
 ) -> Tuple[float, float, float]:
     """`--mode eval`: one eval pass over the split -> (score %, mean loss, s)."""
     model.to(device)
-    return _run_eval(model, DeviceStore(val_ds, device), cfg, 0, logger, device)
+    return _run_eval(model, build_store(cfg, val_ds, device), cfg, 0, logger, device)
 
 
 def run_prediction(
@@ -373,15 +436,14 @@ def run_prediction(
     soft targets, so an answerless split works; raises if an entry is
     missed."""
     model.to(device).eval()
-    store = DeviceStore(ds, device, targets=False)
-    B, R = cfg.resolved_eval_batch(), cfg.resolved_num_rois()
+    store = build_store(cfg, ds, device, targets=False)
     qids = ds.entries.question_ids
     # -1-filled: a coverage gap fails the label2ans lookup, never writes garbage
     answers = np.full(len(qids), -1, dtype=np.int64)
     seen = np.zeros(len(qids), bool)
     pending = []  # (host index batch, device labels), fetched once at the end
     with torch.no_grad():
-        for idx in store.epoch_indices(0, B, shuffle=False, seed=cfg.seed):
+        for R, idx in eval_batch_stream(cfg, store, cfg.resolved_eval_batch()):
             batch = gather_batch(store, torch.from_numpy(idx).to(device), R)
             pending.append((idx, model(batch).argmax(dim=-1)))
     for idx, labels in pending:
