@@ -110,8 +110,31 @@ Phases, each of which fails the run (non-zero exit, no result line):
      batches) as the store counts them, the median step time per bucket;
  18. configs/butd_vqa_fixed36.json at b=256: train (1 epoch), eval, serve at
      b = 1, 8, 32 and predict, all at R=36 (the checks of 8-10 and 12),
-     with f32 and then int8 feature tables.
-Counts of launches are set to 0 just before each path of 8-13 and 17-18
+     with f32 and then int8 feature tables;
+ 19. real-layout data: a full-width dataset in the reference's on-disk
+     layout, its feature files in the converted form, written with numpy
+     (`data/synthetic.py::write_dataset`, `write_cp_vg`: train 4,096
+     questions over 1,024 images, val 1,024 over 256, test2015 512 over
+     128, 10-100 boxes of 2048-d features, 3,129 answers, semantic tables
+     and `image_adj_matrix` spatial labels, 1,024 VQA-CP questions per
+     split, the Visual Genome files; write time and bytes printed), then
+     through the entry point without --synthetic, each with the checks of
+     8-10 and 12 (finite losses, the eval loss equal to the run's last, 2
+     launches per forward pass): configs/butd_vqa.json train (its --tfidf:
+     the dictionary grows, and each word table moves from its GloVe init
+     exactly when trainable_mask trains it, `emb_` included), eval, predict
+     on the answerless test2015 and HTTP serve on real image ids and an
+     unknown one; spatial_vqa.json and semantic_vqa.json train and eval
+     through B2, every train batch carrying the file's labels, and one
+     b=256 gather of each equal bit for bit to numpy's rows of the
+     converted files (features, boxes, `image_adj_matrix` or
+     `semantic_adj_matrix`); `--use_both --use_vg` train (train + val + the
+     6 VG pairs); mutan_vqa_cp.json (`--dataset vqa_cp`) train and eval;
+     `--mmap_features --feature_dtype bfloat16 --packed_cache DIR` train and
+     eval twice, the second run a cache hit (no conversion, the cache files
+     untouched), with a bf16 gather held to numpy's rounding; the seconds
+     of every store build, with and without the cache.
+Counts of launches are set to 0 just before each path of 8-13 and 17-19
 runs and read just after it; the comparison launches of 3-7 and 14-16 and
 of the plain-path comparisons do not count. Each phase prints its wall
 time. Phases 8-13 run at the configs' full widths and depths, as before.
@@ -311,8 +334,11 @@ def rows_counts() -> dict:
     return out
 
 
-# the launches by (kernel, R) of every path of 8-18 that records them
+# the launches by (kernel, R) of every path of 8-19 that records them
 PATH_ROWS = []
+# the split sizes of check_entry_point's last training run, and its train
+# batches that carried edge labels
+LAST_TRAIN = {}
 
 
 def read_path_counts() -> dict:
@@ -1014,51 +1040,63 @@ def expected_launches(family, passes, train_passes=0):
     return want
 
 
-def check_entry_point(tmp, smi, family, extra=(), config=None):
+def check_entry_point(tmp, smi, family, extra=(), config=None, data=None, falling=True):
     """`--mode train` then `--mode eval` through `main.main`, at the widths
-    of the family's config (or `config`). Returns (npz path, launches of the
-    train run, median step ms)."""
+    of the family's config (or `config`), on the synthetic data or the
+    dataset in `data`: finite losses, falling (with `falling`) from the
+    first step to the last, the eval loss equal to the run's last, 2
+    launches per forward pass. Returns (npz path, launches of the train run,
+    median step ms); LAST_TRAIN holds the run's split sizes and how many
+    train batches carried edge labels."""
     import torch
 
     from tf_vqa_regat_tpu_torch import main as port_main
     from tf_vqa_regat_tpu_torch.train import loop
 
-    argv = entry_argv(family, tmp, "--print_freq", "4", *extra, config=config)
-    label = " ".join([config or family, *extra])
+    argv = entry_argv(family, tmp, "--print_freq", "4", *extra, config=config, data=data)
+    label = " ".join([config or family, *extra] + (["(real layout)"] if data else []))
     real_step, records = loop.train_step, []
+    real_run, sizes = port_main.run_training, {}
 
-    def timed_step(*args, **kw):
+    def timed_step(model, opt, batch, *args, **kw):
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
         ev[0].record()
-        m = real_step(*args, **kw)
+        m = real_step(model, opt, batch, *args, **kw)
         ev[1].record()
-        records.append((ev, m["loss"]))
+        records.append((ev, m["loss"], "adj_label" in batch))
         return m
 
-    loop.train_step = timed_step
+    def sized_run(cfg, train_ds, val_ds, *args, **kw):
+        sizes.update(train=len(train_ds), val=len(val_ds), train_name=train_ds.name,
+                     val_name=val_ds.name)
+        return real_run(cfg, train_ds, val_ds, *args, **kw)
+
+    loop.train_step, port_main.run_training = timed_step, sized_run
     reset_counts()  # the train path starts here
     t0 = time.perf_counter()
     try:
         path = port_main.main(argv + ["--mode", "train", "--epochs", "1"])
     finally:
-        loop.train_step = real_step
+        loop.train_step, port_main.run_training = real_step, real_run
     wall = time.perf_counter() - t0
     launches = read_path_counts()
     torch.cuda.synchronize()
-    step_ms = [ev[0].elapsed_time(ev[1]) for ev, _ in records]
-    losses = [float(loss) for _, loss in records]
+    step_ms = [ev[0].elapsed_time(ev[1]) for ev, _, _ in records]
+    losses = [float(loss) for _, loss, _ in records]
+    LAST_TRAIN.clear()
+    LAST_TRAIN.update(sizes, steps=len(records), adj_batches=sum(adj for _, _, adj in records))
     with open(os.path.join(tmp, "metrics.jsonl")) as fh:
         last = [json.loads(line) for line in fh][-1]
     print(f"{label} --mode train: {len(losses)} steps in {wall:.1f} s (run, set-up "
           f"included); median step {statistics.median(step_ms)} ms (CUDA events) on {smi}, "
-          f"TF32 off; losses {losses}; launches {json.dumps(launches)}; last metrics "
-          f"{json.dumps(last)}", flush=True)
-    cfg = full_width_config(family, extra, config)
-    if len(losses) != -(-cfg.synthetic_train_size // cfg.batch_size):
-        fail(f"{label} --mode train took {len(losses)} steps")
-    if not all(map(math.isfinite, losses)) or not losses[-1] < losses[0]:
+          f"TF32 off; losses {losses}; launches {json.dumps(launches)}; splits "
+          f"{json.dumps(LAST_TRAIN)}; last metrics {json.dumps(last)}", flush=True)
+    cfg = port_main.parse(argv + ["--mode", "train"])[0]
+    if len(losses) != -(-sizes["train"] // cfg.batch_size):
+        fail(f"{label} --mode train took {len(losses)} steps for {sizes['train']} questions")
+    if not all(map(math.isfinite, losses)) or (falling and not losses[-1] < losses[0]):
         fail(f"{label} --mode train: loss not finite or not falling: {losses}")
-    eval_passes = -(-cfg.synthetic_val_size // cfg.resolved_eval_batch())
+    eval_passes = -(-sizes["val"] // cfg.resolved_eval_batch())
     if launches != expected_launches(family, eval_passes, len(losses)):
         fail(f"{label} --mode train: launches {launches} for {len(losses)} train and "
              f"{eval_passes} eval forward passes")
@@ -1087,19 +1125,20 @@ def http(url, body=None):
         return e.code, json.loads(e.read())
 
 
-def check_serve(ckpt, family, extra=(), config=None):
+def check_serve(ckpt, family, extra=(), config=None, data=None):
     """--mode serve of `ckpt` at the widths of the family's config (or
-    `config`), with the flags `extra`. Returns (launches, forward passes,
-    logits max abs diff)."""
+    `config`), with the flags `extra`, on the synthetic val split or the
+    dataset in `data`. Returns (launches, forward passes, logits max abs
+    diff)."""
     import torch
 
     from tf_vqa_regat_tpu_torch.config import parse_with_config
-    from tf_vqa_regat_tpu_torch.main import build_dataset, build_server
+    from tf_vqa_regat_tpu_torch.main import build_datasets, build_server
 
     argv = ["--config", os.path.join(REPO, "configs", config or CONFIGS[family]), "--mode",
-            "serve", "--synthetic", "--serve_port", "0", *extra]
+            "serve", *data_flags(data), "--serve_port", "0", *extra]
     cfg = parse_with_config(argv)
-    ds = build_dataset(cfg)
+    ds = build_datasets(cfg)[1]
     label = " ".join([config or family, *extra])
     t0 = time.perf_counter()
     server, batcher, engine = build_server(argv + ["--checkpoint", ckpt, "--device", "cuda"])
@@ -1187,10 +1226,15 @@ def check_serve(ckpt, family, extra=(), config=None):
     return launches, passes, logits_err
 
 
-def entry_argv(family, tmp, *extra, config=None):
+def data_flags(data=None):
+    """The synthetic data, or the dataset under the folder `data`."""
+    return ["--synthetic"] if data is None else ["--data_folder", data]
+
+
+def entry_argv(family, tmp, *extra, config=None, data=None):
     """`main.main`'s arguments for the family's config on the card."""
-    return ["--config", os.path.join(REPO, "configs", config or CONFIGS[family]), "--synthetic",
-            "--output", tmp, "--device", "cuda", *extra]
+    return ["--config", os.path.join(REPO, "configs", config or CONFIGS[family]),
+            *data_flags(data), "--output", tmp, "--device", "cuda", *extra]
 
 
 @contextlib.contextmanager
@@ -1362,16 +1406,17 @@ def batch_passes(store, cfg, device):
         yield idx, gather_batch(store, torch.from_numpy(idx).to(device), R)
 
 
-def check_predict(tmp, smi, family, npz, device, extra=(), config=None):
+def check_predict(tmp, smi, family, npz, device, extra=(), config=None, data=None):
     """Phase 12 for one family (with the flags `extra`, under the family's
-    config or `config`). Returns the launches of the predict path."""
+    config or `config`, on the synthetic data or the dataset in `data`).
+    Returns the launches of the predict path."""
     import torch
 
     from tf_vqa_regat_tpu_torch import main as port_main
     from tf_vqa_regat_tpu_torch.train import loop
 
     argv = entry_argv(family, tmp, "--mode", "predict", "--checkpoint", npz, *extra,
-                      config=config)
+                      config=config, data=data)
     real, timed = loop.run_prediction, []
     label = " ".join([config or family, *extra])
 
@@ -1393,7 +1438,7 @@ def check_predict(tmp, smi, family, npz, device, extra=(), config=None):
     with open(path) as fh:
         got = json.load(fh)
     cfg = port_main.parse(argv)[0]
-    ds = port_main.build_dataset(cfg)
+    ds = port_main.build_datasets(cfg)[1]
     passes = -(-len(ds.entries.question_ids) // cfg.resolved_eval_batch())
     qids = [d["question_id"] for d in got]
     if sorted(qids) != sorted(ds.entries.question_ids.tolist()) or len(set(qids)) != len(qids):
@@ -1446,7 +1491,11 @@ def check_ensemble(tmp, smi, npz, device):
 
     from tf_vqa_regat_tpu_torch import main as port_main
     from tf_vqa_regat_tpu_torch.data.store import DeviceStore
-    from tf_vqa_regat_tpu_torch.train.ensemble import averaged_probs, load_members
+    from tf_vqa_regat_tpu_torch.train.ensemble import (
+        averaged_probs,
+        load_members,
+        member_adj_tables,
+    )
     from tf_vqa_regat_tpu_torch.train.logging import Logger
     from tf_vqa_regat_tpu_torch.train.loss import vqa_score_sum
 
@@ -1480,14 +1529,15 @@ def check_ensemble(tmp, smi, npz, device):
 
     members = load_members(cfg, ds, device, Logger(os.path.join(out, "compare_log.txt")))
     store = DeviceStore(ds, device)
+    tables = member_adj_tables(members, ds, device)
     R = cfg.resolved_num_rois()
     diff, ties, moved, slack, n = 0.0, 0, 0, 0.0, 0.0
     score_k = score_p = torch.zeros((), device=device)
     for idx in store.epoch_indices(0, cfg.resolved_eval_batch(), False, cfg.seed):
         idx = torch.from_numpy(idx).to(device)
-        got, batch = averaged_probs(members, store, idx, R)
+        got, batch = averaged_probs(members, store, idx, R, tables)
         with plain_kernels():
-            want_p, _ = averaged_probs(members, store, idx, R)
+            want_p, _ = averaged_probs(members, store, idx, R, tables)
         valid = batch["valid"]
         diff = max(diff, (got - want_p)[valid].abs().max().item())
         top2 = want_p.topk(2, dim=-1)
@@ -1504,7 +1554,7 @@ def check_ensemble(tmp, smi, npz, device):
 
     def ensemble_pass():
         for idx in store.epoch_indices(0, cfg.resolved_eval_batch(), False, cfg.seed):
-            averaged_probs(members, store, torch.from_numpy(idx).to(device), R)
+            averaged_probs(members, store, torch.from_numpy(idx).to(device), R, tables)
 
     pass_ms = median_ms_interleaved([ensemble_pass], reps=5, calls=1, warmup=1)[0]
     print(f"ensemble {list(spec.split(','))}: score {score} (kernel path recomputed "
@@ -1659,10 +1709,11 @@ def check_tables(device):
         idx = next(store.epoch_indices(0, cfg.batch_size, True, cfg.seed))
         got = gather_batch(store, torch.from_numpy(idx).to(device), R)["features"].cpu().numpy()
         img = ds.entries.image_index[idx]
-        n_box = np.minimum(ds.pos_boxes[img, 1] - ds.pos_boxes[img, 0], R)
-        rows = np.clip(ds.pos_boxes[img, 0][:, None] + np.arange(R), 0, len(ds.features) - 1)
+        pos = ds.store.pos_boxes
+        n_box = np.minimum(pos[img, 1] - pos[img, 0], R)
+        rows = np.clip(pos[img, 0][:, None] + np.arange(R), 0, len(ds.store.features) - 1)
         ok = (np.arange(R)[None, :] < n_box[:, None])[..., None]
-        f = ds.features[rows]
+        f = ds.store.features[rows]
         if dtype == "bfloat16":
             want = np.where(ok, bf16_round(f), 0.0).astype(np.float32)
         elif dtype == "int8":
@@ -1679,7 +1730,7 @@ def check_tables(device):
             fail(f"{dtype} table: the gathered features differ from numpy's")
         del store
     print(f"synthetic train split ({len(ds.entries.question_ids)} questions, "
-          f"{len(ds.features)} rois) image-table bytes {json.dumps(sizes)}", flush=True)
+          f"{len(ds.store.features)} rois) image-table bytes {json.dumps(sizes)}", flush=True)
     return sizes
 
 
@@ -1853,6 +1904,206 @@ def check_fixed36(tmp_root, smi, device):
     return launches
 
 
+# Phase 19's dataset: the reference layout at full width (2048-d features,
+# 3,129 answers, 10-100 boxes per image), the feature files converted.
+REAL_SPLITS = {
+    "train": dict(num_images=1024, num_questions=4096, seed=0, semantic=True, spatial_seed=10),
+    "val": dict(num_images=256, num_questions=1024, seed=1, semantic=True, spatial_seed=11,
+                first_image_id=100000, first_question_id=100000),
+    "test2015": dict(num_images=128, num_questions=512, seed=2, first_image_id=200000,
+                     first_question_id=200000),
+}
+REAL_CP_QUESTIONS = 1024
+MMAP_FLAGS = ("--mmap_features", "--feature_dtype", "bfloat16", "--packed_cache")
+
+
+def write_real_dataset(root, smi):
+    """Phase 19's dataset under `root`: train and val, the VQA-CP and Visual
+    Genome files, then test2015 (whose questions replace the five that
+    write_cp_vg writes for the TF-IDF pass). Returns its bytes on disk."""
+    from tf_vqa_regat_tpu_torch.data.synthetic import write_cp_vg, write_dataset
+
+    t0 = time.perf_counter()
+    for name in ("train", "val"):
+        write_dataset(root, name=name, v_dim=2048, num_ans=3129, box_range=(10, 101),
+                      **REAL_SPLITS[name])
+    write_cp_vg(root, num_cp_questions=REAL_CP_QUESTIONS)
+    write_dataset(root, name="test2015", v_dim=2048, num_ans=3129, box_range=(10, 101),
+                  **REAL_SPLITS["test2015"])
+    size = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(root) for f in fs)
+    print(f"real-layout dataset written with numpy in {time.perf_counter() - t0:.1f} s "
+          f"(host clock, on the host of the {smi}): "
+          f"{size} bytes ({json.dumps({k: v['num_questions'] for k, v in REAL_SPLITS.items()})} "
+          f"questions, {REAL_CP_QUESTIONS} per VQA-CP split)", flush=True)
+    return size
+
+
+@contextlib.contextmanager
+def recorded_stores():
+    """Each image-table build of a DeviceStore: (split, feature dtype,
+    seconds to the table on the card, conversions run). A packed-cache hit
+    runs no conversion."""
+    import torch
+
+    from tf_vqa_regat_tpu_torch.data import store as store_mod
+
+    real_build, real_convert, builds, converted = (
+        store_mod.image_store, store_mod.converted_chunks, [], [0])
+
+    def convert(*args, **kw):
+        converted[0] += 1
+        return real_convert(*args, **kw)
+
+    def build(ds, device, feature_dtype="float32", *args, **kw):
+        before = converted[0]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        images = real_build(ds, device, feature_dtype, *args, **kw)
+        torch.cuda.synchronize()
+        builds.append((ds.name, feature_dtype, time.perf_counter() - t0, converted[0] - before))
+        return images
+
+    store_mod.image_store, store_mod.converted_chunks = build, convert
+    try:
+        yield builds
+    finally:
+        store_mod.image_store, store_mod.converted_chunks = real_build, real_convert
+
+
+def check_real_gather(root, device, family, extra=()):
+    """One b=256 batch gathered at R=100 from the train split's store (the
+    family's config, the flags `extra`) equals numpy's rows of the converted
+    files bit for bit: features (bf16-rounded under --feature_dtype
+    bfloat16), boxes, and the edge labels the batch carries (the file's
+    `image_adj_matrix` for spatial, `semantic_adj_matrix` for semantic)."""
+    import numpy as np
+    import torch
+
+    from tf_vqa_regat_tpu_torch import main as port_main
+    from tf_vqa_regat_tpu_torch.data.store import gather_batch
+    from tf_vqa_regat_tpu_torch.train import loop
+
+    cfg = port_main.parse(entry_argv(family, root, "--mode", "train", *extra, data=root))[0]
+    train = port_main.build_datasets(cfg)[0]
+    store = loop.build_store(cfg, train, device)
+    idx = next(store.epoch_indices(0, cfg.batch_size, True, cfg.seed))
+    got = gather_batch(store, torch.from_numpy(idx).to(device), 100)
+    d = os.path.join(root, "Bottom-up-features-adaptive", "train")
+    table = {k: np.load(os.path.join(d, k + ".npy"), mmap_mode="r")
+             for k in ("image_features", "spatial_features", "image_bb", "pos_boxes")}
+    img = train.entries.image_index[idx]
+    pos = table["pos_boxes"]
+    n_box = np.minimum(pos[img, 1] - pos[img, 0], 100)
+    rows = np.clip(pos[img, 0][:, None] + np.arange(100), 0, len(table["image_features"]) - 1)
+    ok = (np.arange(100)[None, :] < n_box[:, None])[..., None]
+
+    def rows_of(key, widen=lambda x: x):
+        return np.where(ok, widen(np.asarray(table[key][rows.reshape(-1)]).reshape(
+            *rows.shape, -1)), 0.0).astype(np.float32)
+
+    want = {"features": rows_of("image_features", bf16_round if cfg.feature_dtype == "bfloat16"
+                                else (lambda x: x)),
+            "norm_bb": rows_of("spatial_features"), "bb": rows_of("image_bb")}
+    adj_key = {"spatial": "image_adj_matrix", "semantic": "semantic_adj_matrix"}.get(
+        cfg.relation_type)
+    if adj_key:
+        want["adj_label"] = np.load(os.path.join(d, adj_key + ".npy"))[img].astype(np.int32)
+    same = {k: bool(np.array_equal(got[k].cpu().numpy().view(np.uint32), w.view(np.uint32)))
+            for k, w in want.items()}
+    print(f"{CONFIGS[family]} {' '.join(extra)} real-layout gather, b={len(idx)} at R=100 "
+          f"({cfg.feature_dtype} table): equal to numpy's rows of the converted files bit for "
+          f"bit {json.dumps(same)}; batch keys {sorted(got)}", flush=True)
+    if not all(same.values()) or (adj_key is None) == ("adj_label" in got):
+        fail(f"{family} real-layout gather differs from the converted files: {same}")
+
+
+def check_realdata(tmp_root, smi, device):
+    """Phase 19: the entry point on a full-width dataset in the reference
+    layout (no --synthetic). Returns the launches of its paths."""
+    import numpy as np
+
+    from tf_vqa_regat_tpu_torch.data.dictionary import Dictionary
+    from tf_vqa_regat_tpu_torch.data.glove import tfidf_from_questions
+    from tf_vqa_regat_tpu_torch.models.regat import ReGAT, trainable_mask
+    from tf_vqa_regat_tpu_torch.params import load_npz
+
+    root = os.path.join(tmp_root, "real")
+    write_real_dataset(root, smi)
+    launches = []
+    with recorded_stores() as builds:
+        # butd_vqa.json (tfidf: true): train, eval, predict on test2015, serve
+        tmp = os.path.join(tmp_root, "real_implicit")
+        npz, train_launches, _ = check_entry_point(tmp, smi, "implicit", data=root)
+        launches.append(train_launches)
+        glove = np.load(os.path.join(root, "glove", "glove6b_init_300d.npy"))
+        pad = np.zeros((1, glove.shape[1]), np.float32)
+        d = Dictionary.load_from_file(os.path.join(root, "glove", "dictionary.pkl"))
+        ntoken = d.ntoken
+        tfidf, weights = tfidf_from_questions(["train", "val", "test2015"], d, root)
+        init = {"w_emb/emb/table": np.concatenate([glove, pad]),
+                "w_emb/emb_/table": np.concatenate(
+                    [np.asarray(tfidf @ np.concatenate([glove, weights]), np.float32), pad])}
+        cfg = full_width_config("implicit")
+        mask = trainable_mask(ReGAT(cfg, ntoken, 2048, 3129), True)
+        final = load_npz(npz)
+        moved = {k: not np.array_equal(final[k], v) for k, v in init.items()}
+        trainable = {k: mask[k.replace("/", ".")] for k in init}
+        print(f"--tfidf: dictionary {ntoken} -> {d.ntoken} words; the word tables moved from "
+              f"their GloVe init: {json.dumps(moved)}; trainable: {json.dumps(trainable)}",
+              flush=True)
+        if moved != trainable or not trainable["w_emb/emb_/table"]:
+            fail(f"--tfidf: emb_ must train and each table move iff trainable: {moved}")
+        launches.append(check_predict(tmp, smi, "implicit", npz, device, data=root))
+        launches.append(check_serve(npz, "implicit", data=root)[0])
+        shutil.rmtree(os.path.join(tmp, "checkpoints"))
+        # spatial and semantic through B2, with the file's edge labels
+        for family in ("spatial", "semantic"):
+            tmp = os.path.join(tmp_root, "real_" + family)
+            _, train_launches, _ = check_entry_point(tmp, smi, family, data=root)
+            launches.append(train_launches)
+            if LAST_TRAIN["adj_batches"] != LAST_TRAIN["steps"]:
+                fail(f"{family}: {LAST_TRAIN['adj_batches']} of {LAST_TRAIN['steps']} train "
+                     f"batches carried the file's edge labels")
+            check_real_gather(root, device, family)
+            shutil.rmtree(os.path.join(tmp, "checkpoints"))
+        # the compositions
+        tmp = os.path.join(tmp_root, "real_both_vg")
+        _, train_launches, _ = check_entry_point(tmp, smi, "implicit", ("--use_both", "--use_vg"),
+                                                 data=root)
+        launches.append(train_launches)
+        want = REAL_SPLITS["train"]["num_questions"] + REAL_SPLITS["val"]["num_questions"] + 6
+        if (LAST_TRAIN["train"], LAST_TRAIN["train_name"]) != (want, "trainval+vg"):
+            fail(f"--use_both --use_vg trained on {LAST_TRAIN}, expected {want} questions")
+        tmp = os.path.join(tmp_root, "real_mutan_cp")
+        _, train_launches, _ = check_entry_point(tmp, smi, "mutan", data=root, falling=False)
+        launches.append(train_launches)
+        if (LAST_TRAIN["train"], LAST_TRAIN["val_name"]) != (REAL_CP_QUESTIONS, "cp_test"):
+            fail(f"vqa_cp trained on {LAST_TRAIN}")
+        first = len(builds)
+        # --mmap_features, bf16 tables through a packed cache, twice
+        cache = os.path.join(tmp_root, "packed_cache")
+        for run in ("miss", "hit"):
+            n0 = len(builds)
+            tmp = os.path.join(tmp_root, f"real_mmap_{run}")
+            _, train_launches, _ = check_entry_point(tmp, smi, "implicit", (*MMAP_FLAGS, cache),
+                                                     data=root)
+            launches.append(train_launches)
+            runs = builds[n0:]
+            stamp = {f: os.path.getmtime(os.path.join(cache, f)) for f in os.listdir(cache)}
+            if run == "miss":
+                stamps = stamp
+            print(f"{' '.join(MMAP_FLAGS)} DIR, {run} run: store builds (split, dtype, s to the "
+                  f"card, conversions) {json.dumps(runs)} on {smi}; cache files {sorted(stamp)}",
+                  flush=True)
+            converted = sum(c for *_, c in runs)
+            if (run == "hit") == bool(converted) or (run == "hit" and stamp != stamps):
+                fail(f"packed cache {run} run converted {converted} tables; files {stamp}")
+        check_real_gather(root, device, "implicit", (*MMAP_FLAGS, cache))
+        print(f"store builds (split, dtype, s to the card, conversions), without a packed "
+              f"cache, on {smi}: {json.dumps(builds[:first])}", flush=True)
+    return launches
+
+
 def build_kernels():
     """Build every CUDA source of the port, one nvcc each, all at once."""
     from tf_vqa_regat_tpu_torch.ops.kernels import build
@@ -1973,6 +2224,9 @@ def main() -> None:
         with phase("18, fixed-36"):
             launches += check_fixed36(tmp_root, smi_line, device)
         torch.cuda.empty_cache()
+        with phase("19, real-layout data"):
+            launches += check_realdata(tmp_root, smi_line, device)
+        torch.cuda.empty_cache()
 
     if any(m.split(".")[0] in ("jax", "jaxlib", "tf_vqa_regat_tpu") for m in sys.modules):
         fail("JAX or the JAX package was imported")
@@ -1983,15 +2237,15 @@ def main() -> None:
     big = next(r for r in rows if r["b"] == 32)
     train_big, graph_big = train_rows[-1], graph_rows[-1]
     bound_keys = ("bound_ms", "bound_by")
-    def total(kernel):  # over every path of 8-18, all R
+    def total(kernel):  # over every path of 8-19, all R
         return sum(run[kernel] for run in launches)
 
-    def at_rows(kernel, R):  # over every path of 8-18, at R
+    def at_rows(kernel, R):  # over every path of 8-19, at R
         return sum(run.get((kernel, R), 0) for run in PATH_ROWS)
 
     def rows_entries(R):
         """B1's two variants and B2 at R (14's rows: B1 eval at b=32, the
-        others at b=256); launches at R over the paths of 8-18."""
+        others at b=256); launches at R over the paths of 8-19."""
         by_b = {r["b"]: r for r in rows_at[R]}
         small, big = by_b[32], by_b[256]
         return [{

@@ -36,6 +36,7 @@ from tf_vqa_regat_tpu_torch.params import flatten_tree
 from tf_vqa_regat_tpu_torch.train.ensemble import (
     averaged_probs,
     load_members,
+    member_adj_tables,
     parse_members,
     run_ensemble_eval,
 )
@@ -105,9 +106,10 @@ def test_score_equals_jax_run_ensemble_eval(tmp_path, members, rts, capsys):
     # ties: bound what they may move, and hold the rest equal
     store = DeviceStore(ds, CPU)
     loaded = load_members(cfg, ds, CPU, logger)
+    tables = member_adj_tables(loaded, ds, CPU)
     slack, ties = 0.0, 0
     for idx in store.epoch_indices(0, 16, False, cfg.seed):
-        probs, batch = averaged_probs(loaded, store, torch.from_numpy(idx).long(), 40)
+        probs, batch = averaged_probs(loaded, store, torch.from_numpy(idx).long(), 40, tables)
         top2 = probs.topk(2, dim=-1)
         tied = ((top2.values[:, 0] - top2.values[:, 1]) <= TIE_ATOL) & batch["valid"]
         t = batch["target"].gather(1, top2.indices)
@@ -150,11 +152,12 @@ def test_entry_point_draws_the_split_with_the_semantic_table(tmp_path, capsys):
     spec = ["--ensemble_checkpoints", ",".join(f"{rt}:{p}" for rt, p in paths.items())]
     ds = build_dataset(parse_with_config(argv + spec))
     _, ref, _, _ = jax_main.build_datasets(jax_parse_with_config(argv + spec))
-    assert ds.semantic_adj is not None and np.array_equal(ds.semantic_adj, ref.store.semantic_adj)
+    assert ds.store.semantic_adj is not None and np.array_equal(ds.store.semantic_adj,
+                                                               ref.store.semantic_adj)
     assert np.array_equal(ds.entries.labels, ref.entries.labels)
     plain = build_dataset(parse_with_config(
         argv + ["--ensemble_checkpoints", f"implicit:{paths['implicit']}"]))
-    assert plain.semantic_adj is None
+    assert plain.store.semantic_adj is None
     assert not np.array_equal(plain.entries.labels, ds.entries.labels)
     score = main(argv + spec + ["--device", "cpu"])
     assert 0.0 <= score <= 100.0

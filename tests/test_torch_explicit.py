@@ -196,10 +196,10 @@ def test_semantic_split_and_adj_gather_equal_jax():
     kw = dict(num_images=9, num_questions=21, v_dim=16, num_ans=20, seed=4)
     ours = synthetic_dataset(semantic=True, **kw)
     ref = jax_synthetic_dataset(adaptive=True, semantic=True, **kw)
-    assert ours.semantic_adj.dtype == ref.store.semantic_adj.dtype
-    np.testing.assert_array_equal(ours.semantic_adj, ref.store.semantic_adj)
-    for a, b in [(ours.features, ref.store.features), (ours.bb, ref.store.bb),
-                 (ours.normalized_bb, ref.store.normalized_bb)]:
+    assert ours.store.semantic_adj.dtype == ref.store.semantic_adj.dtype
+    np.testing.assert_array_equal(ours.store.semantic_adj, ref.store.semantic_adj)
+    for a, b in [(ours.store.features, ref.store.features), (ours.store.bb, ref.store.bb),
+                 (ours.store.normalized_bb, ref.store.normalized_bb)]:
         np.testing.assert_array_equal(a, b)
     for field in [f.name for f in dataclasses.fields(ours.entries)]:
         np.testing.assert_array_equal(getattr(ours.entries, field), getattr(ref.entries, field))

@@ -51,14 +51,14 @@ def test_synthetic_split_equals_the_jax_fixture():
         num_images=9, num_questions=30, v_dim=16, num_ans=20, seed=3, adaptive=True
     )
     for a, b in [
-        (ours.features, ref.store.features),
-        (ours.normalized_bb, ref.store.normalized_bb),
-        (ours.bb, ref.store.bb),
-        (ours.pos_boxes, ref.store.pos_boxes),
+        (ours.store.features, ref.store.features),
+        (ours.store.normalized_bb, ref.store.normalized_bb),
+        (ours.store.bb, ref.store.bb),
+        (ours.store.pos_boxes, ref.store.pos_boxes),
     ]:
         assert a.dtype == b.dtype and np.array_equal(a, b)
     for field in [f.name for f in dataclasses.fields(ours.entries)]:
-        a, b = getattr(ours.entries, field), getattr(ref.entries, field)
+        a, b = np.asarray(getattr(ours.entries, field)), np.asarray(getattr(ref.entries, field))
         assert a.dtype == b.dtype and np.array_equal(a, b), field
     assert ours.label2ans == ref.label2ans and ours.num_ans == ref.num_ans
     assert ours.ntoken == ref.ntoken and ours.padding_idx == ref.padding_idx
@@ -80,7 +80,7 @@ def test_config_parses_as_the_jax_config(path):
     assert ours.resolved_num_rois() == ref.resolved_num_rois() == 36
     assert ours.word_dim == ref.word_dim
     with pytest.raises(SystemExit):  # a flag of a feature not ported is refused
-        tconfig.parse_with_config(["--packed_cache", "/nonexistent"])
+        tconfig.parse_with_config(["--debug_nans"])
 
 
 def test_tokenizer_matches_the_jax_tokenizer():
@@ -187,6 +187,19 @@ def test_device_flag_and_unported_modes():
             build_server(FLAGS + ["--checkpoint", "x.npz", "--device", "cuda"])
 
 
+def test_unconverted_data_folder_names_the_converter(tmp_path):
+    """Without --synthetic, a data folder whose HDF5 files were never
+    converted is refused with the converter's command."""
+    from tf_vqa_regat_tpu.data.fixtures import write_fixture
+
+    write_fixture(str(tmp_path), name="val", num_images=4, num_questions=6)
+    argv = [a for a in FLAGS if a != "--synthetic"]
+    with pytest.raises(FileNotFoundError,
+                       match="python -m tf_vqa_regat_tpu_torch.data.convert --data_folder"):
+        build_server(argv + ["--data_folder", str(tmp_path), "--checkpoint", "x.npz",
+                             "--device", "cpu"])
+
+
 def test_port_imports_no_jax_and_no_h5py():
     """In a fresh interpreter (this test process already holds JAX, which
     tests/conftest.py imports): neither JAX, h5py nor the JAX package."""
@@ -196,6 +209,7 @@ def test_port_imports_no_jax_and_no_h5py():
         "import tf_vqa_regat_tpu_torch.ops.kernels.implicit_attention\n"
         "import tf_vqa_regat_tpu_torch.train.loop\n"
         "import tf_vqa_regat_tpu_torch.train.checkpoint, tf_vqa_regat_tpu_torch.train.ensemble\n"
+        "import tf_vqa_regat_tpu_torch.data.convert, tf_vqa_regat_tpu_torch.data.compose\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "          ('jax', 'jaxlib', 'orbax', 'h5py', 'tf_vqa_regat_tpu'))\n"
         "print(bad)\n"

@@ -72,15 +72,15 @@ def _pair(adaptive, semantic=False, **kw):
 @pytest.mark.parametrize("semantic", [False, True])
 def test_fixed36_split_equals_the_jax_fixture(semantic):
     ours, ref = _pair(False, semantic)
-    assert ours.features.shape == (9, 36, V_DIM) and ours.pos_boxes is None
-    assert not ours.adaptive and not ref.store.adaptive
-    for a, b in [(ours.features, ref.store.features), (ours.normalized_bb, ref.store.normalized_bb),
-                 (ours.bb, ref.store.bb)]:
+    assert ours.store.features.shape == (9, 36, V_DIM) and ours.store.pos_boxes is None
+    assert not ours.store.adaptive and not ref.store.adaptive
+    for a, b in [(ours.store.features, ref.store.features),
+                 (ours.store.normalized_bb, ref.store.normalized_bb), (ours.store.bb, ref.store.bb)]:
         assert a.dtype == b.dtype and np.array_equal(a, b)
     if semantic:
-        np.testing.assert_array_equal(ours.semantic_adj, ref.store.semantic_adj)
+        np.testing.assert_array_equal(ours.store.semantic_adj, ref.store.semantic_adj)
     for field in [f.name for f in dataclasses.fields(ours.entries)]:
-        a, b = getattr(ours.entries, field), getattr(ref.entries, field)
+        a, b = np.asarray(getattr(ours.entries, field)), np.asarray(getattr(ref.entries, field))
         assert a.dtype == b.dtype and np.array_equal(a, b), field
 
 

@@ -76,6 +76,16 @@ class Config:
     # loss and the answer logits stay f32. Explicit casts where the JAX
     # package casts (models/regat.py). BUTD fusion only for now.
     compute_dtype: str = "float32"
+    # Memory-map the converted feature table (data/features.py) instead of
+    # reading it into host RAM; the device store then converts and uploads
+    # it chunk by chunk, so the host holds one chunk. Splits cannot be
+    # composed from a mapped table (--use_both, --use_vg, vqa_cp).
+    mmap_features: bool = False
+    # Packed-feature cache directory ("" = off): the feature table converted
+    # to --feature_dtype persists as .npy after the first run and later runs
+    # memory-map it. JAX's key, signature and files, so one directory serves
+    # both packages (data/cache.py).
+    packed_cache: str = ""
     # The resident feature table's dtype: "bfloat16" (round to nearest even)
     # or "int8" (per-row symmetric quantization, scale = rowmax/127); the
     # gather widens to f32 (and dequantizes). Box tables stay f32: spatial
@@ -93,7 +103,8 @@ class Config:
     serve_batch_sizes: str = "1,8,32"
     serve_max_delay_ms: float = 5.0
     # --mode predict: the split whose submission JSON is written (test2015 |
-    # test-dev2015 | val); with --synthetic the synthetic val split.
+    # test-dev2015 | val; answerless test splits work); with --synthetic the
+    # synthetic val split.
     predict_split: str = "test2015"
     # --mode ensemble_eval: "implicit:PATH,spatial:PATH,semantic:PATH", each
     # PATH an .npz or a checkpoint directory (train/ensemble.py).

@@ -1,33 +1,56 @@
 """Device-resident tables and the on-device gather (counterpart of
 tf_vqa_regat_tpu/data/device_store.py: `quantize_rows`,
-`build_image_arrays` for the adaptive and fixed-36 layouts,
-`build_entry_arrays`, `DeviceStore.epoch_indices` and its roi-bucketed
-stream, `gather_batch`, `gather_image_features` and `gather_adj`).
+`_materialize_features`, `_cached_features`, `build_image_arrays` for the
+adaptive and fixed-36 layouts, `build_entry_arrays`, `DeviceStore` with its
+roi-bucketed stream and per-store image-table memo, `gather_batch`,
+`gather_image_features` and `gather_adj`).
 
 The split's feature and box tables are uploaded once; a request or a train
 step then ships only indices, and its rows are gathered on the device,
 clipped to the table, widened to f32 and zeroed past the example's box
 count. The feature table is held at `feature_dtype`: f32, bf16 (rounded to
 nearest even) or int8 with a per-row f32 scale (rowmax/127), which the
-gather multiplies back in. The box tables stay f32. A fixed-36 split is
-flattened to 36 rows per image. The entry tables (image index, question
-tokens, soft targets packed to MAX_LABELS) live there too, so a batch is
-assembled from a [B] index vector. A semantic split also carries its
-per-image edge labels as an int8 table, gathered into the batch's
-`adj_label`.
+gather multiplies back in. It is converted and uploaded chunk by chunk, so
+a memory-mapped source (--mmap_features) never sits whole in host RAM;
+with a packed cache (--packed_cache) the converted table is read from the
+cache, or written there on a miss. A table larger than the card's free
+memory is refused before the upload. The box tables stay f32. A fixed-36
+split is flattened to 36 rows per image. The entry tables (image index,
+question tokens, soft targets packed to MAX_LABELS) live there too, so a
+batch is assembled from a [B] index vector.
+
+Edge labels: with `include_adj`, a semantic split carries its semantic
+table and any other its file's spatial table (`image_adj_matrix`), where
+it has one, as an int8 table gathered into the batch's `adj_label` (JAX's
+choice, device_store.py:225-231); without a spatial table the step builds
+spatial labels from the boxes.
 """
 
 from __future__ import annotations
 
+import weakref
 from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from tf_vqa_regat_tpu_torch.data.cache import (
+    cache_paths,
+    load_packed_cache,
+    save_packed_cache,
+    signature,
+)
+from tf_vqa_regat_tpu_torch.data.entries import EntryTable, assert_unique_labels
+from tf_vqa_regat_tpu_torch.data.features import VQADataset, source_fingerprint
 from tf_vqa_regat_tpu_torch.data.ordering import batch_shuffle_rng, epoch_perm_rng
-from tf_vqa_regat_tpu_torch.data.synthetic import EntryTable, SyntheticDataset
 
 MAX_LABELS = 16  # VQA soft targets have <= 10 answers
+CHUNK_ROWS = 262144  # rows per conversion chunk (~2 GB f32 at 2048-d), as JAX's
+TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "int8": torch.int8}
+# the stored (numpy) dtype of each table dtype: bf16 as its bits
+STORED_DTYPES = {"float32": np.float32, "bfloat16": np.uint16, "int8": np.int8}
+
+Chunk = Tuple[int, int, np.ndarray, Optional[np.ndarray]]
 
 
 def _put(a: np.ndarray, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
@@ -42,51 +65,171 @@ def quantize_rows(chunk: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
     return q, s.astype(np.float32)
 
 
-def feature_table(
-    features: np.ndarray, feature_dtype: str
+def bf16_bits(chunk: np.ndarray) -> np.ndarray:
+    """f32 rows -> their bf16 (round to nearest even) as uint16 bits."""
+    chunk = np.ascontiguousarray(chunk, np.float32)
+    t = torch.from_numpy(chunk if chunk.flags.writeable else chunk.copy()).to(torch.bfloat16)
+    return t.view(torch.int16).numpy().view(np.uint16)
+
+
+def table_rows(src) -> Tuple[int, int]:
+    """(T, v) of the flat table of a [T, v] or fixed-36 [n_img, 36, v] source."""
+    shape = src.shape
+    return (shape[0] * shape[1], shape[2]) if len(shape) == 3 else (shape[0], shape[1])
+
+
+def converted_chunks(src, feature_dtype: str) -> Iterator[Chunk]:
+    """The flat table of `src` at `feature_dtype`, chunk by chunk (JAX
+    `_materialize_features`): (first row, end row, rows at the stored dtype,
+    int8's scales or None). A memory-mapped source is read one chunk at a
+    time."""
+    if feature_dtype not in TORCH_DTYPES:
+        raise ValueError(f"unknown feature_dtype {feature_dtype!r}")
+    per = src.shape[1] if len(src.shape) == 3 else 1
+    v = src.shape[-1]
+    step = max(CHUNK_ROWS // per, 1)
+    for lo in range(0, src.shape[0], step):
+        chunk = np.asarray(src[lo : lo + step], np.float32).reshape(-1, v)
+        a = lo * per
+        if feature_dtype == "int8":
+            q, scale = quantize_rows(chunk)
+            yield a, a + len(chunk), q, scale
+        elif feature_dtype == "bfloat16":
+            yield a, a + len(chunk), bf16_bits(chunk), None
+        else:
+            yield a, a + len(chunk), chunk, None
+
+
+def stored_chunks(feat: np.ndarray, scale: Optional[np.ndarray]) -> Iterator[Chunk]:
+    """Chunks of a table already at its stored dtype (a packed cache)."""
+    for a in range(0, feat.shape[0], CHUNK_ROWS):
+        b = min(a + CHUNK_ROWS, feat.shape[0])
+        yield a, b, feat[a:b], None if scale is None else scale[a:b]
+
+
+def cached_chunks(src, adaptive: bool, feature_dtype: str, cache_dir: str) -> Iterator[Chunk]:
+    """The converted table from the packed cache in `cache_dir`, written
+    there first on a miss (JAX `_cached_features`; its key, signature and
+    files)."""
+    sha = source_fingerprint(src)
+    meta_p, feat_p, scale_p = cache_paths(cache_dir, sha, adaptive, feature_dtype)
+    sig = signature(src.shape, sha, feature_dtype)
+    feat, scale = load_packed_cache(meta_p, feat_p, scale_p, sig, feature_dtype)
+    if feat is None:
+        save_packed_cache(meta_p, feat_p, scale_p, sig, converted_chunks(src, feature_dtype),
+                          table_rows(src), np.dtype(STORED_DTYPES[feature_dtype]),
+                          feature_dtype == "int8")
+        feat, scale = load_packed_cache(meta_p, feat_p, scale_p, sig, feature_dtype)
+        if feat is None:
+            raise OSError(f"the packed cache {feat_p} did not read back after writing it")
+    return stored_chunks(feat, scale)
+
+
+def upload_table(
+    chunks: Iterator[Chunk], rows: Tuple[int, int], feature_dtype: str, device: torch.device,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """The flat [T, v] feature table at `feature_dtype`, on the host, and
-    for int8 its per-row scale [T] f32 (else None)."""
-    flat = features.reshape(-1, features.shape[-1])
-    if feature_dtype == "float32":
-        return torch.from_numpy(np.ascontiguousarray(flat)), None
-    if feature_dtype == "bfloat16":  # round to nearest even
-        return torch.from_numpy(np.ascontiguousarray(flat)).to(torch.bfloat16), None
-    if feature_dtype == "int8":
-        q, scale = quantize_rows(np.asarray(flat, np.float32))
-        return torch.from_numpy(q), torch.from_numpy(scale)
-    raise ValueError(f"unknown feature_dtype {feature_dtype!r}")
+    """The [T, v] table at `feature_dtype` on `device` (and int8's [T] f32
+    scales, else None), copied chunk by chunk: the host holds one chunk."""
+    out = torch.empty(rows, dtype=TORCH_DTYPES[feature_dtype], device=device)
+    scale = (torch.empty(rows[:1], dtype=torch.float32, device=device)
+             if feature_dtype == "int8" else None)
+    for a, b, f, s in chunks:
+        # a chunk of a memory map is read into RAM here (torch takes no
+        # read-only arrays)
+        f = np.ascontiguousarray(f) if f.flags.writeable else np.array(f)
+        t = (torch.from_numpy(f.view(np.int16)).view(torch.bfloat16)
+             if feature_dtype == "bfloat16" else torch.from_numpy(f))
+        out[a:b].copy_(t)
+        if scale is not None:
+            scale[a:b].copy_(torch.from_numpy(np.array(s)))
+    return out, scale
 
 
-def image_rows(ds: SyntheticDataset) -> Tuple[np.ndarray, np.ndarray]:
+def table_nbytes(ds: VQADataset, feature_dtype: str, adj: Optional[np.ndarray]) -> int:
+    """The image tables' device bytes at `feature_dtype` (JAX
+    `estimate_nbytes`, the image part)."""
+    store = ds.store
+    T, v = table_rows(store.features)
+    total = T * v * np.dtype(STORED_DTYPES[feature_dtype]).itemsize
+    total += 4 * T if feature_dtype == "int8" else 0
+    total += 4 * (store.normalized_bb.size + store.bb.size) + 16 * store.num_images
+    return total + (0 if adj is None else int(adj.size))
+
+
+def check_fits(ds: VQADataset, feature_dtype: str, adj: Optional[np.ndarray],
+               device: torch.device) -> None:
+    """Refuse, before any upload, image tables larger than the card's free
+    memory."""
+    if device.type != "cuda":
+        return
+    need = table_nbytes(ds, feature_dtype, adj)
+    free = torch.cuda.mem_get_info(device)[0]
+    if need > free:
+        raise MemoryError(
+            f"the {ds.name} split's image tables take {need / 1e9:.2f} GB at "
+            f"--feature_dtype {feature_dtype}, more than the {free / 1e9:.2f} GB free on "
+            f"{device}: hold the features at --feature_dtype bfloat16 (half) or int8 (a "
+            f"quarter). The sharded and host stores are not ported yet (ROADMAP Queue A)."
+        )
+
+
+def image_rows(ds: VQADataset) -> Tuple[np.ndarray, np.ndarray]:
     """(first row, row count) of each image in the flat tables: `pos_boxes`
     for an adaptive split, 36 rows per image for a fixed-36 one."""
-    if ds.adaptive:
-        return ds.pos_boxes[:, 0], ds.pos_boxes[:, 1] - ds.pos_boxes[:, 0]
-    n_img, n_box = ds.features.shape[:2]
+    store = ds.store
+    if store.adaptive:
+        return store.pos_boxes[:, 0], store.pos_boxes[:, 1] - store.pos_boxes[:, 0]
+    n_img, n_box = store.features.shape[:2]
     return np.arange(n_img) * n_box, np.full(n_img, n_box)
+
+
+def adjacency_table(ds: VQADataset) -> Optional[np.ndarray]:
+    """The edge-label table a split's batches carry: the semantic table for
+    a semantic split, else the file's spatial labels (None when absent)."""
+    store = ds.store
+    return store.semantic_adj if ds.relation_type == "semantic" else store.spatial_adj
 
 
 class ImageStore:
     """`features` [T, v] at `feature_dtype` (with `feat_scale` [T] f32 for
     int8, else None), `norm_bb` [T, 6] and `bb` [T, 4] f32, per-image
-    `img_start` and `img_len` [num_images] int64, and for a semantic split
-    `adj` [num_images, 100, 100] int8 (else None), all on `device`. A
-    fixed-36 split's image i holds rows 36 i to 36 i + 35."""
+    `img_start` and `img_len` [num_images] int64, and with `include_adj` the
+    split's `adjacency_table` as `adj` [num_images, 100, 100] int8 (else
+    None), all on `device`. A fixed-36 split's image i holds rows 36 i to
+    36 i + 35. `cache_dir` names a packed cache ("" = none)."""
 
-    def __init__(self, ds: SyntheticDataset, device: torch.device,
-                 feature_dtype: str = "float32"):
-        features, scale = feature_table(ds.features, feature_dtype)
-        self.features = features.to(device)
-        self.feat_scale = None if scale is None else scale.to(device)
-        self.norm_bb = _put(ds.normalized_bb.reshape(-1, 6), torch.float32, device)
-        self.bb = _put(ds.bb.reshape(-1, 4), torch.float32, device)
+    def __init__(self, ds: VQADataset, device: torch.device, feature_dtype: str = "float32",
+                 include_adj: bool = True, cache_dir: str = ""):
+        store = ds.store
+        adj = adjacency_table(ds) if include_adj else None
+        check_fits(ds, feature_dtype, adj, torch.device(device))
+        chunks = (cached_chunks(store.features, store.adaptive, feature_dtype, cache_dir)
+                  if cache_dir else converted_chunks(store.features, feature_dtype))
+        self.features, self.feat_scale = upload_table(
+            chunks, table_rows(store.features), feature_dtype, device)
+        self.norm_bb = _put(store.normalized_bb.reshape(-1, 6), torch.float32, device)
+        self.bb = _put(store.bb.reshape(-1, 4), torch.float32, device)
         start, length = image_rows(ds)
         self.img_start = _put(start, torch.int64, device)
         self.img_len = _put(length, torch.int64, device)
-        self.adj = (
-            None if ds.semantic_adj is None else _put(ds.semantic_adj, torch.int8, device)
-        )
+        self.adj = None if adj is None else _put(adj, torch.int8, device)
+
+
+def image_store(ds: VQADataset, device: torch.device, feature_dtype: str = "float32",
+                include_adj: bool = True, cache_dir: str = "") -> ImageStore:
+    """The split's ImageStore, shared with every live store built on the same
+    FeatureStore at the same settings: VQA-CP's train and test splits, over
+    one merged table, upload it once (JAX DeviceStore's memo, held weakly
+    so that a dropped store frees its memory)."""
+    adj = adjacency_table(ds) if include_adj else None
+    key = (str(torch.device(device)), feature_dtype, None if adj is None else id(adj))
+    memo = ds.store.__dict__.setdefault("_device_img_memo", {})
+    ref = memo.get(key)
+    images = ref() if ref is not None else None
+    if images is None:
+        images = ImageStore(ds, device, feature_dtype, include_adj, cache_dir)
+        memo[key] = weakref.ref(images)
+    return images
 
 
 def pack_soft_targets(ent: EntryTable, num_ans: int) -> Tuple[np.ndarray, np.ndarray]:
@@ -105,13 +248,8 @@ def pack_soft_targets(ent: EntryTable, num_ans: int) -> Tuple[np.ndarray, np.nda
             f"an entry has {int(counts.max())} answer labels > MAX_LABELS="
             f"{MAX_LABELS}; truncating would drop soft-target score mass"
         )
+    assert_unique_labels(ent, num_ans)
     rows = np.repeat(np.arange(N, dtype=np.int64), counts)
-    key = rows * np.int64(num_ans) + ent.labels
-    if len(np.unique(key)) != len(key):
-        raise ValueError(
-            "duplicate answer labels within an entry: the add-scatter would "
-            "count their scores twice"
-        )
     cols = np.arange(len(ent.labels), dtype=np.int64) - np.repeat(
         ent.label_offsets[:-1].astype(np.int64), counts
     )
@@ -121,17 +259,18 @@ def pack_soft_targets(ent: EntryTable, num_ans: int) -> Tuple[np.ndarray, np.nda
 
 
 class DeviceStore:
-    """One split on `device`: its image tables (`images`) and its entry
-    tables `entry_img` [N], `questions` [N, 14], `labels` and `scores`
-    [N, MAX_LABELS]. With `targets` False (prediction, which may run on an
-    answerless split) the soft targets are neither read nor stored."""
+    """One split on `device`: its image tables (`images`, see ImageStore)
+    and its entry tables `entry_img` [N], `questions` [N, 14], `labels` and
+    `scores` [N, MAX_LABELS]. With `targets` False (prediction, which may
+    run on an answerless split) the soft targets are neither read nor
+    stored."""
 
     def __init__(
-        self, ds: SyntheticDataset, device: torch.device, targets: bool = True,
-        feature_dtype: str = "float32",
+        self, ds: VQADataset, device: torch.device, targets: bool = True,
+        feature_dtype: str = "float32", include_adj: bool = True, cache_dir: str = "",
     ):
         ent = ds.entries
-        self.images = ImageStore(ds, device, feature_dtype)
+        self.images = image_store(ds, device, feature_dtype, include_adj, cache_dir)
         self.entry_img = _put(ent.image_index, torch.int64, device)
         self.questions = _put(ent.q_tokens, torch.int64, device)
         self.labels = self.scores = None
@@ -238,21 +377,20 @@ def gather_batch(
         )
         batch["target"] = target
     if adj and store.images.adj is not None:
-        batch["adj_label"] = gather_adj(store.images, img, num_rois, valid)
+        batch["adj_label"] = gather_adj(store.images.adj, img, num_rois, valid)
     return batch
 
 
 def gather_adj(
-    store: ImageStore, img: torch.Tensor, num_rois: int, valid: Optional[torch.Tensor] = None
+    table: torch.Tensor, img: torch.Tensor, num_rois: int, valid: Optional[torch.Tensor] = None
 ) -> torch.Tensor:
-    """[B, num_rois, num_rois] int32 edge labels of images `img`, cut or
-    zero-padded to num_rois; rows of padded slots (`valid` False) are zero.
-    Rows past an example's box count keep their labels, as JAX's do: the key
-    mask handles them downstream."""
-    A = store.adj.shape[1]
-    k = min(A, num_rois)
+    """[B, num_rois, num_rois] int32 edge labels of images `img` from the
+    [num_images, A, A] `table`, cut or zero-padded to num_rois; rows of
+    padded slots (`valid` False) are zero. Rows past an example's box count
+    keep their labels, as JAX's do: the key mask handles them downstream."""
+    k = min(table.shape[1], num_rois)
     adj = torch.zeros((img.shape[0], num_rois, num_rois), dtype=torch.int32, device=img.device)
-    adj[:, :k, :k] = store.adj[img][:, :k, :k].to(torch.int32)
+    adj[:, :k, :k] = table[img][:, :k, :k].to(torch.int32)
     if valid is not None:
         adj = torch.where(valid[:, None, None], adj, torch.zeros_like(adj))
     return adj

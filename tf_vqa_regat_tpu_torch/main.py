@@ -4,6 +4,8 @@ configs (counterpart of main.py):
     python -m tf_vqa_regat_tpu_torch.main --config configs/butd_vqa.json \\
         --mode train --synthetic [--device cuda]
     python -m tf_vqa_regat_tpu_torch.main --config configs/butd_vqa.json \\
+        --mode train --data_folder DIR [--use_both --use_vg] [--device cuda]
+    python -m tf_vqa_regat_tpu_torch.main --config configs/butd_vqa.json \\
         --mode eval|serve|predict --synthetic --checkpoint model.npz [--device cuda]
     python -m tf_vqa_regat_tpu_torch.main --config configs/semantic_vqa.json \\
         --mode ensemble_eval --synthetic \\
@@ -14,7 +16,11 @@ and no visible GPU the run fails; it never moves to the CPU on its own.
 `--device cpu` runs every kernel's plain PyTorch version.
 
 Ported so far: `--mode train`, `eval`, `serve`, `predict` and
-`ensemble_eval` on `--synthetic` data, adaptive or fixed-36
+`ensemble_eval`, on `--synthetic` data or on a `--data_folder` in the
+reference's layout whose HDF5 feature files were converted once by
+data/convert.py (the port reads no HDF5): `--dataset vqa_cp`, `--use_both`,
+`--use_vg`, `--tfidf` with the GloVe init of the word embedding,
+`--mmap_features` and `--packed_cache`; adaptive or fixed-36
 (configs/butd_vqa_fixed36.json), for implicit, spatial and semantic
 relations with BUTD fusion, and implicit relations with BAN and MuTAN fusion
 (configs/ban_vqa.json, mutan_vqa_cp.json); `--feature_dtype
@@ -31,18 +37,25 @@ naming the ROADMAP item that ports it.
 from __future__ import annotations
 
 import os
+import pickle
 import sys
-from typing import List, Optional, Tuple
+from typing import Any, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from tf_vqa_regat_tpu_torch.config import Config, parse_with_config
-from tf_vqa_regat_tpu_torch.data.synthetic import SyntheticDataset, synthetic_dataset
+from tf_vqa_regat_tpu_torch.data import compose
+from tf_vqa_regat_tpu_torch.data.dictionary import Dictionary
+from tf_vqa_regat_tpu_torch.data.features import VQADataset, load_imgid2idx, load_vqa_dataset
+from tf_vqa_regat_tpu_torch.data.glove import tfidf_from_questions
+from tf_vqa_regat_tpu_torch.data.synthetic import synthetic_dataset
+from tf_vqa_regat_tpu_torch.models.language import word_embedding_load_glove
 from tf_vqa_regat_tpu_torch.models.regat import ReGAT, check_supported
 from tf_vqa_regat_tpu_torch.params import load_jax_arrays, save_npz
 from tf_vqa_regat_tpu_torch.serve import make_server
 from tf_vqa_regat_tpu_torch.train.checkpoint import load_params
-from tf_vqa_regat_tpu_torch.train.ensemble import run_ensemble_eval
+from tf_vqa_regat_tpu_torch.train.ensemble import parse_members, run_ensemble_eval
 from tf_vqa_regat_tpu_torch.train.logging import Logger
 from tf_vqa_regat_tpu_torch.train.loop import (
     Preempted,
@@ -84,18 +97,13 @@ def resolve_device(name: str) -> torch.device:
     return device
 
 
-def build_dataset(cfg: Config, name: str = "val") -> SyntheticDataset:
+def build_dataset(cfg: Config, name: str = "val") -> VQADataset:
     """The JAX entry point's synthetic split, in the config's layout
     (adaptive or fixed-36): `val` (seed + 1, synthetic_val_size questions),
     which eval, serve, predict and the ensemble read, or `train` (seed,
     synthetic_train_size questions); with
     per-image semantic edge labels when the relation type is semantic or an
     ensemble has a semantic member (the table's draws change the answers)."""
-    if not cfg.synthetic:
-        raise NotImplementedError(
-            "real VQA features are not ported yet (ROADMAP Queue A, real VQA "
-            "data without h5py); pass --synthetic"
-        )
     size, seed = (
         (cfg.synthetic_train_size, cfg.seed) if name == "train"
         else (cfg.synthetic_val_size, cfg.seed + 1)
@@ -109,7 +117,82 @@ def build_dataset(cfg: Config, name: str = "val") -> SyntheticDataset:
     )
 
 
-def load_model(cfg: Config, ds: SyntheticDataset) -> ReGAT:
+def build_datasets(
+    cfg: Config,
+) -> Tuple[Optional[VQADataset], VQADataset, Optional[Any], Optional[np.ndarray]]:
+    """(train split or None, the split eval/predict/serve/ensemble read,
+    TF-IDF matrix or None, its extension rows or None), as JAX
+    main.py:46-184 builds them. --synthetic: build_dataset's splits. Else
+    the converted dataset under --data_folder: vqa_cp's train and test over
+    one merged COCO store; or val (--predict_split under --mode predict) and
+    in train the train split, joined with val under --use_both and with the
+    Visual Genome pairs under --use_vg; the ensemble's store loads every
+    member's edge labels. --tfidf (train only) extends the dictionary."""
+    if cfg.synthetic:
+        train = build_dataset(cfg, "train") if cfg.mode == "train" else None
+        return train, build_dataset(cfg, "val"), None, None
+
+    dictionary = Dictionary.load_from_file(
+        os.path.join(cfg.data_folder, "glove", "dictionary.pkl"))
+    store_rts = None
+    if cfg.mode == "ensemble_eval":
+        store_rts = {rt for rt, _ in parse_members(cfg.ensemble_checkpoints)}
+        store_rts.add(cfg.relation_type)
+    # --use_both/--use_vg compose in train only; the vqa_cp base in every mode
+    if cfg.mmap_features and (
+        cfg.dataset == "vqa_cp" or (cfg.mode == "train" and (cfg.use_both or cfg.use_vg))
+    ):
+        raise ValueError(
+            "--mmap_features cannot compose splits (--use_both/--use_vg and "
+            "the vqa_cp merged train+val store concatenate feature tables, "
+            "which requires materializing them); drop one or the other"
+        )
+    train = None
+    if cfg.dataset == "vqa_cp":
+        base = compose.load_vqa_cp_base(cfg.data_folder, cfg.adaptive,
+                                        store_rts or cfg.relation_type)
+        val = compose.load_vqa_cp_dataset(
+            "test", dictionary, cfg.relation_type, cfg.data_folder, cfg.adaptive,
+            store_relation_types=store_rts, base=base)
+        if cfg.mode == "train":
+            train = compose.load_vqa_cp_dataset(
+                "train", dictionary, cfg.relation_type, cfg.data_folder, cfg.adaptive,
+                base=base)
+    else:
+        val_split = cfg.predict_split if cfg.mode == "predict" else "val"
+        val = load_vqa_dataset(val_split, dictionary, cfg.relation_type, cfg.data_folder,
+                               cfg.adaptive, cfg.mmap_features, store_relation_types=store_rts)
+        if cfg.mode == "train":
+            train = load_vqa_dataset("train", dictionary, cfg.relation_type, cfg.data_folder,
+                                     cfg.adaptive, cfg.mmap_features)
+            if cfg.use_both:
+                train = compose.concat_datasets(train, val, "trainval")
+            if cfg.use_vg:
+                train = append_visual_genome(cfg, train, dictionary)
+    tfidf = weights = None
+    if cfg.tfidf and cfg.mode == "train":
+        # train only, as the reference: the model keeps the snapshotted ntoken
+        tfidf, weights = tfidf_from_questions(["train", "val", "test2015"], dictionary,
+                                              cfg.data_folder)
+    return train, val, tfidf, weights
+
+
+def append_visual_genome(cfg: Config, train: VQADataset, dictionary: Dictionary) -> VQADataset:
+    """--use_vg: the train split with the Visual Genome pairs over its
+    images; under --use_both the val images too, past the train images."""
+    with open(os.path.join(cfg.data_folder, "cache", "trainval_ans2label.pkl"), "rb") as fh:
+        ans2label = pickle.load(fh)
+    img_id2idx = load_imgid2idx(cfg.data_folder, "train", cfg.adaptive)
+    if cfg.use_both:
+        val_map = load_imgid2idx(cfg.data_folder, "val", cfg.adaptive)
+        offset = train.store.num_images - len(val_map)
+        for k, v in val_map.items():
+            img_id2idx.setdefault(k, v + offset)
+    vg = compose.load_visual_genome_entries(cfg.data_folder, dictionary, ans2label, img_id2idx)
+    return compose.append_entries(train, vg, train.name + "+vg")
+
+
+def load_model(cfg: Config, ds: VQADataset) -> ReGAT:
     """The model of --checkpoint: an .npz of params.py or a checkpoint
     directory of train/checkpoint.py, full state or params only."""
     if not cfg.checkpoint:
@@ -145,10 +228,17 @@ def train(cfg: Config, device: torch.device) -> Optional[str]:
     """`--mode train`: train from the seed's init (or, under --resume, from
     the newest checkpoint), evaluating after every epoch; returns the path
     of the written parameters, or None when the run was preempted."""
-    train_ds, val_ds = build_dataset(cfg, "train"), build_dataset(cfg, "val")
+    train_ds, val_ds, tfidf, tfidf_weights = build_datasets(cfg)
+    # sized by the snapshotted ntoken, not the TF-IDF-extended dictionary's
     model = ReGAT(cfg, train_ds.ntoken, train_ds.v_dim, train_ds.num_ans)
+    emb2_trainable = False
+    if not cfg.synthetic:
+        glove = np.load(os.path.join(cfg.data_folder, "glove", "glove6b_init_300d.npy")).squeeze()
+        emb2_trainable = word_embedding_load_glove(
+            model.w_emb, glove, cfg.op, tfidf, tfidf_weights)
     try:
-        model, best = run_training(cfg, train_ds, val_ds, model, device)
+        model, best = run_training(
+            cfg, train_ds, val_ds, model, device, emb2_trainable=emb2_trainable)
     except Preempted as e:
         # the state is checkpointed; the unfinished run writes no final file
         print(
@@ -167,7 +257,7 @@ def evaluate(cfg: Config, device: torch.device) -> Tuple[float, float]:
     """`--mode eval`: one pass over the val split -> (score %, mean loss).
     The loss is printed in full, so it can be held to the training run's
     last `eval_loss` in metrics.jsonl."""
-    ds = build_dataset(cfg)
+    ds = build_datasets(cfg)[1]
     model = load_model(cfg, ds)
     logger = Logger(os.path.join(cfg.output, "eval_log.txt"))
     try:
@@ -180,7 +270,7 @@ def evaluate(cfg: Config, device: torch.device) -> Tuple[float, float]:
 
 def predict(cfg: Config, device: torch.device) -> str:
     """`--mode predict`: the submission JSON of the split; returns its path."""
-    ds = build_dataset(cfg)
+    ds = build_datasets(cfg)[1]
     model = load_model(cfg, ds)
     logger = Logger(os.path.join(cfg.output, "predict_log.txt"))
     try:
@@ -193,7 +283,7 @@ def predict(cfg: Config, device: torch.device) -> str:
 
 def ensemble_eval(cfg: Config, device: torch.device) -> float:
     """`--mode ensemble_eval`: the score (%) of --ensemble_checkpoints."""
-    ds = build_dataset(cfg)
+    ds = build_datasets(cfg)[1]
     logger = Logger(os.path.join(cfg.output, "eval_log.txt"))
     try:
         score = run_ensemble_eval(cfg, ds, device, logger)
@@ -209,7 +299,7 @@ def build_server(argv: Optional[List[str]] = None):
     cfg, device = parse(argv)
     if cfg.mode != "serve":
         raise ValueError(f"build_server builds --mode serve, not --mode {cfg.mode}")
-    ds = build_dataset(cfg)
+    ds = build_datasets(cfg)[1]
     model = load_model(cfg, ds)
     server, batcher = make_server(cfg, ds, model, device, cfg.serve_port)
     return server, batcher, batcher.engine

@@ -8,6 +8,10 @@ follows the pooled vector (language.py:89, :125, :146). The self-attention softm
 (the PyTorch original's semantics; the TF reference's batch-axis softmax is
 the JAX package's `ref_compat_q_att`, not ported).
 
+`word_embedding_load_glove` puts the GloVe rows (and, under --tfidf, the
+TF-IDF-mixed rows of the second table, which then trains) into the tables
+before training (language.py:43-72).
+
 Under a bf16 `dtype` (language.py:83-143): the word embedding is bf16; the
 GRU states are f32; the self-attention's FCNets store bf16, its logits are
 widened to f32 for the softmax, and the pooled vector is the f32 product of
@@ -16,8 +20,9 @@ the bf16-rounded weights and states.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Any, Optional, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -48,6 +53,32 @@ class WordEmbedding(nn.Module):
         if self.emb_ is not None:
             emb = torch.cat([emb, self.emb_(question, padding_idx)], dim=-1)
         return dropout(emb, self.drop_rate, self.training, generator)
+
+
+@torch.no_grad()
+def word_embedding_load_glove(
+    w_emb: WordEmbedding,
+    glove: np.ndarray,  # [ntoken, 300]
+    op: str,
+    tfidf: Optional[Any] = None,  # scipy sparse [ntoken, ext_ntoken] or None
+    tfidf_weights: Optional[np.ndarray] = None,  # [ext_ntoken - ntoken, 300]
+) -> bool:
+    """The GloVe init of JAX `word_embedding_load_glove` (reference
+    language_model.py:63-90), in place: `emb` gets [glove; zero pad row];
+    `emb_`, where `op` has one, gets the same, or with `tfidf` the
+    TF-IDF-mixed rows [tfidf @ [glove; tfidf_weights]; pad] and becomes
+    trainable. Returns whether `emb_` is trainable."""
+    pad = np.zeros((1, glove.shape[1]), np.float32)
+    primary = np.concatenate([glove.astype(np.float32), pad], axis=0)
+    w_emb.emb.table.copy_(torch.from_numpy(primary))
+    if w_emb.emb_ is None:
+        return False
+    second = primary
+    if tfidf is not None:
+        ext = np.concatenate([glove.astype(np.float32), tfidf_weights.astype(np.float32)], axis=0)
+        second = np.concatenate([np.asarray(tfidf @ ext, dtype=np.float32), pad], axis=0)
+    w_emb.emb_.table.copy_(torch.from_numpy(second))
+    return tfidf is not None
 
 
 class QuestionEmbedding(nn.Module):

@@ -166,7 +166,8 @@ class ReGAT(nn.Module):
 def trainable_mask(model: ReGAT, emb2_trainable: bool) -> Dict[str, bool]:
     """Parameter name -> whether it takes optimizer updates: the JAX
     `trainable_mask` (regat.py:246-283). Frozen are the second word-embedding
-    table (until a TF-IDF init, not ported, unfreezes it) and the biases that
+    table (until a TF-IDF init unfreezes it, models/language.py::
+    word_embedding_load_glove) and the biases that
     feed a softmax directly, whose true gradient is zero: q_att's scoring
     bias, each direction's key bias, and the fusion's attention bias (BUTD's
     scoring bias, BAN's `h_bias`, MuTAN's glimpse-scoring bias). The explicit

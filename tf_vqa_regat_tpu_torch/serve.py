@@ -36,7 +36,7 @@ import torch
 from tf_vqa_regat_tpu_torch.config import Config
 from tf_vqa_regat_tpu_torch.data.dictionary import encode_question
 from tf_vqa_regat_tpu_torch.data.store import ImageStore, gather_adj, gather_image_features
-from tf_vqa_regat_tpu_torch.data.synthetic import SyntheticDataset
+from tf_vqa_regat_tpu_torch.data.features import VQADataset
 from tf_vqa_regat_tpu_torch.models.regat import ReGAT
 
 # Largest client batch one POST may carry (see do_POST).
@@ -50,7 +50,7 @@ class InferenceEngine:
     def __init__(
         self,
         cfg: Config,
-        ds: SyntheticDataset,
+        ds: VQADataset,
         model: ReGAT,
         device: torch.device,
         batch_sizes: Tuple[int, ...] = (1, 8, 32),
@@ -58,7 +58,9 @@ class InferenceEngine:
         self.ds = ds
         self.device = torch.device(device)
         self.model = model.to(self.device).eval()
-        self.store = ImageStore(ds, self.device, cfg.feature_dtype)
+        self.store = ImageStore(ds, self.device, cfg.feature_dtype,
+                                include_adj=cfg.relation_type != "implicit",
+                                cache_dir=cfg.packed_cache)
         self.num_rois = cfg.resolved_num_rois()
         self.img_index = {
             int(i): int(x)
@@ -88,7 +90,7 @@ class InferenceEngine:
         batch = {"features": features, "norm_bb": norm_bb, "bb": bb, "question": question,
                  "num_boxes": n_box}
         if self.store.adj is not None:
-            batch["adj_label"] = gather_adj(self.store, img, self.num_rois, valid)
+            batch["adj_label"] = gather_adj(self.store.adj, img, self.num_rois, valid)
         return self.model(batch)
 
     @torch.inference_mode()
@@ -223,7 +225,7 @@ class MicroBatcher:
 
 
 def make_server(
-    cfg: Config, ds: SyntheticDataset, model: ReGAT, device: torch.device,
+    cfg: Config, ds: VQADataset, model: ReGAT, device: torch.device,
     port: int = 0,
 ) -> Tuple[ThreadingHTTPServer, MicroBatcher]:
     """Build (not start) the HTTP server; port 0 = ephemeral."""

@@ -10,9 +10,11 @@ the sigmoid answer probabilities are averaged before the argmax VQA score.
 The split's tables are uploaded once, at --feature_dtype, and shared; the
 batches are the ones eval and predict read (train/loop.py::
 eval_batch_stream), per bucket under --roi_buckets. The shared batch carries no
-edge labels: a semantic member adds the split's semantic label table,
-gathered for the batch, and a spatial member builds its labels from the
-boxes in the step, as it does in training.
+edge labels: each explicit member adds its own table, uploaded once and
+gathered for the batch (JAX ensemble.py:238-256): a semantic member the
+split's semantic labels, a spatial member the file's spatial labels where
+the split has them; without them it builds its labels from the boxes in
+the step, as it does in training.
 
 CLI: --mode ensemble_eval
      --ensemble_checkpoints implicit:PATH,spatial:PATH,semantic:PATH
@@ -24,11 +26,12 @@ from __future__ import annotations
 import time
 from typing import Dict, List, Tuple
 
+import numpy as np
 import torch
 
 from tf_vqa_regat_tpu_torch.config import Config
 from tf_vqa_regat_tpu_torch.data.store import DeviceStore, gather_adj, gather_batch
-from tf_vqa_regat_tpu_torch.data.synthetic import SyntheticDataset
+from tf_vqa_regat_tpu_torch.data.features import VQADataset
 from tf_vqa_regat_tpu_torch.models.regat import ReGAT
 from tf_vqa_regat_tpu_torch.params import load_jax_arrays
 from tf_vqa_regat_tpu_torch.train.checkpoint import load_params
@@ -56,7 +59,7 @@ def parse_members(spec: str) -> List[Tuple[str, str]]:
 
 
 def load_members(
-    cfg: Config, ds: SyntheticDataset, device: torch.device, logger: Logger
+    cfg: Config, ds: VQADataset, device: torch.device, logger: Logger
 ) -> List[Member]:
     """Each member of --ensemble_checkpoints, built under this run's flags
     with its relation type, loaded and in eval mode on `device`. Raises,
@@ -76,40 +79,58 @@ def load_members(
     return members
 
 
+def member_adj_tables(
+    members: List[Member], ds: VQADataset, device: torch.device
+) -> Dict[str, torch.Tensor]:
+    """Relation type -> its edge-label table on `device` [num_images, A, A]
+    int8, once per type among the members: semantic members the split's
+    semantic table (required), spatial members the file's spatial table
+    where there is one."""
+    tables = {}
+    for rt, _ in members:
+        src = {"semantic": ds.store.semantic_adj, "spatial": ds.store.spatial_adj}.get(rt)
+        if rt == "semantic" and src is None:
+            raise ValueError("a semantic member needs the split's edge-label table")
+        if src is not None and rt not in tables:
+            tables[rt] = torch.from_numpy(src.astype(np.int8)).to(device)
+    return tables
+
+
 def averaged_probs(
-    members: List[Member], store: DeviceStore, idx: torch.Tensor, num_rois: int
+    members: List[Member], store: DeviceStore, idx: torch.Tensor, num_rois: int,
+    tables: Dict[str, torch.Tensor],
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """(mean of the members' sigmoid answer probabilities [B, num_ans], the
-    shared batch) for index vector `idx`."""
+    shared batch) for index vector `idx`; `tables` from member_adj_tables."""
     batch = gather_batch(store, idx, num_rois, adj=False)
-    adj = None
+    img = store.entry_img[torch.clamp(idx, min=0).long()]
+    labels = {}
     probs = None
     with torch.no_grad():
         for rt, model in members:
             b = batch
-            if rt == "semantic":
-                if adj is None:
-                    if store.images.adj is None:
-                        raise ValueError("a semantic member needs the split's edge-label table")
-                    img = store.entry_img[torch.clamp(idx, min=0).long()]
-                    adj = gather_adj(store.images, img, num_rois, batch["valid"])
-                b = dict(batch, adj_label=adj)
+            if rt in tables:
+                if rt not in labels:
+                    labels[rt] = gather_adj(tables[rt], img, num_rois, batch["valid"])
+                b = dict(batch, adj_label=labels[rt])
             p = torch.sigmoid(model(b))
             probs = p if probs is None else probs + p
     return probs / len(members), batch
 
 
 def run_ensemble_eval(
-    cfg: Config, val_ds: SyntheticDataset, device: torch.device, logger: Logger
+    cfg: Config, val_ds: VQADataset, device: torch.device, logger: Logger
 ) -> float:
     """The ensemble's VQA score (%) over the split, in entry order."""
     members = load_members(cfg, val_ds, device, logger)
-    store = build_store(cfg, val_ds, device)
+    store = build_store(cfg.replace(relation_type="implicit"), val_ds, device)
+    tables = member_adj_tables(members, val_ds, device)
     score = torch.zeros((), device=device)
     n = torch.zeros((), device=device)
     start = time.time()
     for R, idx in eval_batch_stream(cfg, store, cfg.resolved_eval_batch()):
-        probs, batch = averaged_probs(members, store, torch.from_numpy(idx).to(device), R)
+        probs, batch = averaged_probs(members, store, torch.from_numpy(idx).to(device), R,
+                                      tables)
         score += vqa_score_sum(probs, batch["target"], batch["valid"])
         n += batch["valid"].to(torch.float32).sum()
     score_pct = 100.0 * float(score) / max(float(n), 1.0)

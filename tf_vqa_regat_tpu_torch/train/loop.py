@@ -26,8 +26,8 @@ The feature tables are held at --feature_dtype.
 
 Not ported (ROADMAP Queue A): --grad_accum, the multi-process preemption
 sync and checkpoint barrier (multi-device); --train_block and --eval_block
-(one step per dispatch, as JAX's --train_block 1); host streaming (real VQA
-data).
+(one step per dispatch, as JAX's --train_block 1); host streaming and the
+sharded store (a split whose tables do not fit the card is refused).
 """
 
 from __future__ import annotations
@@ -46,7 +46,7 @@ import torch
 from tf_vqa_regat_tpu_torch.config import Config
 from tf_vqa_regat_tpu_torch.data.ordering import ORDER_VERSION
 from tf_vqa_regat_tpu_torch.data.store import DeviceStore, gather_batch
-from tf_vqa_regat_tpu_torch.data.synthetic import SyntheticDataset
+from tf_vqa_regat_tpu_torch.data.features import VQADataset
 from tf_vqa_regat_tpu_torch.models.regat import ReGAT, trainable_mask
 from tf_vqa_regat_tpu_torch.params import load_state_arrays, state_tensors
 from tf_vqa_regat_tpu_torch.train import checkpoint as ckpt
@@ -200,12 +200,15 @@ def _batches(
 
 
 def build_store(
-    cfg: Config, ds: SyntheticDataset, device: torch.device, targets: bool = True
+    cfg: Config, ds: VQADataset, device: torch.device, targets: bool = True
 ) -> DeviceStore:
-    """The split's device store at --feature_dtype; under --roi_buckets,
-    prints the JAX package's clamp warning when an image has more boxes
-    than the largest bucket."""
-    store = DeviceStore(ds, device, targets, cfg.feature_dtype)
+    """The split's device store at --feature_dtype, through --packed_cache,
+    with the split's edge labels for an explicit relation type (JAX
+    loop.py's `include_adj`); under --roi_buckets, prints the JAX package's
+    clamp warning when an image has more boxes than the largest bucket."""
+    store = DeviceStore(ds, device, targets, cfg.feature_dtype,
+                        include_adj=cfg.relation_type != "implicit",
+                        cache_dir=cfg.packed_cache)
     buckets = cfg.parsed_roi_buckets()
     if buckets and store.num_entries:
         max_boxes = int(store.entry_nbox.max())
@@ -282,8 +285,8 @@ def _run_eval(
 
 def run_training(
     cfg: Config,
-    train_ds: SyntheticDataset,
-    val_ds: SyntheticDataset,
+    train_ds: VQADataset,
+    val_ds: VQADataset,
     model: ReGAT,
     device: torch.device,
     emb2_trainable: bool = False,
@@ -293,7 +296,9 @@ def run_training(
     (model, best eval score %); raises `Preempted` after a preemption save."""
     model.to(device)
     train_store = build_store(cfg, train_ds, device)
-    eval_store = DeviceStore(val_ds, device, feature_dtype=cfg.feature_dtype)
+    eval_store = DeviceStore(val_ds, device, feature_dtype=cfg.feature_dtype,
+                             include_adj=cfg.relation_type != "implicit",
+                             cache_dir=cfg.packed_cache)
     N = steps_per_epoch(cfg, train_store, cfg.batch_size)
     lr_fn = make_lr_schedule(cfg.base_lr, N, cfg.lr_decay_rate, cfg.lr_decay_step)
     opt = Adamax(model, trainable_mask(model, emb2_trainable), lr_fn, cfg.grad_clip)
@@ -418,7 +423,7 @@ def run_training(
 
 
 def run_evaluation(
-    cfg: Config, val_ds: SyntheticDataset, model: ReGAT, device: torch.device,
+    cfg: Config, val_ds: VQADataset, model: ReGAT, device: torch.device,
     logger: Logger,
 ) -> Tuple[float, float, float]:
     """`--mode eval`: one eval pass over the split -> (score %, mean loss, s)."""
@@ -427,7 +432,7 @@ def run_evaluation(
 
 
 def run_prediction(
-    cfg: Config, ds: SyntheticDataset, model: ReGAT, device: torch.device, logger: Logger,
+    cfg: Config, ds: VQADataset, model: ReGAT, device: torch.device, logger: Logger,
 ) -> str:
     """`--mode predict`: one forward pass over the split in entry order,
     the argmax answers written as the VQA submission JSON
