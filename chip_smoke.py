@@ -54,9 +54,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
      equal, each forward timed;
   8. the entry point, per family (implicit, spatial, semantic with BUTD;
      ban; mutan): `--mode train --synthetic --epochs 1` at the config's
-     widths and batch size 256 (16 steps of the 4,096-question synthetic
-     split for implicit, spatial and ban, 6 of a 1,536-question split for
-     semantic and mutan, then an eval pass): finite, falling loss, median
+     widths and batch size 256 (6 steps of a 1,536-question synthetic
+     split, then an eval pass): finite, falling loss, median
      step time; kernel launches over the run, 2 per forward pass, and none
      of the other relation's kernel;
   9. `--mode eval` on the written .npz: its loss equals the training run's
@@ -102,12 +101,23 @@ Phases, each of which fails the run (non-zero exit, no result line):
  16. one full-width b=256 train step of butd_vqa.json at `--compute_dtype
      bfloat16` against f32 (same parameters, batch and masks): the loss
      within BF16_LOSS_RTOL, each trainable leaf's gradient gap printed;
-     the train step's time at R = 36, 64, 100 in both dtypes;
+     the train step's time at R = 36, 64, 100 in both dtypes. Then
+     ban_vqa.json, mutan_vqa_cp.json (naive formulation) and with
+     `--mutan_shared_qdrop` (reassociated) at bf16, R = 100 and 36: the
+     kernel path against the plain path in bf16 (loss within
+     BF16_PATH_LOSS_RTOL, each trainable leaf's gradient as BF16_PATH_GRAD
+     says, 2 B1 train launches per forward, the formulation checked), the
+     bf16-vs-f32 loss and logits gaps, the median step time and the peak
+     device memory;
  17. the entry point at the JAX bench's settings (`--feature_dtype bfloat16
-     --compute_dtype bfloat16 --roi_buckets 36,64,100`), butd_vqa.json (B1)
-     and spatial_vqa.json (B2): `--mode train --epochs 1` and `--mode eval`,
-     the launches at each bucket R equal to 2 x (its train steps + its eval
-     batches) as the store counts them, the median step time per bucket;
+     --compute_dtype bfloat16 --roi_buckets 36,64,100`), butd_vqa.json (B1),
+     spatial_vqa.json (B2), ban_vqa.json and mutan_vqa_cp.json (B1), each on
+     1,536 questions: `--mode train --epochs 1` and `--mode eval`, the launches
+     at each bucket R equal to 2 x (its train steps + its eval batches) as
+     the store counts them, the median step time per bucket; then, for ban
+     and mutan, HTTP serve of the written .npz at those settings (the
+     checks of 10, the logits within BF16_PATH_LOGITS_RTOL of the plain
+     path's and an answer differing only at a counted tie);
  18. configs/butd_vqa_fixed36.json at b=256: train (1 epoch), eval, serve at
      b = 1, 8, 32 and predict, all at R=36 (the checks of 8-10 and 12),
      with f32 and then int8 feature tables;
@@ -133,10 +143,20 @@ Phases, each of which fails the run (non-zero exit, no result line):
      `--mmap_features --feature_dtype bfloat16 --packed_cache DIR` train and
      eval twice, the second run a cache hit (no conversion, the cache files
      untouched), with a bf16 gather held to numpy's rounding; the seconds
-     of every store build, with and without the cache.
-Counts of launches are set to 0 just before each path of 8-13 and 17-19
-runs and read just after it; the comparison launches of 3-7 and 14-16 and
-of the plain-path comparisons do not count. Each phase prints its wall
+     of every store build, with and without the cache;
+ 20. `--grad_accum`: from the same parameters, one f32 step of the
+     full-width b=256 model at `--dropout 0` with k = 1, 2, 4 microbatches,
+     for butd_vqa.json and mutan_vqa_cp.json (its naive formulation
+     forced): the loss, the gradient Adamax receives and the parameters
+     after the step against k = 1's (ACCUM_*), 2 k B1 train launches, each
+     k's median step time and peak device memory; then butd_vqa.json
+     `--mode train --grad_accum 2` with dropout on (phase 11's flags),
+     uninterrupted, preempted by REGAT_FAULT_PREEMPT_STEP=8 and resumed:
+     the resumed run equal to the uninterrupted one bit for bit, 2 x 2 B1
+     train launches per step.
+Counts of launches are set to 0 just before each path of 8-13, 17-19 and
+20 runs and read just after it; the comparison launches of 3-7 and 14-16
+and of the plain-path comparisons do not count. Each phase prints its wall
 time. Phases 8-13 run at the configs' full widths and depths, as before.
 Then it prints {"kernels": [...]} (each kernel's time, plain and library
 times, and its bound on an H100 SXM: the larger of the bytes it must move
@@ -224,6 +244,46 @@ BF16_LOSS_RTOL = 2e-2
 ZERO_GRAD_LEAVES = ("v_relation.gatt.bias.layers.0.b", "joint_emb.att_fusion.linear_out.b",
                     "joint_emb.att_linear0.layers.0.b")
 SHARED_QDROP_ZERO_GRAD_LEAVES = ("joint_emb.att_fusion.merge1.b",)
+# with no dropout at all the visual side of MuTAN's attention block meets
+# one question side per example, and its input bias too shifts every roi's
+# score of a glimpse alike
+DROPOUT0_ZERO_GRAD_LEAVES = ("joint_emb.att_fusion.linear1.b",)
+# - the same step at --compute_dtype bfloat16 (BAN, MuTAN), kernel path vs
+#   plain path: B1's ~1e-5 difference from its plain version (and its
+#   transcribed backward's other order of sums) moves bf16 roundings
+#   downstream by one unit (2^-8 relative) wherever a value sits near a
+#   rounding boundary. The loss, relative; and BF16_PATH_GRAD: each
+#   trainable leaf's gradient gap (relative to its largest magnitude; the
+#   zero-gradient leaves to the largest of all leaves) within twice the gap
+#   bf16 itself puts between that leaf's plain-path gradient and the f32
+#   model's, or within one bf16 unit roundoff, whichever is larger: a
+#   gradient that sums many rounded terms to a small total (a bias before a
+#   softmax) moves by ~10% between two orders of the same sums (measured on
+#   the CPU, where both paths run the plain forward).
+BF16_PATH_LOSS_RTOL = 1e-3
+BF16_PATH_GRAD_FLOOR = 2.0 ** -8
+# - served logits at --compute_dtype bfloat16, kernel path vs plain path,
+#   relative to the largest |logit|: the same unit flips, through the
+#   fusion and the classifier, each rounding to bf16 on its output.
+BF16_PATH_LOGITS_RTOL = 2e-2
+# - --grad_accum k against k = 1, one f32 step from the same parameters at
+#   --dropout 0 (the same batch-mean gradient, its per-example terms summed
+#   in another order): the loss, relative; the gradient Adamax receives,
+#   element by element within ACCUM_GRAD_RTOL of k = 1's plus
+#   ACCUM_GRAD_ATOL of the largest gradient of all leaves, as the JAX
+#   package's test holds its accumulated gradient (rtol 1e-4, atol 1e-7;
+#   the zero-gradient leaves left out: rounding noise); and the parameters
+#   after the step within ACCUM_PARAM_ATOL, as tests/test_torch_grad_accum.py
+#   holds them on the CPU, wherever k = 1's gradient exceeds twice the
+#   gradients' absolute bound. Adamax's first step moves an element by
+#   lr g / (|g| + 1e-8), about lr times the sign of g, so where the sign of
+#   g is not determined by the f32 sums (on an H100, 6,181 of 22.7 M
+#   elements of butd differed by up to 1.1 lr at k = 2) the two steps may
+#   differ by up to 2 lr, which is all that is asked there.
+ACCUM_LOSS_RTOL = 1e-5
+ACCUM_GRAD_RTOL = 1e-4
+ACCUM_GRAD_ATOL = 1e-6
+ACCUM_PARAM_ATOL = 1e-5
 # - MuTAN's reassociated and naive formulations through the whole model on
 #   one eval batch, relative to the largest |logit|: the same 18,000 products
 #   per output of the Tucker block summed in another nesting (f32, relative
@@ -334,7 +394,7 @@ def rows_counts() -> dict:
     return out
 
 
-# the launches by (kernel, R) of every path of 8-19 that records them
+# the launches by (kernel, R) of every path of 8-20 that records them
 PATH_ROWS = []
 # the split sizes of check_entry_point's last training run, and its train
 # batches that carried edge labels
@@ -940,15 +1000,7 @@ def check_train_step(device, family, extra=()):
         loss_p, grads_p = loss_and_grads()
     torch.cuda.synchronize()
     trainable = trainable_mask(model, False)
-    zero_grad = {n for n, t in trainable.items() if not t}
-    zero_grad.update(ZERO_GRAD_LEAVES)
-    if cfg.mutan_shared_qdrop:
-        zero_grad.update(SHARED_QDROP_ZERO_GRAD_LEAVES)
-    top = max(g.abs().max() for g in grads_p)
-    errs = {
-        n: ((a - b).abs().max() / top).item() if n in zero_grad else max_rel(a, b)
-        for (n, _), a, b in zip(model.named_parameters(), grads_k, grads_p)
-    }
+    errs = leaf_gaps(model, zero_grad_leaves(model, cfg), grads_k, grads_p)
     worst, *runners_up = sorted(errs, key=errs.get, reverse=True)[:3]
     loss_err = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
     print(f"{label} train step b={cfg.batch_size} kernel vs plain: loss {loss_k.item()} vs "
@@ -1125,11 +1177,14 @@ def http(url, body=None):
         return e.code, json.loads(e.read())
 
 
-def check_serve(ckpt, family, extra=(), config=None, data=None):
+def check_serve(ckpt, family, extra=(), config=None, data=None, bf16=False):
     """--mode serve of `ckpt` at the widths of the family's config (or
     `config`), with the flags `extra`, on the synthetic val split or the
-    dataset in `data`. Returns (launches, forward passes, logits max abs
-    diff)."""
+    dataset in `data`. Under `bf16` (--compute_dtype bfloat16 in `extra`)
+    the served logits are held to the plain path's within
+    BF16_PATH_LOGITS_RTOL, and an answer may differ only where the plain
+    path's top two lie within twice the largest difference (a counted tie).
+    Returns (launches, forward passes, logits max abs diff)."""
     import torch
 
     from tf_vqa_regat_tpu_torch.config import parse_with_config
@@ -1198,10 +1253,15 @@ def check_serve(ckpt, family, extra=(), config=None, data=None):
             fail(f"logits {tuple(got.shape)} not finite or not [8, {ds.num_ans}]")
         logits_err = (got - want).abs().max().item()
         scale = want.abs().max().item()
-        same_argmax = bool((got.argmax(-1) == want.argmax(-1)).all())
+        rtol = BF16_PATH_LOGITS_RTOL if bf16 else LOGITS_RTOL
+        flips = got.argmax(-1) != want.argmax(-1)
+        top2 = want.topk(2, dim=-1).values
+        ties = (top2[:, 0] - top2[:, 1]) <= 2 * logits_err
+        same_argmax = not bool((flips & ~ties).any() if bf16 else flips.any())
         print(f"{label} logits kernel vs plain: max abs diff {logits_err}, largest |logit| "
-              f"{scale} (tol {LOGITS_RTOL} of it), argmax equal {same_argmax}", flush=True)
-        if not logits_err <= LOGITS_RTOL * scale or not same_argmax:
+              f"{scale} (tol {rtol} of it), argmax equal {same_argmax} ({int(flips.sum())} "
+              f"differ, {int(ties.sum())} ties within {2 * logits_err})", flush=True)
+        if not logits_err <= rtol * scale or not same_argmax:
             fail("served logits disagree with the plain path")
 
         # Host-clock latency of one engine call per fixed batch size.
@@ -1290,6 +1350,35 @@ def run_distance(a, b):
     return diff, excess, metric, bits
 
 
+def preempted_then_resumed(out, flags):
+    """configs/butd_vqa.json's `--mode train` with `flags` in `out`: (b) under
+    REGAT_FAULT_PREEMPT_STEP=8, which must return with meta at epoch 1,
+    step 2 and no final .npz, then (c) the same with `--resume`. Returns
+    (c)'s run (read_run), its launches and its saves."""
+    from tf_vqa_regat_tpu_torch import main as port_main
+    from tf_vqa_regat_tpu_torch.train import checkpoint as ckpt
+
+    os.environ["REGAT_FAULT_PREEMPT_STEP"] = "8"
+    try:
+        if port_main.main(entry_argv("implicit", out, *flags)) is not None:
+            fail("the run with REGAT_FAULT_PREEMPT_STEP=8 was not preempted")
+    finally:
+        del os.environ["REGAT_FAULT_PREEMPT_STEP"]
+    meta = ckpt.restore_meta_full(out)
+    print(f"resume run (b) {' '.join(flags)}, preempted: meta {json.dumps(meta)}", flush=True)
+    if (meta or {}).get("epoch") != 1 or meta.get("step_in_epoch") != 2:
+        fail(f"preempted run left meta {meta}, expected epoch 1, step_in_epoch 2")
+    if any(f.endswith(".npz") for f in os.listdir(out)):
+        fail("the preempted run wrote a final .npz")
+    reset_counts()  # the resumed path starts here
+    with recorded_saves() as saves:
+        path = port_main.main(entry_argv("implicit", out, *flags, "--resume"))
+    launches = read_path_counts()
+    if path is None:
+        fail("the resumed run was preempted")
+    return read_run(out), launches, saves
+
+
 def check_resume(tmp, smi, device):
     """Phase 11. Returns the launches of the resumed run (c)."""
     import torch
@@ -1315,25 +1404,7 @@ def check_resume(tmp, smi, device):
         print(f"resume run ({name}): {wall:.1f} s; saves (kind, call s, waited s) "
               f"{json.dumps(saves)}, {sum(w for _, _, w in saves):.3f} s waited in all, "
               f"on {smi}", flush=True)
-    os.environ["REGAT_FAULT_PREEMPT_STEP"] = "8"
-    try:
-        if port_main.main(entry_argv("implicit", outs["b"], *flags)) is not None:
-            fail("the run with REGAT_FAULT_PREEMPT_STEP=8 was not preempted")
-    finally:
-        del os.environ["REGAT_FAULT_PREEMPT_STEP"]
-    meta = ckpt.restore_meta_full(outs["b"])
-    print(f"resume run (b), preempted: meta {json.dumps(meta)}", flush=True)
-    if (meta or {}).get("epoch") != 1 or meta.get("step_in_epoch") != 2:
-        fail(f"preempted run left meta {meta}, expected epoch 1, step_in_epoch 2")
-    if any(f.endswith(".npz") for f in os.listdir(outs["b"])):
-        fail("the preempted run wrote a final .npz")
-    reset_counts()  # the resumed path starts here
-    with recorded_saves() as saves:
-        path = port_main.main(entry_argv("implicit", outs["b"], *flags, "--resume"))
-    launches = read_path_counts()
-    if path is None:
-        fail("the resumed run was preempted")
-    resumed = read_run(outs["b"])
+    resumed, launches, saves = preempted_then_resumed(outs["b"], flags)
     diff, excess, metric, bits = run_distance(runs["a"], resumed)
     s_diff, s_excess, s_metric, s_bits = run_distance(runs["a"], runs["a2"])
     print(f"resume (c) vs uninterrupted (a): params max abs diff {diff} (excess over "
@@ -1576,6 +1647,8 @@ ROWS = (36, 64)  # the roi buckets below 100 of the JAX bench's --roi_buckets 36
 ROWS_BATCHES = (1, 32, 256)
 BENCH_FLAGS = ("--feature_dtype", "bfloat16", "--compute_dtype", "bfloat16",
                "--roi_buckets", "36,64,100")
+# the train split of the entry point's runs in 8 and 17: 6 steps of b=256
+SHORT_TRAIN = ("--synthetic_train_size", "1536")
 
 
 def check_kernels_at_rows(device, R):
@@ -1800,21 +1873,287 @@ def check_bf16_step(device, smi):
     return times
 
 
-def check_bench_settings(tmp, smi, family):
+def zero_grad_leaves(model, cfg):
+    """The trainable leaves whose true gradient is zero in this model's train
+    step (see ZERO_GRAD_LEAVES), and the leaves trainable_mask freezes."""
+    from tf_vqa_regat_tpu_torch.models.regat import trainable_mask
+
+    zero = {n for n, t in trainable_mask(model, False).items() if not t}
+    zero.update(ZERO_GRAD_LEAVES)
+    if cfg.mutan_shared_qdrop or cfg.dropout == 0.0:
+        zero.update(SHARED_QDROP_ZERO_GRAD_LEAVES)
+    if cfg.dropout == 0.0:
+        zero.update(DROPOUT0_ZERO_GRAD_LEAVES)
+    return zero
+
+
+def leaf_gaps(model, zero, got, want):
+    """Per leaf: the gradient gap over the leaf's largest magnitude, or over
+    the largest gradient of all leaves for a leaf in `zero`."""
+    top = max(g.abs().max() for g in want)
+    return {n: ((a - b).abs().max() / top).item() if n in zero else max_rel(a, b)
+            for (n, _), a, b in zip(model.named_parameters(), got, want)}
+
+
+def check_bf16_fusion_step(device, smi, family, extra=()):
+    """Phase 16 for BAN and MuTAN (with `extra`, e.g. --mutan_shared_qdrop):
+    the family's full-width b=256 model at --compute_dtype bfloat16, R = 100
+    and 36, the same parameters, batch and dropout masks throughout: the
+    kernel path against the plain path in bf16 (the loss within
+    BF16_PATH_LOSS_RTOL, each trainable leaf's gradient as BF16_PATH_GRAD
+    says, 2 B1 train launches per forward, the MuTAN formulation checked),
+    the bf16 loss and logits against the f32 model's, then the bf16 train
+    step's median time (CUDA events, 8 after 2 warm-up) and its peak device
+    memory. Returns the row printed per R."""
+    import torch
+
+    from tf_vqa_regat_tpu_torch.data.store import DeviceStore, gather_batch
+    from tf_vqa_regat_tpu_torch.main import build_dataset
+    from tf_vqa_regat_tpu_torch.models.regat import ReGAT, trainable_mask
+    from tf_vqa_regat_tpu_torch.train.optim import Adamax, make_lr_schedule
+    from tf_vqa_regat_tpu_torch.train.step import train_forward, train_step
+
+    cfg = full_width_config(family, ["--mode", "train", "--compute_dtype", "bfloat16", *extra])
+    label = " ".join([family, *extra, "bf16"])
+    ds = build_dataset(cfg, "train")
+    store = DeviceStore(ds, device)
+    idx = torch.from_numpy(next(store.epoch_indices(0, cfg.batch_size, True, cfg.seed)))
+    idx = idx.to(device)
+    model = ReGAT(cfg, ds.ntoken, ds.v_dim, ds.num_ans).to(device)
+    f32 = ReGAT(cfg.replace(compute_dtype="float32"), ds.ntoken, ds.v_dim, ds.num_ans)
+    f32.load_state_dict(model.state_dict())
+    f32.to(device)
+    zero = zero_grad_leaves(model, cfg)
+    trainable = [n for n, t in trainable_mask(model, False).items() if t]
+    want_branches = ["reassociated" if cfg.mutan_shared_qdrop else "naive", "naive"]
+    rows = {}
+    for R in (100, 36):
+        batch = gather_batch(store, idx, R)
+
+        def loss_and_grads(m):
+            loss, logits = train_forward(m, batch, 0, cfg.seed)
+            return loss.detach(), logits.detach(), torch.autograd.grad(loss, list(m.parameters()))
+
+        reset_counts()
+        with mutan_branches() as branches:
+            loss_k, logits_k, grads_k = loss_and_grads(model)
+        launches = counts()
+        with plain_kernels():
+            loss_p, _, grads_p = loss_and_grads(model)
+        loss_f, logits_f, grads_f = loss_and_grads(f32)
+        kernel_vs_plain = leaf_gaps(model, zero, grads_k, grads_p)
+        bf16_vs_f32 = leaf_gaps(model, zero, grads_p, grads_f)
+        allowed = {n: max(2 * bf16_vs_f32[n], BF16_PATH_GRAD_FLOOR) for n in trainable}
+        worst = max(trainable, key=lambda n: kernel_vs_plain[n] / allowed[n])
+        finite = all(torch.isfinite(g).all() for g in grads_k)
+        del grads_k, grads_p, grads_f
+        loss_err = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
+        opt = Adamax(model, trainable_mask(model, False), make_lr_schedule(
+            cfg.base_lr, 16, cfg.lr_decay_rate, cfg.lr_decay_step), cfg.grad_clip)
+        saved = {k: v.clone() for k, v in model.state_dict().items()}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        ms = []
+        for step in range(10):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            train_step(model, opt, batch, step, cfg.seed)
+            ev[1].record()
+            ev[1].synchronize()
+            ms.append(ev[0].elapsed_time(ev[1]))
+        peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+        model.load_state_dict(saved)
+        del opt, saved
+        rows[R] = dict(loss_kernel=loss_k.item(), loss_plain=loss_p.item(), loss_rel=loss_err,
+                       worst_leaf=worst, worst_leaf_kernel_vs_plain=kernel_vs_plain[worst],
+                       worst_leaf_bf16_vs_f32=bf16_vs_f32[worst], loss_f32=loss_f.item(),
+                       bf16_vs_f32_loss_rel=abs(loss_k.item() - loss_f.item()) / abs(loss_f.item()),
+                       bf16_vs_f32_logits_rel=max_rel(logits_k, logits_f),
+                       b1_launches_per_forward=launches, step_ms=statistics.median(ms[2:]),
+                       peak_gb=peak_gb, branches=branches)
+        print(f"{label} train step b={cfg.batch_size} R={R} on {smi}, TF32 off: "
+              f"{json.dumps(rows[R])}", flush=True)
+        if not finite:
+            fail(f"{label} R={R}: a gradient is not finite")
+        if family == "mutan" and branches != want_branches:
+            fail(f"{label} R={R} ran the MuTAN formulations {branches}, expected {want_branches}")
+        if launches["B1 train"] != 2 or sum(launches.values()) != 2:
+            fail(f"{label} R={R}: launches per forward {launches}, expected 2 of B1 train")
+        if not loss_err <= BF16_PATH_LOSS_RTOL:
+            fail(f"{label} R={R}: kernel vs plain loss rel {loss_err} > {BF16_PATH_LOSS_RTOL}")
+        if not kernel_vs_plain[worst] <= allowed[worst]:
+            fail(f"{label} R={R}: {worst} gradient kernel vs plain {kernel_vs_plain[worst]} > "
+                 f"{allowed[worst]} (twice its bf16-vs-f32 gap {bf16_vs_f32[worst]}, or "
+                 f"{BF16_PATH_GRAD_FLOOR})")
+        if not rows[R]["bf16_vs_f32_loss_rel"] <= BF16_LOSS_RTOL:
+            fail(f"{label} R={R}: bf16 loss differs from f32 by rel "
+                 f"{rows[R]['bf16_vs_f32_loss_rel']} > {BF16_LOSS_RTOL}")
+    return rows
+
+
+def check_grad_accum(device, smi, family, force_naive=False):
+    """Phase 20 for one family: from the same parameters, one f32 train step
+    of the full-width b=256 model at --dropout 0 with --grad_accum k = 1, 2,
+    4 (MuTAN's naive formulation forced in place of the reassociated one,
+    which dropout 0 would take): the gradient Adamax receives agrees with
+    k = 1's as ACCUM_GRAD says, the loss within
+    ACCUM_LOSS_RTOL, the parameters after the step as ACCUM_PARAM_ATOL says, B1
+    train launches 2 k; then each k's median step time (CUDA events, 4
+    after 2 warm-up) and peak device memory. Returns (the row printed per
+    k, the launches of the checked steps)."""
+    import torch
+
+    from tf_vqa_regat_tpu_torch.data.store import DeviceStore, gather_batch
+    from tf_vqa_regat_tpu_torch.main import build_dataset
+    from tf_vqa_regat_tpu_torch.models.regat import ReGAT, trainable_mask
+    from tf_vqa_regat_tpu_torch.train.optim import Adamax, make_lr_schedule
+    from tf_vqa_regat_tpu_torch.train.step import train_step
+
+    cfg = full_width_config(family, ["--mode", "train", "--dropout", "0"])
+    label = f"{family}{' naive' if force_naive else ''} --dropout 0"
+    ds = build_dataset(cfg, "train")
+    store = DeviceStore(ds, device)
+    idx = next(store.epoch_indices(0, cfg.batch_size, True, cfg.seed))
+    batch = gather_batch(store, torch.from_numpy(idx).to(device), cfg.resolved_num_rois())
+    model = ReGAT(cfg, ds.ntoken, ds.v_dim, ds.num_ans).to(device)
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    zero = zero_grad_leaves(model, cfg)
+    names = [n for n, _ in model.named_parameters()]
+    checked = [n for n, t in trainable_mask(model, False).items() if t and n not in zero]
+    schedule = make_lr_schedule(cfg.base_lr, 16, cfg.lr_decay_rate, cfg.lr_decay_step)
+    rows, after, grads, path_launches = {}, {}, {}, []
+    for k in (1, 2, 4):
+        model.load_state_dict(init)
+        opt = Adamax(model, trainable_mask(model, False), schedule, cfg.grad_clip)
+        real_step = opt.step
+
+        def spy(g, real_step=real_step, k=k):
+            grads[k] = dict(zip(names, (t.clone() for t in g)))
+            real_step(g)
+
+        opt.step = spy
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        reset_counts()  # the checked step starts here
+        with mutan_branches(force_naive) as branches:
+            m = train_step(model, opt, batch, 0, cfg.seed, k)
+            after[k] = {n: p.detach().clone() for n, p in model.named_parameters()}
+            launches = read_path_counts()
+            path_launches.append(launches)
+            opt.step = real_step
+            ms = []
+            for step in range(1, 7):
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                ev[0].record()
+                train_step(model, opt, batch, step, cfg.seed, k)
+                ev[1].record()
+                ev[1].synchronize()
+                ms.append(ev[0].elapsed_time(ev[1]))
+        peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+        top = max(g.abs().max().item() for g in grads[1].values())
+        # np.allclose's form: the excess over rtol |g_1| + atol, in units of atol
+        grad_gaps = {n: ((grads[k][n] - grads[1][n]).abs() - ACCUM_GRAD_RTOL * grads[1][n].abs()
+                         ).max().item() / (ACCUM_GRAD_ATOL * top) for n in checked}
+        worst_grad = max(grad_gaps, key=grad_gaps.get)
+        moved = {n: (after[k][n] - after[1][n]).abs() for n in names}
+        # where k = 1's gradient lies within the bound the gradients are held
+        # to, its sign, and so Adamax's first step, is not determined
+        undetermined = {n: grads[1][n].abs() <= 2 * ACCUM_GRAD_ATOL * top for n in names}
+        over = sum(int(((d > ACCUM_PARAM_ATOL) & ~undetermined[n]).sum())
+                   for n, d in moved.items())
+        total = sum(d.numel() for d in moved.values())
+        worst = max(names, key=lambda n: moved[n].max().item())
+        free = sum(int(u.sum()) for u in undetermined.values())
+        worst_free = max(moved[n][undetermined[n]].max().item() if undetermined[n].any() else 0.0
+                         for n in names)
+        rows[k] = dict(loss=float(m["loss"]), n=float(m["n"]), step_ms=statistics.median(ms[2:]),
+                       peak_gb=peak_gb, launches=launches, worst_grad_leaf=worst_grad,
+                       worst_grad_excess_in_atol=grad_gaps[worst_grad],
+                       worst_grad_leaf_rel_vs_k1=max_rel(grads[k][worst_grad],
+                                                         grads[1][worst_grad]),
+                       largest_grad=top, worst_param_leaf=worst,
+                       worst_param_abs_diff_vs_k1=moved[worst].max().item(),
+                       params_over_atol=over, params=total, lr=schedule(0),
+                       params_sign_undetermined=free,
+                       worst_sign_undetermined_abs_diff=worst_free,
+                       branches_replaced_by_naive=sorted(set(branches)) if force_naive else [])
+        del moved
+        print(f"{label} --grad_accum {k} b={cfg.batch_size} f32 on {smi}, TF32 off: "
+              f"{json.dumps(rows[k])}", flush=True)
+        want_launches = {"B1 eval": 0, "B1 train": 2 * k, "B2": 0, "B2 per-head": 0}
+        if launches != want_launches:
+            fail(f"{label} --grad_accum {k}: launches {launches}, expected {want_launches}")
+        if force_naive and "reassociated" not in branches:
+            fail(f"{label}: no MuTAN block took the reassociated formulation to replace")
+        loss_rel = abs(rows[k]["loss"] - rows[1]["loss"]) / abs(rows[1]["loss"])
+        if not loss_rel <= ACCUM_LOSS_RTOL:
+            fail(f"{label} --grad_accum {k}: loss {rows[k]['loss']} vs k=1 {rows[1]['loss']} "
+                 f"(rel {loss_rel} > {ACCUM_LOSS_RTOL})")
+        if not grad_gaps[worst_grad] <= 1.0:
+            fail(f"{label} --grad_accum {k}: {worst_grad} gradient differs from k=1 by more "
+                 f"than {ACCUM_GRAD_RTOL} of it + {ACCUM_GRAD_ATOL} of the largest gradient")
+        if over or not rows[k]["worst_param_abs_diff_vs_k1"] <= 2 * schedule(0):
+            fail(f"{label} --grad_accum {k}: {over} of the {total - free} parameters whose "
+                 f"gradient's sign is determined differ from k=1 by more than "
+                 f"{ACCUM_PARAM_ATOL} (worst of all {worst}, {moved[worst].max().item()})")
+        del opt
+        if k != 1:  # k = 1's stay as the reference
+            del grads[k], after[k]
+    return rows, path_launches
+
+
+def check_grad_accum_resume(tmp, smi):
+    """Phase 20's resume: configs/butd_vqa.json at full width, b=256,
+    `--grad_accum 2` with dropout on (phase 11's flags otherwise): (a)
+    uninterrupted, then (b) preempted and (c) resumed; (c) must equal (a)
+    bit for bit, with 2 x 2 B1 train launches per step over its 4 steps.
+    Returns the launches of (a) and (c)."""
+    from tf_vqa_regat_tpu_torch import main as port_main
+
+    flags = ["--mode", "train", "--epochs", "2", "--synthetic_train_size", "1536",
+             "--checkpoint_every_steps", "2", "--grad_accum", "2"]
+    reset_counts()  # the uninterrupted path starts here
+    t0 = time.perf_counter()
+    if port_main.main(entry_argv("implicit", os.path.join(tmp, "a"), *flags)) is None:
+        fail("the --grad_accum 2 run (a) was preempted")
+    wall = time.perf_counter() - t0
+    launches_a = read_path_counts()
+    uninterrupted = read_run(os.path.join(tmp, "a"))
+    resumed, launches_c, _ = preempted_then_resumed(os.path.join(tmp, "b"), flags)
+    diff, excess, metric, bits = run_distance(uninterrupted, resumed)
+    print(f"--grad_accum 2 resume (c) vs uninterrupted (a, {wall:.1f} s on {smi}): params "
+          f"max abs diff {diff}, metrics max rel diff {metric}, bit-equal {bits}; launches "
+          f"of (a) {json.dumps(launches_a)}, of (c) {json.dumps(launches_c)}", flush=True)
+    if not bits:
+        fail(f"the resumed --grad_accum 2 run differs from the uninterrupted one: params "
+             f"{diff}, metrics rel {metric}")
+    cfg = full_width_config("implicit", ["--mode", "train"])
+    passes = -(-cfg.synthetic_val_size // cfg.resolved_eval_batch())
+    for run, launches, steps, epochs in (("(a)", launches_a, 12, 2), ("(c)", launches_c, 4, 1)):
+        if launches != expected_launches("implicit", epochs * passes, 2 * steps):
+            fail(f"--grad_accum 2 run {run}: launches {launches} for {steps} steps of 2 "
+                 f"microbatches and {epochs * passes} eval passes")
+    for k in ("a", "b"):
+        shutil.rmtree(os.path.join(tmp, k, "checkpoints"))
+    return [launches_a, launches_c]
+
+
+def check_bench_settings(tmp, smi, family, extra=()):
     """Phase 17: `--mode train --epochs 1` then `--mode eval` under the
-    family's config at the JAX bench's settings (BENCH_FLAGS): the launches
-    at each bucket R equal 2 x (train steps + eval batches) of that bucket,
-    as the store counts them (B1's train variant for the steps and eval
-    variant for the batches, B2 for both), every step finite, the eval loss
-    equal to the training run's last; the median step time per bucket.
-    Returns (train path launches, the median step ms per bucket)."""
+    family's config (with the flags `extra`) at the JAX bench's settings
+    (BENCH_FLAGS): the launches at each bucket R equal 2 x (train steps +
+    eval batches) of that bucket, as the store counts them (B1's train
+    variant for the steps and eval variant for the batches, B2 for both),
+    every step finite, the eval loss equal to the training run's last; the
+    median step time per bucket. Returns (the launches of the train and eval
+    paths, the median step ms per bucket, the written .npz)."""
     import torch
 
     from tf_vqa_regat_tpu_torch import main as port_main
     from tf_vqa_regat_tpu_torch.data.store import DeviceStore
     from tf_vqa_regat_tpu_torch.train import loop
 
-    argv = entry_argv(family, tmp, "--print_freq", "4", *BENCH_FLAGS)
+    argv = entry_argv(family, tmp, "--print_freq", "4", *BENCH_FLAGS, *extra)
     cfg = port_main.parse(argv + ["--mode", "train"])[0]
     buckets = cfg.parsed_roi_buckets()
     cpu = torch.device("cpu")
@@ -1858,7 +2197,7 @@ def check_bench_settings(tmp, smi, family):
     step_ms = {R: statistics.median(t) for R, t in per_bucket.items() if t}
     with open(os.path.join(tmp, "metrics.jsonl")) as fh:
         last = [json.loads(line) for line in fh][-1]
-    label = f"{CONFIGS[family]} {' '.join(BENCH_FLAGS)}"
+    label = f"{CONFIGS[family]} {' '.join(BENCH_FLAGS + tuple(extra))}"
     print(f"{label} --mode train: steps per bucket {json.dumps({R: len(t) for R, t in per_bucket.items()})} "
           f"(store: {json.dumps(steps)}), eval batches per bucket {json.dumps(evals)}; median "
           f"step ms per bucket (CUDA events) on {smi}, TF32 off: {json.dumps(step_ms)}; "
@@ -1881,7 +2220,7 @@ def check_bench_settings(tmp, smi, family):
         fail(f"{label} --mode eval loss differs from the training run's by rel {rel}")
     if rows_eval != want(False):
         fail(f"{label} --mode eval: launches {rows_eval}, expected {want(False)}")
-    return [launches, launches_eval], step_ms
+    return [launches, launches_eval], step_ms, path
 
 
 def check_fixed36(tmp_root, smi, device):
@@ -2190,15 +2529,18 @@ def main() -> None:
     with phase("16, bf16 train step"):
         check_bf16_step(device, smi_line)
     torch.cuda.empty_cache()
+    for family, extra in (("ban", ()), ("mutan", ()), ("mutan", ("--mutan_shared_qdrop",))):
+        with phase(f"16, {' '.join([family, *extra])} bf16 train step"):
+            check_bf16_fusion_step(device, smi_line, family, extra)
+        torch.cuda.empty_cache()
     launches = []  # the launch counts of every path of 8-13
     npz = {}
     with tempfile.TemporaryDirectory() as tmp_root:
-        for family, extra in (("implicit", ()), ("spatial", ()),
-                              ("semantic", ("--synthetic_train_size", "1536")), ("ban", ()),
-                              ("mutan", ("--synthetic_train_size", "1536"))):
+        for family in CONFIGS:
             tmp = os.path.join(tmp_root, family)
             with phase(f"8-9, {family} train and eval"):
-                npz[family], train_launches, _ = check_entry_point(tmp, smi_line, family, extra)
+                npz[family], train_launches, _ = check_entry_point(tmp, smi_line, family,
+                                                                   SHORT_TRAIN)
             with phase(f"10, {family} serve"):
                 serve_launches, _, _ = check_serve(npz[family], family)
             shutil.rmtree(os.path.join(tmp, "checkpoints"))
@@ -2215,17 +2557,26 @@ def main() -> None:
         with phase("13, ensemble"):
             launches += check_ensemble(tmp_root, smi_line, npz, device)
         torch.cuda.empty_cache()
-        for family in ("implicit", "spatial"):
+        for family in ("implicit", "spatial", "ban", "mutan"):
             with phase(f"17, {family} at the bench's settings"):
-                paths, _ = check_bench_settings(os.path.join(tmp_root, f"bench_{family}"),
-                                                smi_line, family)
+                paths, _, path = check_bench_settings(
+                    os.path.join(tmp_root, f"bench_{family}"), smi_line, family, SHORT_TRAIN)
                 launches += paths
+                if family in ("ban", "mutan"):
+                    launches.append(check_serve(path, family, BENCH_FLAGS, bf16=True)[0])
             torch.cuda.empty_cache()
         with phase("18, fixed-36"):
             launches += check_fixed36(tmp_root, smi_line, device)
         torch.cuda.empty_cache()
         with phase("19, real-layout data"):
             launches += check_realdata(tmp_root, smi_line, device)
+        torch.cuda.empty_cache()
+        for family, naive in (("implicit", False), ("mutan", True)):
+            with phase(f"20, {family} --grad_accum 1, 2, 4"):
+                launches += check_grad_accum(device, smi_line, family, naive)[1]
+            torch.cuda.empty_cache()
+        with phase("20, --grad_accum 2 resume"):
+            launches += check_grad_accum_resume(os.path.join(tmp_root, "accum"), smi_line)
         torch.cuda.empty_cache()
 
     if any(m.split(".")[0] in ("jax", "jaxlib", "tf_vqa_regat_tpu") for m in sys.modules):
@@ -2237,15 +2588,15 @@ def main() -> None:
     big = next(r for r in rows if r["b"] == 32)
     train_big, graph_big = train_rows[-1], graph_rows[-1]
     bound_keys = ("bound_ms", "bound_by")
-    def total(kernel):  # over every path of 8-19, all R
+    def total(kernel):  # over every path of 8-20, all R
         return sum(run[kernel] for run in launches)
 
-    def at_rows(kernel, R):  # over every path of 8-19, at R
+    def at_rows(kernel, R):  # over every path of 8-20, at R
         return sum(run.get((kernel, R), 0) for run in PATH_ROWS)
 
     def rows_entries(R):
         """B1's two variants and B2 at R (14's rows: B1 eval at b=32, the
-        others at b=256); launches at R over the paths of 8-19."""
+        others at b=256); launches at R over the paths of 8-20."""
         by_b = {r["b"]: r for r in rows_at[R]}
         small, big = by_b[32], by_b[256]
         return [{

@@ -27,6 +27,10 @@ from tf_vqa_regat_tpu_torch import nn as tnn
 from tf_vqa_regat_tpu_torch.models.ban import BAN
 from tf_vqa_regat_tpu_torch.params import flatten_tree, load_jax_arrays
 
+# small CPU ops run fastest on one thread, and the suite runs several
+# workers on the same cores
+torch.set_num_threads(1)
+
 B, R, T, V_DIM, Q_DIM = 3, 10, 14, 40, 32
 OUT_TOL = dict(atol=1e-5, rtol=1e-5)
 GRAD_TOL = dict(atol=1e-4, rtol=1e-4)

@@ -58,6 +58,10 @@ from tf_vqa_regat_tpu_torch.params import flatten_tree, load_jax_arrays
 from tf_vqa_regat_tpu_torch.train.optim import Adamax, make_lr_schedule
 from tf_vqa_regat_tpu_torch.train.step import train_step
 
+# small CPU ops run fastest on one thread, and the suite runs several
+# workers on the same cores
+torch.set_num_threads(1)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 V_DIM, NUM_ANS, R = 32, 9, 16
 BF16_LOGITS_RTOL = 2e-2

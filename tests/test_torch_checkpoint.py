@@ -51,6 +51,10 @@ from tf_vqa_regat_tpu_torch.train.loop import Preempted, _PreemptWatcher, run_tr
 from tf_vqa_regat_tpu_torch.train.optim import Adamax, make_lr_schedule
 from tf_vqa_regat_tpu_torch.train.step import train_forward, train_step
 
+# small CPU ops run fastest on one thread, and the suite runs several
+# workers on the same cores
+torch.set_num_threads(1)
+
 CPU = torch.device("cpu")
 V_DIM, NUM_ANS = 24, 7
 TOL = dict(rtol=1e-6, atol=1e-7)

@@ -30,6 +30,10 @@ from tf_vqa_regat_tpu_torch.data.features import load_vqa_dataset
 from tf_vqa_regat_tpu_torch.data.store import DeviceStore
 from tf_vqa_regat_tpu_torch.main import build_datasets
 
+# small CPU ops run fastest on one thread, and the suite runs several
+# workers on the same cores
+torch.set_num_threads(1)
+
 CPU = torch.device("cpu")
 
 STORE_KEYS = ("features", "normalized_bb", "bb", "pos_boxes", "semantic_adj", "spatial_adj")

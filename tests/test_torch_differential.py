@@ -21,6 +21,9 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# small CPU ops run fastest on one thread, and the suite runs several
+# workers on the same cores
+torch.set_num_threads(1)
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402

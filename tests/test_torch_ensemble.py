@@ -42,6 +42,10 @@ from tf_vqa_regat_tpu_torch.train.ensemble import (
 )
 from tf_vqa_regat_tpu_torch.train.logging import Logger
 
+# small CPU ops run fastest on one thread, and the suite runs several
+# workers on the same cores
+torch.set_num_threads(1)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 V_DIM, NUM_ANS = 16, 7
 SPLIT = dict(num_images=8, num_questions=43, v_dim=V_DIM, num_ans=NUM_ANS, seed=5,

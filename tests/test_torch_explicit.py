@@ -48,6 +48,10 @@ from tf_vqa_regat_tpu_torch.models.regat import ReGAT, trainable_mask
 from tf_vqa_regat_tpu_torch.params import flatten_tree, load_jax_arrays, to_jax_arrays
 from tf_vqa_regat_tpu_torch.train.step import train_forward
 
+# small CPU ops run fastest on one thread, and the suite runs several
+# workers on the same cores
+torch.set_num_threads(1)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FAMILIES = ["spatial", "semantic"]
 V_DIM, NUM_ANS, R = 32, 9, 16

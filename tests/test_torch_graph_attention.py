@@ -39,6 +39,10 @@ from tf_vqa_regat_tpu_torch.ops.kernels.graph_attention import (
     graph_attention_plain,
 )
 
+# small CPU ops run fastest on one thread, and the suite runs several
+# workers on the same cores
+torch.set_num_threads(1)
+
 B, R, H, DH, N = 4, 16, 4, 24, 10
 NEG = -9e15
 TOL = dict(atol=1e-5, rtol=1e-5)

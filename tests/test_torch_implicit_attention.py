@@ -32,6 +32,10 @@ from tf_vqa_regat_tpu_torch.ops.kernels.implicit_attention import (
 )
 from tf_vqa_regat_tpu_torch.params import flatten_tree, load_jax_arrays
 
+# small CPU ops run fastest on one thread, and the suite runs several
+# workers on the same cores
+torch.set_num_threads(1)
+
 B, R, H, DH, N, P = 4, 16, 4, 24, 10, 64
 D = H * DH
 KERNEL_TOL = dict(atol=1e-5, rtol=1e-5)

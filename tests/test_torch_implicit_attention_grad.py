@@ -41,6 +41,10 @@ from tf_vqa_regat_tpu_torch.ops.kernels.implicit_attention import (
     implicit_attention_plain,
 )
 
+# small CPU ops run fastest on one thread, and the suite runs several
+# workers on the same cores
+torch.set_num_threads(1)
+
 B, R, H, DH, N, P = 4, 16, 4, 24, 10, 64
 DIFF = ("q", "k", "vw", "w_pos", "b_pos")
 ARGS = ("q", "k", "vw", "pos_mat", "w_pos", "b_pos", "key_mask")

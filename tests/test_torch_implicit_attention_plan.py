@@ -17,6 +17,10 @@ from tf_vqa_regat_tpu_torch.ops.kernels import build
 from tf_vqa_regat_tpu_torch.ops.kernels import graph_attention as ga
 from tf_vqa_regat_tpu_torch.ops.kernels import implicit_attention as ia
 
+# small CPU ops run fastest on one thread, and the suite runs several
+# workers on the same cores
+torch.set_num_threads(1)
+
 SHAPE = dict(R=100, n=20, H=16, dh=64, o=64, P=64)
 BATCHES = (1, 8, 32, 64, 256)
 

@@ -3,8 +3,9 @@ configs/butd_vqa.json, ban_vqa.json and mutan_vqa_cp.json (MuTAN at rank 3,
 with and without `--mutan_shared_qdrop`): `--mode train` writes the log, one
 metrics line per epoch and the final `.npz`; `--mode eval` on that file
 reproduces the last eval loss exactly; `--mode serve` loads it and answers a
-/predict over HTTP; flags of unported features are refused, and so is
-`--compute_dtype bfloat16` with BAN or MuTAN."""
+/predict over HTTP; flags of unported features are refused;
+`--no-fold_dual_attention` parses and changes nothing. (bf16 with BAN and
+MuTAN: tests/test_torch_bf16_fusions.py.)"""
 
 import json
 import os
@@ -12,8 +13,13 @@ import threading
 import urllib.request
 
 import pytest
+import torch
 
 from tf_vqa_regat_tpu_torch.main import build_server, final_model_path, main, parse
+
+# small CPU ops run fastest on one thread, and the suite runs several
+# workers on the same cores
+torch.set_num_threads(1)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WIDTHS = [
@@ -95,16 +101,16 @@ def test_serve_loads_the_trained_model(trained):
     assert not thread.is_alive()
 
 
-@pytest.mark.parametrize("flag", [["--grad_accum", "2"], ["--data_mode", "host"]])
+@pytest.mark.parametrize("flag", [["--train_block", "2"], ["--data_mode", "host"]])
 def test_unported_training_flags_are_refused(flag):
     with pytest.raises(SystemExit):
         parse(SMALL + ["--mode", "train"] + flag)
 
 
-@pytest.mark.parametrize("fusion", ["ban", "mutan"])
-def test_bf16_compute_with_ban_or_mutan_is_refused(fusion):
-    """bf16 is ported for BUTD only: BAN and MuTAN refuse it, naming the
-    ROADMAP item, rather than run in f32."""
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A.*bf16 for BAN and MuTAN"):
-        parse(SMALL + ["--mode", "train", "--compute_dtype", "bfloat16", "--fusion", fusion])
-    assert parse(SMALL + ["--compute_dtype", "bfloat16"])[0].compute_dtype == "bfloat16"
+def test_no_fold_dual_attention_changes_nothing(trained, capsys):
+    """A valid JAX flag that has no effect in the port (config.py): the eval
+    of the trained model gives the same loss and score bit for bit."""
+    small, out, path = trained
+    assert parse(small + ["--no-fold_dual_attention"])[0].fold_dual_attention is False
+    argv = small + ["--mode", "eval", "--checkpoint", path, "--output", out]
+    assert main(argv + ["--no-fold_dual_attention"]) == main(argv)

@@ -32,6 +32,10 @@ from tf_vqa_regat_tpu_torch import nn as tnn
 from tf_vqa_regat_tpu_torch.models.mutan import MM_DIM, MutanBlock, MuTAN
 from tf_vqa_regat_tpu_torch.params import flatten_tree, load_jax_arrays
 
+# small CPU ops run fastest on one thread, and the suite runs several
+# workers on the same cores
+torch.set_num_threads(1)
+
 B, R, V_DIM, Q_DIM, NUM_ANS, RANK, GLIMPSE = 3, 10, 40, 32, 17, 3, 2
 GRAD_TOL = dict(atol=1e-4, rtol=1e-4)
 BRANCH_RTOL = 1e-5

@@ -20,6 +20,10 @@ from tf_vqa_regat_tpu_torch.ops.gru import GRU
 from tf_vqa_regat_tpu_torch.ops.weight_norm import FCNet
 from tf_vqa_regat_tpu_torch.params import flatten_tree, load_jax_arrays
 
+# small CPU ops run fastest on one thread, and the suite runs several
+# workers on the same cores
+torch.set_num_threads(1)
+
 TOL = dict(atol=1e-5, rtol=1e-5)
 GEN = torch.Generator().manual_seed(0)
 

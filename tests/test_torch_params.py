@@ -24,6 +24,10 @@ from tf_vqa_regat_tpu_torch.params import (
     to_jax_arrays,
 )
 
+# small CPU ops run fastest on one thread, and the suite runs several
+# workers on the same cores
+torch.set_num_threads(1)
+
 CFG = Config(
     num_hid=64, relation_dim=96, num_heads=4, nongt_dim=10, imp_pos_emb_dim=64,
     fusion="butd", relation_type="implicit", adaptive=True, num_rois=16,

@@ -36,6 +36,10 @@ from tf_vqa_regat_tpu_torch.train import checkpoint as ckpt
 from tf_vqa_regat_tpu_torch.train.logging import Logger
 from tf_vqa_regat_tpu_torch.train.loop import run_prediction
 
+# small CPU ops run fastest on one thread, and the suite runs several
+# workers on the same cores
+torch.set_num_threads(1)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 V_DIM, NUM_ANS = 16, 7
 SPLIT = dict(num_images=8, num_questions=37, v_dim=V_DIM, num_ans=NUM_ANS, seed=4, name="val")

@@ -60,6 +60,10 @@ from tf_vqa_regat_tpu_torch.data.store import DeviceStore, cached_chunks, gather
 from tf_vqa_regat_tpu_torch.data.synthetic import write_cp_vg, write_dataset
 from tf_vqa_regat_tpu_torch.models.language import WordEmbedding, word_embedding_load_glove
 
+# small CPU ops run fastest on one thread, and the suite runs several
+# workers on the same cores
+torch.set_num_threads(1)
+
 CPU = torch.device("cpu")
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SPLITS = ("train", "val", "test2015")

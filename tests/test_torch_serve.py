@@ -33,6 +33,10 @@ from tf_vqa_regat_tpu_torch.data.synthetic import make_dictionary, synthetic_dat
 from tf_vqa_regat_tpu_torch.main import build_server, split_device_flag
 from tf_vqa_regat_tpu_torch.params import flatten_tree
 
+# small CPU ops run fastest on one thread, and the suite runs several
+# workers on the same cores
+torch.set_num_threads(1)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # Small widths; the synthetic split keeps its real 2048-d features and 3,129
 # answers. 16 questions over 8 images.

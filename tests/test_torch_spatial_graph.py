@@ -22,6 +22,10 @@ from tf_vqa_regat_tpu_torch.ops.spatial_graph import (
     build_spatial_graph,
 )
 
+# small CPU ops run fastest on one thread, and the suite runs several
+# workers on the same cores
+torch.set_num_threads(1)
+
 B, R = 6, 36
 
 

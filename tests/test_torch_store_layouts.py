@@ -56,6 +56,10 @@ from tf_vqa_regat_tpu_torch.params import flatten_tree, load_jax_arrays, to_jax_
 from tf_vqa_regat_tpu_torch.train import checkpoint as ckpt
 from tf_vqa_regat_tpu_torch.train.loop import Preempted, run_training
 
+# small CPU ops run fastest on one thread, and the suite runs several
+# workers on the same cores
+torch.set_num_threads(1)
+
 CPU = torch.device("cpu")
 V_DIM, NUM_ANS = 24, 7
 FEATURE_DTYPES = ("float32", "bfloat16", "int8")

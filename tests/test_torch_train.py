@@ -36,6 +36,10 @@ from tf_vqa_regat_tpu_torch.params import flatten_tree
 from tf_vqa_regat_tpu_torch.train import loss as tloss
 from tf_vqa_regat_tpu_torch.train.optim import Adamax, make_lr_schedule
 
+# small CPU ops run fastest on one thread, and the suite runs several
+# workers on the same cores
+torch.set_num_threads(1)
+
 RTOL = 1e-6
 
 

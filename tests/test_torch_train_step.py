@@ -47,6 +47,10 @@ from tf_vqa_regat_tpu_torch.params import flatten_tree, load_jax_arrays
 from tf_vqa_regat_tpu_torch.train.optim import Adamax, make_lr_schedule
 from tf_vqa_regat_tpu_torch.train.step import train_forward, train_step
 
+# small CPU ops run fastest on one thread, and the suite runs several
+# workers on the same cores
+torch.set_num_threads(1)
+
 CFG = Config(
     num_hid=64, relation_dim=96, num_heads=4, nongt_dim=10, imp_pos_emb_dim=64,
     fusion="butd", relation_type="implicit", adaptive=True, num_rois=16,

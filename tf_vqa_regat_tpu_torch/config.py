@@ -74,8 +74,20 @@ class Config:
     # bf16 matmuls and bf16 activation storage; the parameters, the Adamax
     # state, the softmax statistics, the kernels' inputs and outputs, the
     # loss and the answer logits stay f32. Explicit casts where the JAX
-    # package casts (models/regat.py). BUTD fusion only for now.
+    # package casts (models/regat.py, ban.py, mutan.py), for every fusion.
     compute_dtype: str = "float32"
+    # Gradient accumulation: each optimizer batch splits into this many
+    # strided microbatches (rows a, a+k, ...), run one after another; their
+    # sum-loss gradients add up in f32 and ONE clip + Adamax update acts on
+    # the batch mean, so the optimizer sees the single-pass step's
+    # gradient, while the peak activation memory is one microbatch's. Each
+    # microbatch draws its own dropout masks. 1 = the single-pass step.
+    grad_accum: int = 1
+    # Accepted for the JAX command line; no effect in the port. JAX folds
+    # the two attention directions into one 2H-head computation in eval
+    # only on its jnp path; the port's attention has the semantics of JAX's
+    # Pallas path, where the flag changes nothing either.
+    fold_dual_attention: bool = True
     # Memory-map the converted feature table (data/features.py) instead of
     # reading it into host RAM; the device store then converts and uploads
     # it chunk by chunk, so the host holds one chunk. Splits cannot be
@@ -138,6 +150,8 @@ class Config:
                 f"--serve_batch_sizes needs >=1 positive sizes, got "
                 f"{self.serve_batch_sizes!r}"
             )
+        if self.grad_accum < 1:
+            raise ValueError(f"--grad_accum must be >= 1, got {self.grad_accum}")
         if self.serve_max_delay_ms < 0:
             raise ValueError(
                 f"--serve_max_delay_ms must be >= 0, got {self.serve_max_delay_ms}"

@@ -15,6 +15,16 @@ sequence. The joint embedding is that sequence summed over tokens.
 - Dropout: the config's `dropout` itself (the family has no reference code
   pinning the graph rate), before every FCNet layer in training, plus a
   second draw on the attention's visual projection (BCNet drops v_ again).
+- Dtypes, as the JAX module casts (checked against its jaxpr at bfloat16):
+  every FCNet computes and stores in the compute dtype, so the second
+  dropout acts on a bf16 tensor with JAX's bf16-rounded scale; `h_mat` is
+  rounded to the compute dtype. The attention logits and each glimpse's
+  pooling are products of rounded operands with an f32 result: the
+  operands are widened and multiplied in f32 (a product of three bf16
+  values is exact in f32, so only the order of the f32 sums can differ
+  from JAX's). The logits, the softmax over R*T and the question sequence
+  with its residual updates stay f32 (f32 + bf16 promotes to f32 in both
+  frameworks). At float32 every cast is the identity.
 """
 
 from __future__ import annotations
@@ -46,15 +56,17 @@ class WNTensor(nn.Module):
 class BAN(nn.Module):
     def __init__(
         self, v_dim: int, q_dim: int, glimpse: int, generator: torch.Generator,
-        drop_rate: float = 0.0,
+        drop_rate: float = 0.0, dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
         h = q_dim  # hidden width = num_hid, as ReGAT builds BAN(v_rel_dim, num_hid, gamma)
 
         def fc(dims, activation="relu"):
-            return FCNet(dims, generator, activation=activation, drop_rate=drop_rate)
+            return FCNet(dims, generator, activation=activation, drop_rate=drop_rate,
+                         dtype=dtype)
 
         self.drop_rate = drop_rate
+        self.dtype = dtype
         self.att_v_net = fc([v_dim, h * K])
         self.att_q_net = fc([q_dim, h * K])
         self.h_mat = WNTensor(torch.randn(glimpse, h * K, generator=generator))
@@ -74,10 +86,12 @@ class BAN(nn.Module):
         b, R, _ = visual.shape
         T = q_seq.shape[1]
         glimpse = self.h_bias.shape[0]
+        cd = self.dtype
         v_ = self.att_v_net(visual, generator)
         v_ = dropout(v_, self.drop_rate, self.training, generator)
         q_ = self.att_q_net(q_seq, generator)
-        logits = torch.einsum("gk,bvk,bqk->bgvq", self.h_mat(), v_, q_)
+        h_mat = self.h_mat().to(cd)
+        logits = torch.einsum("gk,bvk,bqk->bgvq", h_mat.float(), v_.float(), q_.float())
         logits = logits + self.h_bias[None, :, None, None]
         logits = torch.where(
             roi_mask[:, None, :, None], logits, torch.full_like(logits, -1e9)
@@ -86,6 +100,8 @@ class BAN(nn.Module):
         for g in range(glimpse):
             v1 = self.b_v_net[g](visual, generator)
             q1 = self.b_q_net[g](q_seq, generator)
-            b_emb = torch.einsum("bvk,bvq,bqk->bk", v1, att[:, g], q1)
+            b_emb = torch.einsum(
+                "bvk,bvq,bqk->bk", v1.float(), att[:, g].to(cd).float(), q1.float()
+            )
             q_seq = q_seq + self.q_prj[g](b_emb, generator)[:, None, :]
         return q_seq.sum(dim=1), att

@@ -16,9 +16,17 @@ returns answer logits and the model has no classifier.
   with input dropout the question side is broadcast to [b, R, 1200] before
   its dropout, so every roi draws its own mask (the upstream `block` library
   flattens rois into the batch).
-- Dtype contract: the port computes in f32 only, so the fold and z are f32
-  in both formulations (the JAX package keeps them in its compute dtype,
-  bf16 under bfloat16 compute, unlike its naive branch).
+- Dtype contract, as the JAX module casts (checked against its jaxpr at
+  bfloat16): every plain dense layer takes operands rounded to the compute
+  dtype and returns their product in f32, plus the f32 bias
+  (`nn.dot_f32`), so the input dropout, the naive branch's merges m0, m1,
+  m and its z stay f32. The reassociated branch keeps the fold, zb and z in
+  the compute dtype (a bf16 product rounds its f32 sums once), which
+  departs from JAX's own naive branch (ADVICE.md:3); the port keeps JAX's
+  choice. The attention MLP stores bf16 outputs (FCNet at the compute
+  dtype), the roi logits widen to f32 for the softmax, and the glimpse sum
+  multiplies rounded operands into an f32 result. At float32 every cast
+  is the identity.
 - Input dropout is 0.1 whenever the config's `dropout` > 0, on both inputs of
   both blocks; the attention MLP has none. The roi softmax runs in f32 with
   padded rois at -1e9.
@@ -31,7 +39,7 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
-from tf_vqa_regat_tpu_torch.nn import dropout, glorot_uniform
+from tf_vqa_regat_tpu_torch.nn import dot_f32, dropout, glorot_uniform
 from tf_vqa_regat_tpu_torch.ops.weight_norm import FCNet
 
 MM_DIM = 1200  # ReGAT's fusions.Mutan(..., mm_dim=1200)
@@ -42,15 +50,19 @@ INPUT_DROP = 0.1  # the block library's dropout_input
 
 class Linear(nn.Module):
     """Plain dense layer: `w` [in, out] (glorot), `b` [out] (zeros); no
-    weight norm."""
+    weight norm. Operands rounded to `dtype`, an f32 result (JAX `_linear`)."""
 
-    def __init__(self, in_dim: int, out_dim: int, generator: torch.Generator):
+    def __init__(
+        self, in_dim: int, out_dim: int, generator: torch.Generator,
+        dtype: torch.dtype = torch.float32,
+    ):
         super().__init__()
         self.w = nn.Parameter(glorot_uniform((in_dim, out_dim), generator))
         self.b = nn.Parameter(torch.zeros(out_dim))
+        self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return torch.matmul(x, self.w) + self.b
+        return dot_f32(x, self.w, self.dtype) + self.b
 
 
 def _one_question_per_example(h0: torch.Tensor, x1: torch.Tensor) -> bool:
@@ -63,16 +75,18 @@ class MutanBlock(nn.Module):
     def __init__(
         self, dim0: int, dim1: int, out_dim: int, rank: int,
         generator: torch.Generator, drop_input: float = 0.0, shared_qdrop: bool = False,
+        dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
         self.rank = rank
         self.drop_input = drop_input
         self.shared_qdrop = shared_qdrop
-        self.linear0 = Linear(dim0, MM_DIM, generator)
-        self.linear1 = Linear(dim1, MM_DIM, generator)
-        self.merge0 = Linear(MM_DIM, MM_DIM * rank, generator)
-        self.merge1 = Linear(MM_DIM, MM_DIM * rank, generator)
-        self.linear_out = Linear(MM_DIM, out_dim, generator)
+        self.dtype = dtype
+        self.linear0 = Linear(dim0, MM_DIM, generator, dtype)
+        self.linear1 = Linear(dim1, MM_DIM, generator, dtype)
+        self.merge0 = Linear(MM_DIM, MM_DIM * rank, generator, dtype)
+        self.merge1 = Linear(MM_DIM, MM_DIM * rank, generator, dtype)
+        self.linear_out = Linear(MM_DIM, out_dim, generator, dtype)
 
     def forward(
         self, x0: torch.Tensor, x1: torch.Tensor,
@@ -102,29 +116,34 @@ class MutanBlock(nn.Module):
         """The same sum with the nesting reordered, for h0 [b, 1, 1200]:
         z = h1 @ fold + zb with fold[b] = sum_r W1_r * m0_r[b] and
         zb[b] = sum_r m0_r[b] * b1_r, so the visual merge [b, R, rank*1200]
-        is never built."""
-        b = h0.shape[0]
-        m0r = self.merge0(h0).reshape(b, self.rank, MM_DIM)
-        w1r = self.merge1.w.reshape(MM_DIM, self.rank, MM_DIM)
+        is never built. fold, zb and z are in the compute dtype."""
+        b, cd = h0.shape[0], self.dtype
+        m0r = self.merge0(h0).reshape(b, self.rank, MM_DIM).to(cd)
+        w1r = self.merge1.w.to(cd).reshape(MM_DIM, self.rank, MM_DIM)
         fold = torch.einsum("krj,brj->bkj", w1r, m0r)  # [b, 1200, 1200]
-        zb = torch.einsum("brj,rj->bj", m0r, self.merge1.b.reshape(self.rank, MM_DIM))
-        return torch.bmm(h1, fold) + zb[:, None, :]
+        b1r = self.merge1.b.to(cd).reshape(self.rank, MM_DIM)
+        zb = torch.einsum("brj,rj->bj", m0r, b1r)
+        return torch.bmm(h1.to(cd), fold) + zb[:, None, :]
 
 
 class MuTAN(nn.Module):
     def __init__(
         self, v_dim: int, q_dim: int, num_ans: int, rank: int, glimpse: int,
         generator: torch.Generator, drop_rate: float = 0.0, shared_qdrop: bool = False,
+        dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
         drop_input = INPUT_DROP if drop_rate > 0 else 0.0
+        self.dtype = dtype
         self.att_fusion = MutanBlock(
-            q_dim, v_dim, ATT_DIM, rank, generator, drop_input, shared_qdrop
+            q_dim, v_dim, ATT_DIM, rank, generator, drop_input, shared_qdrop, dtype
         )
-        self.att_linear0 = FCNet([ATT_DIM, MLP_HID], generator, activation=None)
-        self.att_linear1 = FCNet([MLP_HID, glimpse], generator, activation=None)
+        self.att_linear0 = FCNet([ATT_DIM, MLP_HID], generator, activation=None, dtype=dtype)
+        self.att_linear1 = FCNet([MLP_HID, glimpse], generator, activation=None, dtype=dtype)
         # shared_qdrop does not reach out_fusion: its inputs have no roi axis
-        self.out_fusion = MutanBlock(q_dim, v_dim * glimpse, num_ans, rank, generator, drop_input)
+        self.out_fusion = MutanBlock(
+            q_dim, v_dim * glimpse, num_ans, rank, generator, drop_input, dtype=dtype
+        )
 
     def forward(
         self,
@@ -135,8 +154,11 @@ class MuTAN(nn.Module):
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """(answer logits [b, num_ans], attention [b, R, glimpse])."""
         alpha = self.att_fusion(question[:, None, :], visual, generator)
-        alpha = self.att_linear1(self.att_linear0(alpha))
+        alpha = self.att_linear1(self.att_linear0(alpha)).float()
         alpha = torch.where(roi_mask[..., None], alpha, torch.full_like(alpha, -1e9))
         alpha = torch.softmax(alpha, dim=1)
-        v_out = torch.einsum("brg,brd->bgd", alpha, visual).reshape(visual.shape[0], -1)
+        cd = self.dtype
+        v_out = torch.einsum(
+            "brg,brd->bgd", alpha.to(cd).float(), visual.to(cd).float()
+        ).reshape(visual.shape[0], -1)
         return self.out_fusion(question, v_out, generator), alpha

@@ -16,11 +16,11 @@ itself and MuTAN its input rate (models/ban.py, models/mutan.py).
 BUTD and MuTAN take the GRU's last state, BAN its whole sequence. MuTAN
 scores the answers itself, so a MuTAN model has no `classifier`.
 
-`--compute_dtype bfloat16` (BUTD fusion only, as yet) casts where the JAX
-package casts (regat.py:132-242), with explicit `.to()` in each module, not
-torch.autocast, whose per-op list is not JAX's: bf16 matmuls and stored
-activations; f32 parameters, softmax statistics, GRU state, kernel inputs
-and outputs, and answer logits.
+`--compute_dtype bfloat16` (every fusion) casts where the JAX package casts
+(regat.py:132-242, models/ban.py, models/mutan.py), with explicit `.to()`
+in each module, not torch.autocast, whose per-op list is not JAX's: bf16
+matmuls and stored activations; f32 parameters, softmax statistics, GRU
+state, kernel inputs and outputs, and answer logits.
 
 The batch is a dict of tensors on the model's device:
   features  [b, R, v_dim] float32   region features
@@ -65,19 +65,12 @@ FUSIONS = ("butd", "ban", "mutan")
 
 
 def check_supported(cfg: Config) -> None:
-    """Raise for an unknown relation type or fusion, and for bf16 compute
-    with a fusion whose bf16 path is not ported. (Flags of features not
+    """Raise for an unknown relation type or fusion. (Flags of features not
     ported yet are not in the port's Config: the parser rejects them.)"""
     if cfg.relation_type not in RELATION_TYPES:
         raise ValueError(f"unknown relation_type {cfg.relation_type!r}")
     if cfg.fusion not in FUSIONS:
         raise ValueError(f"unknown fusion {cfg.fusion!r}")
-    if cfg.compute_dtype != "float32" and cfg.fusion != "butd":
-        raise NotImplementedError(
-            f"--compute_dtype {cfg.compute_dtype} with --fusion {cfg.fusion} is not "
-            f"ported yet (ROADMAP Queue A, main-path runtime: bf16 for BAN and MuTAN); "
-            f"use --fusion butd or --compute_dtype float32"
-        )
 
 
 class ReGAT(nn.Module):
@@ -116,11 +109,11 @@ class ReGAT(nn.Module):
         if cfg.fusion == "butd":
             self.joint_emb = BUTD(cfg.relation_dim, cfg.num_hid, cfg.num_hid, g, graph_drop, cd)
         elif cfg.fusion == "ban":
-            self.joint_emb = BAN(cfg.relation_dim, cfg.num_hid, cfg.ban_glimpse, g, drop)
+            self.joint_emb = BAN(cfg.relation_dim, cfg.num_hid, cfg.ban_glimpse, g, drop, cd)
         else:
             self.joint_emb = MuTAN(
                 cfg.relation_dim, cfg.num_hid, num_ans, cfg.mutan_rank, cfg.mutan_gamma,
-                g, drop, cfg.mutan_shared_qdrop,
+                g, drop, cfg.mutan_shared_qdrop, cd,
             )
         self.classifier = (
             None if cfg.fusion == "mutan"

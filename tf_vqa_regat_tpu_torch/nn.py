@@ -56,11 +56,22 @@ def normal(
     return stddev * torch.randn(tuple(shape), generator=generator)
 
 
-def step_generator(base_seed: int, step: int, device) -> torch.Generator:
-    """A generator on `device` seeded from (base_seed, step): one per train
-    step, as the JAX step folds the step into its base key."""
+def step_generator(base_seed: int, step: int, device, microbatch: int = 0) -> torch.Generator:
+    """A generator on `device` seeded from (base_seed, step, microbatch): one
+    per train step, as the JAX step folds the step into its base key, and
+    under gradient accumulation one per microbatch, as JAX folds the
+    microbatch index in after it. The seed's halves are base_seed and step,
+    each plus microbatch times an odd constant (the golden ratio's 2**32
+    multiple), modulo 2**32, so microbatch 0 is the single-pass step's
+    generator. The upper half is a bijection of the microbatch index: no
+    two (step, microbatch) of one base seed share a 64-bit seed (the card's
+    Philox generator). The CPU's mt19937 keeps the lower half only; there
+    (step, microbatch) still differ for steps within 8.2 million of each
+    other at up to 256 microbatches."""
+    mix = microbatch * 0x9E3779B9
+    hi = (base_seed + mix) & 0xFFFFFFFF
     g = torch.Generator(device=device)
-    g.manual_seed(((base_seed & 0xFFFFFFFF) << 32) | (step & 0xFFFFFFFF))
+    g.manual_seed((hi << 32) | ((step + mix) & 0xFFFFFFFF))
     return g
 
 

@@ -4,7 +4,7 @@ the synthetic train split, traced with torch.profiler.
 
     python -m tf_vqa_regat_tpu_torch.profile_step [--config configs/spatial_vqa.json]
         [--steps 5] [--trace out.json] [config flags, e.g. --mutan_shared_qdrop,
-        --compute_dtype bfloat16, --num_rois 36]
+        --compute_dtype bfloat16, --num_rois 36, --grad_accum 2]
 
 Prints, for the traced steps: the step time on the host clock with and
 without the profiler, the device's busy time (sum of kernel times) and idle
@@ -31,6 +31,7 @@ from tf_vqa_regat_tpu_torch.config import parse_with_config
 from tf_vqa_regat_tpu_torch.data.store import DeviceStore, gather_batch
 from tf_vqa_regat_tpu_torch.main import build_dataset
 from tf_vqa_regat_tpu_torch.models.regat import ReGAT, trainable_mask
+from tf_vqa_regat_tpu_torch.train.loop import check_grad_accum
 from tf_vqa_regat_tpu_torch.train.optim import Adamax, make_lr_schedule
 from tf_vqa_regat_tpu_torch.train.step import train_step
 
@@ -59,6 +60,7 @@ def main() -> None:
     cfg = parse_with_config(
         ["--config", args.config, "--synthetic", "--mode", "train", *config_flags]
     )
+    check_grad_accum(cfg)
     ds = build_dataset(cfg, "train")
     store = DeviceStore(ds, device, feature_dtype=cfg.feature_dtype)
     idx = next(store.epoch_indices(0, cfg.batch_size, True, cfg.seed))
@@ -71,7 +73,7 @@ def main() -> None:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(n):
-            train_step(model, opt, batch, opt.count, cfg.seed)
+            train_step(model, opt, batch, opt.count, cfg.seed, cfg.grad_accum)
         torch.cuda.synchronize()
         return (time.perf_counter() - t0) * 1e3 / n
 
@@ -93,7 +95,8 @@ def main() -> None:
     gemm = sum(ms for k, (ms, _) in busy.items() if GEMM.search(k))
     print(f"train step b={cfg.batch_size} at the widths of {os.path.basename(args.config)} "
           f"({cfg.relation_type}-{cfg.fusion}{' ' if config_flags else ''}"
-          f"{' '.join(config_flags)}), compute {cfg.compute_dtype}, TF32 off, on {smi}")
+          f"{' '.join(config_flags)}), compute {cfg.compute_dtype}, "
+          f"grad_accum {cfg.grad_accum}, TF32 off, on {smi}")
     print(f"host ms/step: {plain_ms:.3f} (no profiler), {traced_ms:.3f} (profiled)")
     print(f"device busy ms/step: {total:.3f}; idle share of the profiled step: "
           f"{1 - total / traced_ms:.3f}, of the unprofiled step: {max(0.0, 1 - total / plain_ms):.3f}")

@@ -24,10 +24,14 @@ batch at its bucket's roi count) and its steps are the bucket counts; eval,
 predict and the ensemble read one batch composition, `eval_batch_stream`.
 The feature tables are held at --feature_dtype.
 
-Not ported (ROADMAP Queue A): --grad_accum, the multi-process preemption
-sync and checkpoint barrier (multi-device); --train_block and --eval_block
-(one step per dispatch, as JAX's --train_block 1); host streaming and the
-sharded store (a split whose tables do not fit the card is refused).
+--grad_accum k runs each optimizer step as k strided microbatches with one
+update (train/step.py); under --roi_buckets they run at their batch's
+bucket R.
+
+Not ported (ROADMAP Queue A): the multi-process preemption sync and
+checkpoint barrier (multi-device); --train_block and --eval_block (one step
+per dispatch, as JAX's --train_block 1); host streaming and the sharded
+store (a split whose tables do not fit the card is refused).
 """
 
 from __future__ import annotations
@@ -172,6 +176,18 @@ def _resume_point(
     return int(restored.split("_")[1]) + 1, 0, None, best_score
 
 
+def check_grad_accum(cfg: Config) -> None:
+    """Refuse a batch size that --grad_accum does not divide, with the JAX
+    package's message (one process, so its data-mesh size dp is 1)."""
+    dp = 1
+    if cfg.grad_accum > 1 and cfg.batch_size % (cfg.grad_accum * dp) != 0:
+        raise ValueError(
+            f"batch_size {cfg.batch_size} must be divisible by "
+            f"grad_accum*dp = {cfg.grad_accum}*{dp} (each microbatch's batch "
+            f"dim is sharded over the data mesh)"
+        )
+
+
 def _zeros(device: torch.device) -> Metrics:
     return {k: torch.zeros((), device=device) for k in ("score", "loss_sum", "n")}
 
@@ -294,6 +310,7 @@ def run_training(
     """Train `model` (moved to `device`) for cfg.epochs epochs, evaluating
     after each, or from the newest checkpoint under --resume. Returns
     (model, best eval score %); raises `Preempted` after a preemption save."""
+    check_grad_accum(cfg)
     model.to(device)
     train_store = build_store(cfg, train_ds, device)
     eval_store = DeviceStore(val_ds, device, feature_dtype=cfg.feature_dtype,
@@ -348,7 +365,7 @@ def run_training(
                 start = time.time()
                 indices = train_batch_stream(cfg, train_store, epoch, skip)
                 for i, batch in enumerate(_batches(train_store, indices, device), skip):
-                    m = train_step(model, opt, batch, opt.count, cfg.seed)
+                    m = train_step(model, opt, batch, opt.count, cfg.seed, cfg.grad_accum)
                     _accumulate(acc, m)
                     if cfg.print_freq > 0 and (i + 1) % cfg.print_freq == 0:
                         _log_progress(logger, acc, m["loss"], epoch, i, N, start)
