@@ -153,9 +153,35 @@ Phases, each of which fails the run (non-zero exit, no result line):
      `--mode train --grad_accum 2` with dropout on (phase 11's flags),
      uninterrupted, preempted by REGAT_FAULT_PREEMPT_STEP=8 and resumed:
      the resumed run equal to the uninterrupted one bit for bit, 2 x 2 B1
-     train launches per step.
-Counts of launches are set to 0 just before each path of 8-13, 17-19 and
-20 runs and read just after it; the comparison launches of 3-7 and 14-16
+     train launches per step;
+ 21. host streaming (data/loader.py, csrc/pack.cc), butd_vqa.json at full
+     width, b=256: one batch per --feature_dtype (f32, bf16, int8), packed
+     with the C++ and with numpy's row gather (host-clock times, equal
+     bytes) and copied pinned to the card (CUDA events, GB/s), equal on the
+     card to the device store's gather bit for bit (int8: to the bf16 wire
+     batch), and the feature-row gather alone in both versions (GB/s);
+     then (a) f32 and (b) bf16 tables and compute: `--mode train --epochs 1`
+     and `--mode eval` on 1,536 questions in device mode and in host mode at
+     --prefetch 2 and 0, with the checks of 8-9, each host run's parameters
+     and metrics equal to the device run's at RESUME_RTOL / RESUME_ATOL
+     (bit-equality printed), the median step (CUDA events) and its start-to-
+     start period, which holds any wait for the batch; (d) `--data_mode auto
+     --device_store_budget_gb 0.05`: the logged resolution is host, `--mode
+     eval` gives the device run's eval loss and `--mode predict` device
+     mode's answers, `--mode serve` is refused with the budget message; (e)
+     spatial_vqa.json `--data_mode host --mmap_features` on 19's dataset
+     through B2, every train batch with the file's labels, equal to 19's
+     device run; (f) a host run preempted at step 4 and resumed, bit-equal
+     to (a)'s host run, with no prefetch thread left, and a device-written
+     step checkpoint resumed under host mode refused; (g) 13's ensemble
+     over one host stream: 2 B1 and 4 B2 launches per pass, 13's score, and
+     batch by batch the averaged probabilities of the host stream within
+     ENSEMBLE_PROB_ATOL of the device path's, the batches equal. Each
+     batch's pack time is split into the C++ gathers and bf16 rounding
+     (without the interpreter lock) and the rest, which holds it; 5,000
+     tiny launches are timed alone and while a thread packs.
+Counts of launches are set to 0 just before each path of 8-13 and 17-21
+runs and read just after it; the comparison launches of 3-7 and 14-16
 and of the plain-path comparisons do not count. Each phase prints its wall
 time. Phases 8-13 run at the configs' full widths and depths, as before.
 Then it prints {"kernels": [...]} (each kernel's time, plain and library
@@ -163,7 +189,7 @@ times, and its bound on an H100 SXM: the larger of the bytes it must move
 over 3.35 TB/s and its f32 operations over 67 TFLOP/s, from this run's
 inputs; the entries named "... R=36" and "... R=64" hold phase 14's numbers
 and the launches at that R, the others phases 3-5's at R=100 and the
-launches at every R) and, last, {"ok": true, "device": {...}}.
+launches at every R over the paths of 8-21) and, last, {"ok": true, "device": {...}}.
 It imports nothing of JAX and nothing of the JAX package (tf_vqa_regat_tpu).
 """
 
@@ -394,11 +420,15 @@ def rows_counts() -> dict:
     return out
 
 
-# the launches by (kernel, R) of every path of 8-20 that records them
+# the launches by (kernel, R) of every path of 8-21 that records them
 PATH_ROWS = []
 # the split sizes of check_entry_point's last training run, and its train
 # batches that carried edge labels
 LAST_TRAIN = {}
+
+
+# phase 13's member list, score and passes, which phase 21 streams again
+LAST_ENSEMBLE = {}
 
 
 def read_path_counts() -> dict:
@@ -1134,9 +1164,13 @@ def check_entry_point(tmp, smi, family, extra=(), config=None, data=None, fallin
     launches = read_path_counts()
     torch.cuda.synchronize()
     step_ms = [ev[0].elapsed_time(ev[1]) for ev, _, _ in records]
+    # start to start on the device's timeline: the step plus any wait for
+    # its batch (the host data path's stalls fall between steps)
+    periods = [a[0].elapsed_time(b[0]) for (a, _, _), (b, _, _) in zip(records, records[1:])]
     losses = [float(loss) for _, loss, _ in records]
     LAST_TRAIN.clear()
-    LAST_TRAIN.update(sizes, steps=len(records), adj_batches=sum(adj for _, _, adj in records))
+    LAST_TRAIN.update(sizes, steps=len(records), adj_batches=sum(adj for _, _, adj in records),
+                      period_ms=statistics.median(periods) if periods else None)
     with open(os.path.join(tmp, "metrics.jsonl")) as fh:
         last = [json.loads(line) for line in fh][-1]
     print(f"{label} --mode train: {len(losses)} steps in {wall:.1f} s (run, set-up "
@@ -1319,11 +1353,11 @@ def recorded_saves():
         ckpt.save_checkpoint = real
 
 
-def read_run(out):
+def read_run(out, name="implicit-butd"):
     """(final parameters, per-epoch metrics) of a --mode train output."""
     import numpy as np
 
-    with np.load(os.path.join(out, "implicit-butd-pretrained_model.npz")) as z:
+    with np.load(os.path.join(out, f"{name}-pretrained_model.npz")) as z:
         params = {k: z[k] for k in z.files}
     with open(os.path.join(out, "metrics.jsonl")) as fh:
         metrics = {m["epoch"]: m for m in map(json.loads, fh)}
@@ -1641,6 +1675,7 @@ def check_ensemble(tmp, smi, npz, device):
             abs(score_k - score_p) > 100.0 * slack / n + 1e-6 * score_p):
         fail(f"ensemble score {score} / {score_k} vs plain {score_p} (tie slack "
              f"{100.0 * slack / n})")
+    LAST_ENSEMBLE.update(spec=spec, score=score, passes=passes)
     return train_launches, launches
 
 ROWS = (36, 64)  # the roi buckets below 100 of the JAX bench's --roi_buckets 36,64,100
@@ -2443,6 +2478,395 @@ def check_realdata(tmp_root, smi, device):
     return launches
 
 
+HOST_FLAGS = ("--data_mode", "host")
+BF16_FLAGS = ("--feature_dtype", "bfloat16", "--compute_dtype", "bfloat16")
+# --data_mode auto with a budget below every full-width synthetic split's
+# tables (val ~0.06 GB at f32), so auto resolves to the host path
+AUTO_SMALL = ("--data_mode", "auto", "--device_store_budget_gb", "0.05")
+
+
+def median_s(fn, reps):
+    """Median host-clock seconds of `reps` calls of fn, after one warm-up."""
+    fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times)
+
+
+def check_host_batches(device, smi, feature_dtype):
+    """Phase 21's one-batch checks at full width (butd_vqa.json's synthetic
+    train split, b=256, R=100) for one --feature_dtype: the host batch,
+    copied and widened on the card, equals the device store's gather at the
+    same indices bit for bit (f32, bf16), or (int8) equals the bf16 wire
+    batch; the pack time with the C++ and the numpy row gather, and of
+    the C++ pack the time in the gathers, in the bf16 rounding and the rest
+    (which holds the interpreter lock); the copy of the pinned batch to the
+    card (time, GB/s); 5,000 tiny launches alone and while a thread packs;
+    and the feature-row gather alone in both versions (GB/s)."""
+    import numpy as np
+    import torch
+
+    from tf_vqa_regat_tpu_torch import main as port_main
+    from tf_vqa_regat_tpu_torch.data import native
+    from tf_vqa_regat_tpu_torch.data.loader import BatchLoader, widen_features
+    from tf_vqa_regat_tpu_torch.data.store import DeviceStore, gather_batch
+    from tf_vqa_regat_tpu_torch.train.loop import host_loader
+
+    cfg = full_width_config("implicit", ["--mode", "train", *SHORT_TRAIN, "--feature_dtype",
+                                         feature_dtype])
+    ds = port_main.build_dataset(cfg, "train")
+    loader = host_loader(cfg, ds, cfg.batch_size, True)
+    plain = BatchLoader(ds, cfg.batch_size, cfg.resolved_num_rois(), True, cfg.seed,
+                        feature_dtype=feature_dtype, native=False)
+    idx = next(loader.epoch_indices(0))
+    host = loader.empty_batch(pin_memory=True)
+    pack_s = median_s(lambda: loader.pack(idx, host), 5)
+    plain_s = median_s(lambda: plain.pack(idx), 3)
+    # where a pack's time goes: the C++ gathers and (bf16) torch's rounding
+    # run without the interpreter lock; the rest of the pack holds it
+    real_gather, in_gather = native.gather_rows, []
+
+    def timed_gather(*args, **kw):
+        t0 = time.perf_counter()
+        real_gather(*args, **kw)
+        in_gather[-1] += time.perf_counter() - t0
+
+    native.gather_rows = timed_gather
+    try:
+        for _ in range(5):
+            in_gather.append(0.0)
+            loader.pack(idx, host)
+    finally:
+        native.gather_rows = real_gather
+    gather_s = statistics.median(in_gather)
+    round_s = 0.0
+    if loader.wire_dtype != torch.float32:
+        f32 = torch.from_numpy(loader._scratch)
+        round_s = median_s(lambda: host["features"].copy_(f32), 5)
+    held_s = pack_s - gather_s - round_s
+    if not all(torch.equal(a, b) for a, b in zip(loader.pack(idx).values(),
+                                                  plain.pack(idx).values())):
+        fail(f"{feature_dtype} host batch: the C++ and the numpy gather differ")
+    moved = sum(t.numel() * t.element_size() for t in host.values())
+    stream = torch.cuda.Stream(device)
+
+    def copy():
+        with torch.cuda.stream(stream):
+            return {k: v.to(device, non_blocking=True) for k, v in host.items()}
+
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    h2d = []
+    for _ in range(11):
+        ev[0].record(stream)
+        copy()
+        ev[1].record(stream)
+        ev[1].synchronize()
+        h2d.append(ev[0].elapsed_time(ev[1]))
+    h2d_ms = statistics.median(h2d[1:])
+    line = (f"host batch b={cfg.batch_size} R={cfg.resolved_num_rois()} --feature_dtype "
+            f"{feature_dtype} (wire {str(loader.wire_dtype).split('.')[-1]}, {moved} bytes): "
+            f"pack {pack_s * 1e3:.3f} ms with the C++ gather, {plain_s * 1e3:.3f} ms with "
+            f"numpy's (host clock, median; of the C++ pack, {gather_s * 1e3:.3f} ms in the "
+            f"gathers and {round_s * 1e3:.3f} ms rounding to bf16, both without the "
+            f"interpreter lock, and {held_s * 1e3:.3f} ms holding it); pinned copy to the "
+            f"card {h2d_ms:.3f} ms "
+            f"({moved / h2d_ms / 1e6:.2f} GB/s, CUDA events, median of 10) on {smi}")
+    if feature_dtype == "int8":
+        wire = host_loader(cfg.replace(feature_dtype="bfloat16"), ds, cfg.batch_size,
+                           True).pack(idx)
+        same = {k: bool(torch.equal(v, wire[k])) for k, v in loader.pack(idx).items()}
+        print(f"{line}; equal to the bf16 wire batch {json.dumps(same)}", flush=True)
+        if not all(same.values()):
+            fail(f"the int8 host batch differs from the bf16 wire batch: {same}")
+        return
+    store = DeviceStore(ds, device, feature_dtype=feature_dtype, include_adj=False)
+    want = gather_batch(store, torch.from_numpy(idx.astype(np.int32)).to(device),
+                        cfg.resolved_num_rois())
+    got = widen_features({k: v.to(device) for k, v in loader.pack(idx).items()})
+    same = {k: bool(v.dtype == want[k].dtype and torch.equal(v, want[k])) for k, v in got.items()}
+    print(f"{line}; on the card equal to the device store's gather bit for bit "
+          f"{json.dumps(same)}", flush=True)
+    if sorted(got) != sorted(want) or not all(same.values()):
+        fail(f"{feature_dtype} host batch differs from the device gather: {same}")
+    # what the producer costs a launch-bound main thread: 5,000 tiny
+    # kernels launched alone, then while another thread packs batches
+    x = torch.zeros(1, device=device)
+
+    def launches():
+        for _ in range(5000):
+            x.add_(1.0)
+        torch.cuda.synchronize()
+
+    alone = median_s(launches, 5)
+    stop, packs = threading.Event(), []
+
+    def producer():
+        while not stop.is_set():
+            t0 = time.perf_counter()
+            loader.pack(idx, host)
+            packs.append(time.perf_counter() - t0)
+
+    thread = threading.Thread(target=producer)
+    thread.start()
+    try:
+        busy = median_s(launches, 5)
+    finally:
+        stop.set()
+        thread.join()
+    print(f"{feature_dtype} host batch: 5,000 launches take {alone * 1e3:.3f} ms alone and "
+          f"{busy * 1e3:.3f} ms while a thread packs batches ({statistics.median(packs) * 1e3:.3f}"
+          f" ms a pack meanwhile, {len(packs)} packs; host clock, median) on {smi}", flush=True)
+    if feature_dtype == "float32":
+        # the row gather alone, C++ against numpy, on the features table
+        table = ds.store.features
+        rows = loader._gather_table()[ds.entries.image_index[idx]].reshape(-1)
+        out = np.empty((len(rows), table.shape[1]), table.dtype)
+        nbytes_rows = out.nbytes
+        cxx = median_s(lambda: native.gather_rows(table, rows, out), 5)
+        ref = median_s(lambda: native.gather_rows_plain(table, rows, out), 3)
+        print(f"host row gather (tf_vqa_regat_tpu_torch/csrc/pack.cc, {native.MAX_THREADS} "
+              f"threads at most, {os.cpu_count()} cores) of {len(rows)} rows x "
+              f"{table.shape[1]} f32 ({nbytes_rows} bytes): {cxx * 1e3:.3f} ms, "
+              f"{nbytes_rows / cxx / 1e9:.2f} GB/s; numpy's {ref * 1e3:.3f} ms, "
+              f"{nbytes_rows / ref / 1e9:.2f} GB/s (host clock, median) on the host of the "
+              f"{smi}", flush=True)
+    del store
+
+
+def host_vs_device(tmp_root, smi, label, flags):
+    """Phase 21 (a)/(b): butd_vqa.json `--mode train --epochs 1` (then
+    `--mode eval`) with `flags`, in device mode and in host mode at
+    --prefetch 2 and 0 (phase 8's checks each): each host run's final
+    parameters and metrics equal the device run's at RESUME_RTOL /
+    RESUME_ATOL. Returns {run: (output, launches)}."""
+    runs, times = {}, {}
+    for name, mode in (("device", ("--data_mode", "device")),
+                       ("host", (*HOST_FLAGS, "--prefetch", "2")),
+                       ("host, --prefetch 0", (*HOST_FLAGS, "--prefetch", "0"))):
+        tmp = os.path.join(tmp_root, f"host_{label}_{name.split(',')[0]}{len(runs)}")
+        _, launches, step_ms = check_entry_point(tmp, smi, "implicit",
+                                                 (*SHORT_TRAIN, *flags, *mode))
+        shutil.rmtree(os.path.join(tmp, "checkpoints"))
+        runs[name] = (tmp, launches)
+        times[name] = (step_ms, LAST_TRAIN["period_ms"])
+    ref = read_run(runs["device"][0])
+    for name in ("host", "host, --prefetch 0"):
+        diff, excess, metric, bits = run_distance(ref, read_run(runs[name][0]))
+        print(f"{label} {name} vs device: params max abs diff {diff} (excess over atol "
+              f"{RESUME_ATOL} + rtol {RESUME_RTOL}: {excess}), metrics max rel diff {metric}, "
+              f"bit-equal {bits}", flush=True)
+        if not excess <= 0.0 or not metric <= RESUME_RTOL:
+            fail(f"{label} {name} run differs from the device run: params excess {excess}, "
+                 f"metrics rel {metric}")
+    print(f"{label} step, median ms (CUDA events around the step; start to start, which "
+          f"holds any wait for the batch) on {smi}: "
+          + "; ".join(f"{k} {v[0]} / {v[1]}" for k, v in times.items()), flush=True)
+    return runs
+
+
+def check_host_streaming(tmp_root, smi, device):
+    """Phase 21. Returns the launches of its paths."""
+    import torch
+
+    launches = []
+    for dtype in ("float32", "bfloat16", "int8"):  # (a), (b), (c): one batch
+        check_host_batches(device, smi, dtype)
+        torch.cuda.empty_cache()
+    f32 = host_vs_device(tmp_root, smi, "f32", ())  # (a)
+    torch.cuda.empty_cache()
+    bf16 = host_vs_device(tmp_root, smi, "bf16", BF16_FLAGS)  # (b)
+    torch.cuda.empty_cache()
+    launches += [r[1] for r in (*f32.values(), *bf16.values())]
+    launches += check_auto_budget(tmp_root, smi, f32["device"][0])  # (d)
+    launches += check_host_real_layout(tmp_root, smi)  # (e)
+    launches += check_host_preemption(tmp_root, smi, f32["host"][0])  # (f)
+    launches += check_host_ensemble(tmp_root, smi)  # (g)
+    return launches
+
+
+def check_auto_budget(tmp_root, smi, device_out):
+    """Phase 21 (d): `--data_mode auto` under a 0.05 GB budget resolves to
+    the host path (the log line), and `--mode eval` and `--mode predict` on
+    the device run's .npz in `device_out` give its eval loss and device
+    mode's answers; `--mode serve` is refused with the budget message.
+    Returns the launches of the eval and predict paths."""
+    from tf_vqa_regat_tpu_torch import main as port_main
+
+    cfg = full_width_config("implicit", ["--mode", "train"])
+    passes = -(-cfg.synthetic_val_size // cfg.resolved_eval_batch())
+    npz = os.path.join(device_out, "implicit-butd-pretrained_model.npz")
+    with open(os.path.join(device_out, "metrics.jsonl")) as fh:
+        last = [json.loads(line) for line in fh][-1]
+    out = os.path.join(tmp_root, "host_auto")
+    launches = []
+    reset_counts()  # the eval path starts here
+    score, loss = port_main.main(entry_argv("implicit", out, "--mode", "eval", "--checkpoint",
+                                            npz, *AUTO_SMALL))
+    eval_launches = read_path_counts()
+    launches.append(eval_launches)
+    with open(os.path.join(out, "eval_log.txt")) as fh:
+        resolved = [ln for ln in fh.read().splitlines() if ln.startswith("[data]")]
+    answers = {}
+    for name, mode in (("auto", AUTO_SMALL), ("device", ("--data_mode", "device"))):
+        reset_counts()  # the predict path starts here
+        path = port_main.main(entry_argv("implicit", os.path.join(out, name), "--mode",
+                                         "predict", "--checkpoint", npz, *mode))
+        launches.append(read_path_counts())
+        if launches[-1] != expected_launches("implicit", passes):
+            fail(f"{name} predict: launches {launches[-1]} for {passes} passes")
+        with open(path) as fh:
+            answers[name] = {d["question_id"]: d["answer"] for d in json.load(fh)}
+    differ = sum(answers["auto"].get(q) != a for q, a in answers["device"].items())
+    try:
+        port_main.build_server(entry_argv("implicit", out, "--mode", "serve", "--checkpoint",
+                                          npz, "--serve_port", "0", *AUTO_SMALL))
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    rel = abs(loss - last["eval_loss"]) / abs(last["eval_loss"])
+    print(f"{' '.join(AUTO_SMALL)}: {resolved}; --mode eval loss {loss} vs the device run's "
+          f"{last['eval_loss']} (rel {rel}), launches {json.dumps(eval_launches)}; --mode "
+          f"predict answers differing from device mode's: {differ} of {len(answers['device'])}; "
+          f"--mode serve refused: {refused!r}", flush=True)
+    if len(resolved) != 1 or "data=host (--data_mode auto)" not in resolved[0]:
+        fail(f"--data_mode auto under a 0.05 GB budget resolved {resolved}")
+    if not rel <= EVAL_LOSS_RTOL or eval_launches != expected_launches("implicit", passes):
+        fail(f"auto (host) eval: loss rel {rel}, launches {eval_launches}")
+    if differ or len(answers["auto"]) != len(answers["device"]):
+        fail(f"auto (host) predict: {differ} answers differ from device mode's")
+    if refused is None or "--device_store_budget_gb" not in refused:
+        fail(f"serve over the budget was not refused with the budget message: {refused!r}")
+    return launches
+
+
+def check_host_real_layout(tmp_root, smi):
+    """Phase 21 (e): spatial_vqa.json `--data_mode host --mmap_features` on
+    phase 19's dataset, train and eval through B2: every train batch
+    carries the file's labels, and the run equals phase 19's device run.
+    Returns the launches of the train path."""
+    root = os.path.join(tmp_root, "real")
+    tmp = os.path.join(tmp_root, "real_spatial_host")
+    _, launches, _ = check_entry_point(tmp, smi, "spatial", (*HOST_FLAGS, "--mmap_features"),
+                                       data=root)
+    if LAST_TRAIN["adj_batches"] != LAST_TRAIN["steps"]:
+        fail(f"spatial host: {LAST_TRAIN['adj_batches']} of {LAST_TRAIN['steps']} train "
+             f"batches carried the file's edge labels")
+    diff, excess, metric, bits = run_distance(
+        read_run(os.path.join(tmp_root, "real_spatial"), "spatial-butd"),
+        read_run(tmp, "spatial-butd"))
+    print(f"spatial_vqa.json --data_mode host --mmap_features on the real layout vs phase 19's "
+          f"device run: params max abs diff {diff} (excess {excess}), metrics max rel diff "
+          f"{metric}, bit-equal {bits}; {LAST_TRAIN['adj_batches']} of {LAST_TRAIN['steps']} "
+          f"train batches with the file's labels", flush=True)
+    if not excess <= 0.0 or not metric <= RESUME_RTOL:
+        fail(f"spatial host run on the real layout differs from device mode's: {diff}")
+    shutil.rmtree(os.path.join(tmp, "checkpoints"))
+    return [launches]
+
+
+def check_host_preemption(tmp_root, smi, host_out):
+    """Phase 21 (f): a host-mode butd run preempted at step 4 by
+    REGAT_FAULT_PREEMPT_STEP, then resumed, equals the uninterrupted host
+    run in `host_out` bit for bit, and leaves no prefetch thread; a
+    device-written step checkpoint resumed under --data_mode host is
+    refused. Returns the launches of the resumed path."""
+    from tf_vqa_regat_tpu_torch import main as port_main
+    from tf_vqa_regat_tpu_torch.train import checkpoint as ckpt
+
+    cfg = full_width_config("implicit", ["--mode", "train"])
+    passes = -(-cfg.synthetic_val_size // cfg.resolved_eval_batch())
+    flags = ("--mode", "train", "--epochs", "1", *SHORT_TRAIN, "--checkpoint_every_steps", "2")
+    outs = {k: os.path.join(tmp_root, f"host_preempt_{k}") for k in ("host", "device")}
+    os.environ["REGAT_FAULT_PREEMPT_STEP"] = "4"
+    try:
+        for k, mode in (("host", HOST_FLAGS), ("device", ("--data_mode", "device"))):
+            if port_main.main(entry_argv("implicit", outs[k], *flags, *mode)) is not None:
+                fail(f"the {k} run with REGAT_FAULT_PREEMPT_STEP=4 was not preempted")
+    finally:
+        del os.environ["REGAT_FAULT_PREEMPT_STEP"]
+    meta = ckpt.restore_meta_full(outs["host"])
+    if (meta or {}).get("step_in_epoch") != 4 or meta["run"]["data_mode"] != "host":
+        fail(f"preempted host run left meta {meta}")
+    alive = [t.name for t in threading.enumerate() if t.name == "regat-prefetch"]
+    reset_counts()  # the resumed path starts here
+    if port_main.main(entry_argv("implicit", outs["host"], *flags, *HOST_FLAGS,
+                                 "--resume")) is None:
+        fail("the resumed host run was preempted")
+    launches = read_path_counts()
+    diff, excess, metric, bits = run_distance(read_run(host_out), read_run(outs["host"]))
+    try:
+        port_main.main(entry_argv("implicit", outs["device"], *flags, *HOST_FLAGS, "--resume"))
+        across = None
+    except ValueError as e:
+        across = str(e)
+    print(f"host run preempted at step 4 (meta {json.dumps(meta)}), prefetch threads alive "
+          f"after it: {alive}; resumed vs uninterrupted host run: params max abs diff {diff}, "
+          f"metrics max rel diff {metric}, bit-equal {bits}; launches {json.dumps(launches)}; "
+          f"a device-written step checkpoint resumed under --data_mode host: {across!r}",
+          flush=True)
+    if not bits:
+        fail(f"the resumed host run differs from the uninterrupted one: {diff}, {metric}")
+    if alive:
+        fail(f"the preempted run left prefetch threads running: {alive}")
+    if launches != expected_launches("implicit", passes, 2):
+        fail(f"resumed host run: launches {launches} for 2 steps and {passes} passes")
+    if across is None or "data_mode" not in across:
+        fail(f"a device-written mid-epoch checkpoint was resumed under host mode: {across!r}")
+    for k in outs.values():
+        shutil.rmtree(os.path.join(k, "checkpoints"))
+    return [launches]
+
+
+def check_host_ensemble(tmp_root, smi):
+    """Phase 21 (g): phase 13's ensemble over one shared host stream: B1 and
+    B2 launches per pass, the score equal to device mode's, and batch by
+    batch the averaged probabilities within ENSEMBLE_PROB_ATOL of the device
+    path's, the batches equal. Returns its launches."""
+    import torch
+
+    from tf_vqa_regat_tpu_torch import main as port_main
+
+    argv = entry_argv("semantic", os.path.join(tmp_root, "host_ensemble"), "--mode",
+                      "ensemble_eval", "--ensemble_checkpoints", LAST_ENSEMBLE["spec"],
+                      *HOST_FLAGS)
+    reset_counts()  # the ensemble path starts here
+    t0 = time.perf_counter()
+    score = port_main.main(argv)
+    wall = time.perf_counter() - t0
+    launches = read_path_counts()
+    p = LAST_ENSEMBLE["passes"]
+    want = {"B1 eval": 2 * p, "B1 train": 0, "B2": 4 * p, "B2 per-head": 0}
+    # the members' averaged probabilities and the batches, batch by batch,
+    # from the host stream and from the device store
+    from tf_vqa_regat_tpu_torch.train import ensemble
+    from tf_vqa_regat_tpu_torch.train.logging import Logger
+
+    cfg = port_main.parse(argv)[0]
+    ds = port_main.build_datasets(cfg)[1]
+    members = ensemble.load_members(cfg, ds, torch.device("cuda", 0),
+                                    Logger(os.path.join(tmp_root, "host_ensemble", "cmp.txt")))
+    sources = ensemble.member_adj_sources(members, ds)
+    passes = [ensemble._host_passes, ensemble._resident_passes]
+    diff, same, n = 0.0, True, 0
+    for (p_host, b_host), (p_dev, b_dev) in zip(*(f(cfg, ds, torch.device("cuda", 0), members,
+                                                      sources) for f in passes)):
+        diff = max(diff, (p_host - p_dev).abs().max().item())
+        same = same and all(torch.equal(b_host[k], b_dev[k]) for k in b_dev)
+        n += 1
+    print(f"ensemble --data_mode host: score {score} vs device mode's {LAST_ENSEMBLE['score']}"
+          f"; averaged probabilities over {n} batches, host stream vs device store: max abs "
+          f"diff {diff}, batches equal {same}; {wall:.3f} s (host clock, loads included) on "
+          f"{smi}; launches {json.dumps(launches)}", flush=True)
+    if launches != want or abs(score - LAST_ENSEMBLE["score"]) > 1e-6 * score:
+        fail(f"host ensemble: score {score}, launches {launches} (want {want})")
+    if n != p or not same or diff > ENSEMBLE_PROB_ATOL:
+        fail(f"host ensemble: {n} batches, probabilities differ by {diff}, batches equal {same}")
+    return [launches]
+
+
 def build_kernels():
     """Build every CUDA source of the port, one nvcc each, all at once."""
     from tf_vqa_regat_tpu_torch.ops.kernels import build
@@ -2533,7 +2957,7 @@ def main() -> None:
         with phase(f"16, {' '.join([family, *extra])} bf16 train step"):
             check_bf16_fusion_step(device, smi_line, family, extra)
         torch.cuda.empty_cache()
-    launches = []  # the launch counts of every path of 8-13
+    launches = []  # the launch counts of every path of 8-13 and 17-21
     npz = {}
     with tempfile.TemporaryDirectory() as tmp_root:
         for family in CONFIGS:
@@ -2578,6 +3002,9 @@ def main() -> None:
         with phase("20, --grad_accum 2 resume"):
             launches += check_grad_accum_resume(os.path.join(tmp_root, "accum"), smi_line)
         torch.cuda.empty_cache()
+        with phase("21, host streaming"):
+            launches += check_host_streaming(tmp_root, smi_line, device)
+        torch.cuda.empty_cache()
 
     if any(m.split(".")[0] in ("jax", "jaxlib", "tf_vqa_regat_tpu") for m in sys.modules):
         fail("JAX or the JAX package was imported")
@@ -2588,15 +3015,15 @@ def main() -> None:
     big = next(r for r in rows if r["b"] == 32)
     train_big, graph_big = train_rows[-1], graph_rows[-1]
     bound_keys = ("bound_ms", "bound_by")
-    def total(kernel):  # over every path of 8-20, all R
+    def total(kernel):  # over every path of 8-21, all R
         return sum(run[kernel] for run in launches)
 
-    def at_rows(kernel, R):  # over every path of 8-20, at R
+    def at_rows(kernel, R):  # over every path of 8-21, at R
         return sum(run.get((kernel, R), 0) for run in PATH_ROWS)
 
     def rows_entries(R):
         """B1's two variants and B2 at R (14's rows: B1 eval at b=32, the
-        others at b=256); launches at R over the paths of 8-20."""
+        others at b=256); launches at R over the paths of 8-21."""
         by_b = {r["b"]: r for r in rows_at[R]}
         small, big = by_b[32], by_b[256]
         return [{

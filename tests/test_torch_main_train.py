@@ -101,9 +101,12 @@ def test_serve_loads_the_trained_model(trained):
     assert not thread.is_alive()
 
 
-@pytest.mark.parametrize("flag", [["--train_block", "2"], ["--data_mode", "host"]])
-def test_unported_training_flags_are_refused(flag):
-    with pytest.raises(SystemExit):
+@pytest.mark.parametrize("flag,error", [(["--train_block", "2"], SystemExit),
+                                        (["--data_mode", "sharded"], ValueError)])
+def test_unported_training_flags_are_refused(flag, error):
+    """A flag of a feature not ported is refused by the parser; the
+    data-parallel value of a ported flag by the config."""
+    with pytest.raises(error):
         parse(SMALL + ["--mode", "train"] + flag)
 
 

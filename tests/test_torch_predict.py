@@ -57,8 +57,8 @@ def _cfg(out, **kw):
 
 
 def _jax_cfg(cfg):
-    return JaxConfig(**{f.name: getattr(cfg, f.name) for f in dataclasses.fields(Config)},
-                     data_mode="device")
+    return JaxConfig(**{**{f.name: getattr(cfg, f.name) for f in dataclasses.fields(Config)},
+                        "data_mode": "device"})
 
 
 def _answerless(ds):

@@ -214,6 +214,8 @@ def test_port_imports_no_jax_and_no_h5py():
         "import tf_vqa_regat_tpu_torch.train.loop\n"
         "import tf_vqa_regat_tpu_torch.train.checkpoint, tf_vqa_regat_tpu_torch.train.ensemble\n"
         "import tf_vqa_regat_tpu_torch.data.convert, tf_vqa_regat_tpu_torch.data.compose\n"
+        "import tf_vqa_regat_tpu_torch.data.loader, tf_vqa_regat_tpu_torch.data.native\n"
+        "import tf_vqa_regat_tpu_torch.preflight, tf_vqa_regat_tpu_torch.profile_step\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "          ('jax', 'jaxlib', 'orbax', 'h5py', 'tf_vqa_regat_tpu'))\n"
         "print(bad)\n"

@@ -198,8 +198,8 @@ def test_training_run_equals_jax_run_training(tmp_path, layout):
     from tf_vqa_regat_tpu.train.loop import run_training as jax_run_training
 
     cfg = _cfg(tmp_path / "port", **layout)
-    jcfg = JaxConfig(**{f.name: getattr(cfg, f.name) for f in dataclasses.fields(Config)},
-                     use_pallas=True, train_block=1, data_mode="device")
+    jcfg = JaxConfig(**{**{f.name: getattr(cfg, f.name) for f in dataclasses.fields(Config)},
+                        "data_mode": "device"}, use_pallas=True, train_block=1)
     jcfg = dataclasses.replace(jcfg, output=str(tmp_path / "jax") + "/")
     (train, val), (jtrain, jval) = _splits(cfg.adaptive)
     params = init_regat(jax.random.PRNGKey(0), jcfg, train.ntoken, V_DIM, NUM_ANS)

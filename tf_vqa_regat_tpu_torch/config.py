@@ -110,6 +110,17 @@ class Config:
     roi_buckets: str = ""
     # Eval batch size; 0 = the reference's batch_size // 4.
     eval_batch: int = 0
+    # Host-to-device prefetch depth of the host data path: batches packed
+    # and copied ahead by a background thread (0 = in the caller's thread).
+    prefetch: int = 2
+    # Data path: "device" holds each split's tables on the card and gathers
+    # a batch there; "host" packs batches on the host and streams them
+    # (data/loader.py); "auto" takes "device" when every split's tables
+    # (data/store.py::estimate_nbytes at --feature_dtype) fit the budget,
+    # each split half of it when a train split is present, else "host"
+    # (train/loop.py::resolve_data_mode, JAX's policy at one process).
+    data_mode: str = "auto"
+    device_store_budget_gb: float = 8.0
     # --mode serve: port, fixed batch sizes, straggler wait.
     serve_port: int = 8000
     serve_batch_sizes: str = "1,8,32"
@@ -144,6 +155,13 @@ class Config:
             v = getattr(self, field)
             if v not in allowed:
                 raise ValueError(f"--{field} {v!r} is not one of {'|'.join(allowed)}")
+        if self.data_mode == "sharded":
+            raise ValueError(
+                "--data_mode sharded (tables partitioned over a data-parallel mesh) is "
+                "not ported yet (ROADMAP Queue A, multi-device); use auto, device or host"
+            )
+        if self.data_mode not in ("auto", "device", "host"):
+            raise ValueError(f"--data_mode {self.data_mode!r} is not one of auto|device|host")
         sizes = [x for x in self.serve_batch_sizes.split(",") if x.strip()]
         if not sizes or any(int(x) <= 0 for x in sizes):
             raise ValueError(

@@ -156,6 +156,35 @@ def table_nbytes(ds: VQADataset, feature_dtype: str, adj: Optional[np.ndarray]) 
     return total + (0 if adj is None else int(adj.size))
 
 
+def estimate_nbytes(ds: VQADataset, include_adj: bool = False,
+                    feature_dtype: str = "float32") -> int:
+    """The split's device tables in bytes as the JAX package counts them
+    (device_store.py::estimate_nbytes), without building them: the feature
+    table at the dtype's share of f32, the f32 boxes, int8's f32 row
+    scales, the per-image start and length, the entries' image index,
+    questions, labels and scores at 4 bytes each, and with `include_adj`
+    the edge-label table at 1 byte. The port's entry tables are int64, so
+    its store is larger; this count is only for the data-mode decision
+    (train/loop.py::resolve_data_mode), so that the port decides what JAX
+    decides. `check_fits` guards the upload against the free memory."""
+    store, ent = ds.store, ds.entries
+    n_entries = len(ent)
+    float_scale = {"bfloat16": 0.5, "int8": 0.25}.get(feature_dtype, 1.0)
+    total = int(store.features.nbytes * float_scale) + int(
+        store.normalized_bb.nbytes + store.bb.nbytes)
+    if feature_dtype == "int8":
+        total += 4 * int(np.prod(store.features.shape[:-1]))
+    total += 2 * 4 * store.num_images
+    total += 4 * n_entries
+    total += 4 * n_entries * ent.q_tokens.shape[1]
+    total += (4 + 4) * n_entries * MAX_LABELS
+    if include_adj:
+        adj = adjacency_table(ds)
+        if adj is not None:
+            total += int(adj.size)
+    return total
+
+
 def check_fits(ds: VQADataset, feature_dtype: str, adj: Optional[np.ndarray],
                device: torch.device) -> None:
     """Refuse, before any upload, image tables larger than the card's free
@@ -169,7 +198,9 @@ def check_fits(ds: VQADataset, feature_dtype: str, adj: Optional[np.ndarray],
             f"the {ds.name} split's image tables take {need / 1e9:.2f} GB at "
             f"--feature_dtype {feature_dtype}, more than the {free / 1e9:.2f} GB free on "
             f"{device}: hold the features at --feature_dtype bfloat16 (half) or int8 (a "
-            f"quarter). The sharded and host stores are not ported yet (ROADMAP Queue A)."
+            f"quarter), or stream them from the host (--data_mode host, or auto with a "
+            f"smaller --device_store_budget_gb). The sharded store is not ported yet "
+            f"(ROADMAP Queue A, multi-device)."
         )
 
 

@@ -24,8 +24,10 @@ data/convert.py (the port reads no HDF5): `--dataset vqa_cp`, `--use_both`,
 (configs/butd_vqa_fixed36.json), for implicit, spatial and semantic
 relations with BUTD fusion, and implicit relations with BAN and MuTAN fusion
 (configs/ban_vqa.json, mutan_vqa_cp.json); `--feature_dtype
-float32|bfloat16|int8`, `--roi_buckets` and, with BUTD, `--compute_dtype
-bfloat16`. Training writes checkpoints under
+float32|bfloat16|int8`, `--roi_buckets`, `--compute_dtype bfloat16`, and
+the data path `--data_mode auto|device|host` with
+`--device_store_budget_gb` and `--prefetch` (train/loop.py::
+resolve_data_mode). Training writes checkpoints under
 `{output}/checkpoints/` (train/checkpoint.py; `--resume` continues from the
 newest) and, at its end, `{output}/{relation_type}-{fusion}-pretrained_model.npz`
 (params.py). A preempted run (SIGTERM) saves a step checkpoint, prints how

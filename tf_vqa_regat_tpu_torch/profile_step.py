@@ -4,7 +4,14 @@ the synthetic train split, traced with torch.profiler.
 
     python -m tf_vqa_regat_tpu_torch.profile_step [--config configs/spatial_vqa.json]
         [--steps 5] [--trace out.json] [config flags, e.g. --mutan_shared_qdrop,
-        --compute_dtype bfloat16, --num_rois 36, --grad_accum 2]
+        --compute_dtype bfloat16, --num_rois 36, --grad_accum 2,
+        --data_mode host --prefetch 2]
+
+With `--data_mode host` each step takes the next batch of the host path
+(data/loader.py: packed on the host, copied by the prefetch thread
+`--prefetch` batches ahead, or in the step's thread at 0), so the step time
+and idle share include what the host stream costs; otherwise every step
+reuses one batch gathered on the card from the device store.
 
 Prints, for the traced steps: the step time on the host clock with and
 without the profiler, the device's busy time (sum of kernel times) and idle
@@ -18,6 +25,7 @@ is off, as in chip_smoke.py.
 from __future__ import annotations
 
 import argparse
+import itertools
 import os
 import re
 import subprocess
@@ -28,10 +36,11 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from tf_vqa_regat_tpu_torch.config import parse_with_config
+from tf_vqa_regat_tpu_torch.data.loader import prefetch_to_device
 from tf_vqa_regat_tpu_torch.data.store import DeviceStore, gather_batch
 from tf_vqa_regat_tpu_torch.main import build_dataset
 from tf_vqa_regat_tpu_torch.models.regat import ReGAT, trainable_mask
-from tf_vqa_regat_tpu_torch.train.loop import check_grad_accum
+from tf_vqa_regat_tpu_torch.train.loop import check_grad_accum, host_loader
 from tf_vqa_regat_tpu_torch.train.optim import Adamax, make_lr_schedule
 from tf_vqa_regat_tpu_torch.train.step import train_step
 
@@ -62,9 +71,17 @@ def main() -> None:
     )
     check_grad_accum(cfg)
     ds = build_dataset(cfg, "train")
-    store = DeviceStore(ds, device, feature_dtype=cfg.feature_dtype)
-    idx = next(store.epoch_indices(0, cfg.batch_size, True, cfg.seed))
-    batch = gather_batch(store, torch.from_numpy(idx).to(device), cfg.resolved_num_rois())
+    host = cfg.data_mode == "host"
+    if host:
+        loader = host_loader(cfg, ds, cfg.batch_size, True)
+        stream = itertools.chain.from_iterable(
+            prefetch_to_device(loader, device, epoch, 0, cfg.prefetch)
+            for epoch in itertools.count())
+    else:
+        store = DeviceStore(ds, device, feature_dtype=cfg.feature_dtype)
+        idx = next(store.epoch_indices(0, cfg.batch_size, True, cfg.seed))
+        batch = gather_batch(store, torch.from_numpy(idx).to(device), cfg.resolved_num_rois())
+        stream = itertools.repeat(batch)
     model = ReGAT(cfg, ds.ntoken, ds.v_dim, ds.num_ans).to(device)
     opt = Adamax(model, trainable_mask(model, False), make_lr_schedule(
         cfg.base_lr, 16, cfg.lr_decay_rate, cfg.lr_decay_step), cfg.grad_clip)
@@ -72,7 +89,7 @@ def main() -> None:
     def steps(n):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        for _ in range(n):
+        for batch in itertools.islice(stream, n):
             train_step(model, opt, batch, opt.count, cfg.seed, cfg.grad_accum)
         torch.cuda.synchronize()
         return (time.perf_counter() - t0) * 1e3 / n
@@ -89,6 +106,9 @@ def main() -> None:
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     busy = {e.key: (e.self_device_time_total / 1e3 / args.steps, e.count / args.steps)
             for e in kernels}
+    # the host path's copies run on the copy engine beside the kernels:
+    # reported apart, not counted as busy
+    h2d = {k: busy.pop(k) for k in list(busy) if "HtoD" in k}
     total = sum(ms for ms, _ in busy.values())
     b1 = sum(ms for k, (ms, _) in busy.items() if "implicit_attention" in k)
     b2 = sum(ms for k, (ms, _) in busy.items() if "graph_attention_kernel" in k)
@@ -96,13 +116,18 @@ def main() -> None:
     print(f"train step b={cfg.batch_size} at the widths of {os.path.basename(args.config)} "
           f"({cfg.relation_type}-{cfg.fusion}{' ' if config_flags else ''}"
           f"{' '.join(config_flags)}), compute {cfg.compute_dtype}, "
-          f"grad_accum {cfg.grad_accum}, TF32 off, on {smi}")
+          f"grad_accum {cfg.grad_accum}, data "
+          f"{f'host (prefetch {cfg.prefetch})' if host else 'device (one batch)'}, TF32 off, "
+          f"on {smi}")
     print(f"host ms/step: {plain_ms:.3f} (no profiler), {traced_ms:.3f} (profiled)")
     print(f"device busy ms/step: {total:.3f}; idle share of the profiled step: "
           f"{1 - total / traced_ms:.3f}, of the unprofiled step: {max(0.0, 1 - total / plain_ms):.3f}")
     print(f"kernels per step: {sum(c for _, c in busy.values()):.0f}; B1 share of busy "
           f"{b1 / total:.3f} ({b1:.3f} ms); B2 share {b2 / total:.3f} ({b2:.3f} ms); "
           f"GEMM share {gemm / total:.3f} ({gemm:.3f} ms); peak device memory {peak_gb:.2f} GB")
+    if h2d:
+        print(f"host-to-device copies per step: {sum(ms for ms, _ in h2d.values()):.3f} ms in "
+              f"{sum(c for _, c in h2d.values()):.0f} copies (copy engine, beside the kernels)")
     print("top kernels (ms/step, launches/step, name):")
     for k, (ms, c) in sorted(busy.items(), key=lambda kv: -kv[1][0])[:15]:
         print(f"  {ms:9.3f} {c:6.0f}  {k[:110]}")

@@ -6,7 +6,10 @@ tf_vqa_regat_tpu/serve.py, replicated store only).
   which also builds the CUDA kernels, so the first request pays neither.
 - The split's feature tables live on the device (data/store.py), at
   --feature_dtype; a request ships its 14 token ids and an image index, and
-  its rows are gathered at `resolved_num_rois()` (36 under fixed-36).
+  its rows are gathered at `resolved_num_rois()` (36 under fixed-36). A
+  split whose tables (estimate_nbytes) exceed --device_store_budget_gb is
+  refused before any upload, with JAX's message and remedy at one process
+  (the sharded store it would fall back to is ROADMAP Queue A).
 - Concurrent requests are coalesced for up to `--serve_max_delay_ms` into
   one forward pass at the smallest fixed size that fits.
 
@@ -35,12 +38,38 @@ import torch
 
 from tf_vqa_regat_tpu_torch.config import Config
 from tf_vqa_regat_tpu_torch.data.dictionary import encode_question
-from tf_vqa_regat_tpu_torch.data.store import ImageStore, gather_adj, gather_image_features
+from tf_vqa_regat_tpu_torch.data.store import (
+    ImageStore,
+    estimate_nbytes,
+    gather_adj,
+    gather_image_features,
+)
 from tf_vqa_regat_tpu_torch.data.features import VQADataset
 from tf_vqa_regat_tpu_torch.models.regat import ReGAT
 
 # Largest client batch one POST may carry (see do_POST).
 MAX_CLIENT_BATCH = 512
+
+
+def check_budget(cfg: Config, ds: VQADataset, include_adj: bool) -> None:
+    """Refuse a split whose device tables (estimate_nbytes) exceed
+    --device_store_budget_gb, with the JAX engine's message and remedy at
+    one process (JAX serve.py:97-125)."""
+    need = estimate_nbytes(ds, include_adj, cfg.feature_dtype)
+    if need <= int(cfg.device_store_budget_gb * 1e9):
+        return
+    if cfg.feature_dtype != "int8":
+        remedy = (f"Use --feature_dtype int8 "
+                  f"(~{estimate_nbytes(ds, include_adj, 'int8') / 1e9:.2f} GB), "
+                  f"raise --device_store_budget_gb,")
+    else:  # already the smallest dtype: only the budget helps
+        remedy = "Raise --device_store_budget_gb,"
+    raise ValueError(
+        f"serve: split {ds.name!r} at --feature_dtype {cfg.feature_dtype} needs "
+        f"~{need / 1e9:.2f} GB on the device, but the device budget is "
+        f"{cfg.device_store_budget_gb:.2f} GB (--device_store_budget_gb). {remedy} "
+        f"or serve a smaller split."
+    )
 
 
 class InferenceEngine:
@@ -57,9 +86,10 @@ class InferenceEngine:
     ):
         self.ds = ds
         self.device = torch.device(device)
+        include_adj = cfg.relation_type != "implicit"
+        check_budget(cfg, ds, include_adj)
         self.model = model.to(self.device).eval()
-        self.store = ImageStore(ds, self.device, cfg.feature_dtype,
-                                include_adj=cfg.relation_type != "implicit",
+        self.store = ImageStore(ds, self.device, cfg.feature_dtype, include_adj=include_adj,
                                 cache_dir=cfg.packed_cache)
         self.num_rois = cfg.resolved_num_rois()
         self.img_index = {

@@ -1,5 +1,6 @@
 """Three-branch ReGAT ensemble evaluation (counterpart of
-tf_vqa_regat_tpu/train/ensemble.py, its device-resident path).
+tf_vqa_regat_tpu/train/ensemble.py at one process: its device-resident and
+host paths).
 
 Members are separate checkpoints, each trained with its own
 --relation_type and otherwise the flags of this run: member `rt` is built
@@ -7,14 +8,19 @@ with `cfg.replace(relation_type=rt)` and loaded from its `.npz` or
 checkpoint directory. At eval time every member runs on the same batch and
 the sigmoid answer probabilities are averaged before the argmax VQA score.
 
-The split's tables are uploaded once, at --feature_dtype, and shared; the
-batches are the ones eval and predict read (train/loop.py::
-eval_batch_stream), per bucket under --roi_buckets. The shared batch carries no
-edge labels: each explicit member adds its own table, uploaded once and
-gathered for the batch (JAX ensemble.py:238-256): a semantic member the
-split's semantic labels, a spatial member the file's spatial labels where
-the split has them; without them it builds its labels from the boxes in
-the step, as it does in training.
+The data path is train/loop.py's `resolve_data_mode`, with the members'
+edge-label tables counted beside the store (JAX ensemble.py:300-330). On
+the device path the split's tables are uploaded once, at --feature_dtype,
+and shared; the batches are the ones eval and predict read (train/loop.py::
+eval_batch_stream), per bucket under --roi_buckets. The shared batch
+carries no edge labels: each explicit member adds its own table, uploaded
+once and gathered for the batch (JAX ensemble.py:238-256): a semantic
+member the split's semantic labels, a spatial member the file's spatial
+labels where the split has them; without them it builds its labels from
+the boxes in the step, as it does in training. On the host path one shared
+loader streams the batches for all members, and each member's edge labels
+are packed on the host from the file's table per batch and copied (JAX
+ensemble.py:391-).
 
 CLI: --mode ensemble_eval
      --ensemble_checkpoints implicit:PATH,spatial:PATH,semantic:PATH
@@ -23,6 +29,8 @@ CLI: --mode ensemble_eval
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import time
 from typing import Dict, List, Tuple
 
@@ -32,11 +40,19 @@ import torch
 from tf_vqa_regat_tpu_torch.config import Config
 from tf_vqa_regat_tpu_torch.data.store import DeviceStore, gather_adj, gather_batch
 from tf_vqa_regat_tpu_torch.data.features import VQADataset
+from tf_vqa_regat_tpu_torch.data.loader import prefetch_to_device
 from tf_vqa_regat_tpu_torch.models.regat import ReGAT
 from tf_vqa_regat_tpu_torch.params import load_jax_arrays
 from tf_vqa_regat_tpu_torch.train.checkpoint import load_params
 from tf_vqa_regat_tpu_torch.train.logging import Logger
-from tf_vqa_regat_tpu_torch.train.loop import build_store, eval_batch_stream
+from tf_vqa_regat_tpu_torch.train.loop import (
+    build_store,
+    check_roi_buckets_mode,
+    data_mode_line,
+    eval_batch_stream,
+    host_loader,
+    resolve_data_mode,
+)
 from tf_vqa_regat_tpu_torch.train.loss import vqa_score_sum
 
 Member = Tuple[str, ReGAT]
@@ -79,21 +95,27 @@ def load_members(
     return members
 
 
-def member_adj_tables(
-    members: List[Member], ds: VQADataset, device: torch.device
-) -> Dict[str, torch.Tensor]:
-    """Relation type -> its edge-label table on `device` [num_images, A, A]
-    int8, once per type among the members: semantic members the split's
+def member_adj_sources(members: List[Member], ds: VQADataset) -> Dict[str, np.ndarray]:
+    """Relation type -> the split's edge-label table [num_images, A, A] it
+    reads, once per type among the members: semantic members the split's
     semantic table (required), spatial members the file's spatial table
     where there is one."""
-    tables = {}
+    sources = {}
     for rt, _ in members:
         src = {"semantic": ds.store.semantic_adj, "spatial": ds.store.spatial_adj}.get(rt)
         if rt == "semantic" and src is None:
             raise ValueError("a semantic member needs the split's edge-label table")
-        if src is not None and rt not in tables:
-            tables[rt] = torch.from_numpy(src.astype(np.int8)).to(device)
-    return tables
+        if src is not None:
+            sources[rt] = src
+    return sources
+
+
+def member_adj_tables(
+    members: List[Member], ds: VQADataset, device: torch.device
+) -> Dict[str, torch.Tensor]:
+    """member_adj_sources's tables on `device` as int8."""
+    return {rt: torch.from_numpy(src.astype(np.int8)).to(device)
+            for rt, src in member_adj_sources(members, ds).items()}
 
 
 def averaged_probs(
@@ -104,18 +126,23 @@ def averaged_probs(
     shared batch) for index vector `idx`; `tables` from member_adj_tables."""
     batch = gather_batch(store, idx, num_rois, adj=False)
     img = store.entry_img[torch.clamp(idx, min=0).long()]
-    labels = {}
+    labels = {rt: gather_adj(table, img, num_rois, batch["valid"])
+              for rt, table in tables.items()}
+    return member_probs(members, batch, labels), batch
+
+
+def member_probs(
+    members: List[Member], batch: Dict[str, torch.Tensor], labels: Dict[str, torch.Tensor],
+) -> torch.Tensor:
+    """The mean of the members' sigmoid answer probabilities on `batch`,
+    each explicit member reading its edge labels from `labels`."""
     probs = None
     with torch.no_grad():
         for rt, model in members:
-            b = batch
-            if rt in tables:
-                if rt not in labels:
-                    labels[rt] = gather_adj(tables[rt], img, num_rois, batch["valid"])
-                b = dict(batch, adj_label=labels[rt])
+            b = dict(batch, adj_label=labels[rt]) if rt in labels else batch
             p = torch.sigmoid(model(b))
             probs = p if probs is None else probs + p
-    return probs / len(members), batch
+    return probs / len(members)
 
 
 def run_ensemble_eval(
@@ -123,19 +150,50 @@ def run_ensemble_eval(
 ) -> float:
     """The ensemble's VQA score (%) over the split, in entry order."""
     members = load_members(cfg, val_ds, device, logger)
-    store = build_store(cfg.replace(relation_type="implicit"), val_ds, device)
-    tables = member_adj_tables(members, val_ds, device)
+    # the members' edge-label tables sit on the card beside the store in
+    # device mode, so the budget counts them (int8, one byte each)
+    sources = member_adj_sources(members, val_ds)
+    extra = sum(int(src.size) for src in sources.values())
+    mode = resolve_data_mode(cfg, val_ds, None, False, extra)
+    check_roi_buckets_mode(cfg, mode)
+    logger.write(data_mode_line(cfg, mode, val_ds, None, False, extra))
     score = torch.zeros((), device=device)
     n = torch.zeros((), device=device)
     start = time.time()
-    for R, idx in eval_batch_stream(cfg, store, cfg.resolved_eval_batch()):
-        probs, batch = averaged_probs(members, store, torch.from_numpy(idx).to(device), R,
-                                      tables)
+    for probs, batch in (_resident_passes if mode == "device" else _host_passes)(
+            cfg, val_ds, device, members, sources):
         score += vqa_score_sum(probs, batch["target"], batch["valid"])
         n += batch["valid"].to(torch.float32).sum()
     score_pct = 100.0 * float(score) / max(float(n), 1.0)
     logger.write(
-        f"[ensemble] members={[rt for rt, _ in members]} data=device "
+        f"[ensemble] members={[rt for rt, _ in members]} data={mode} "
         f"score={score_pct:.4f} ({time.time()-start:.1f}s)"
     )
     return score_pct
+
+
+def _resident_passes(cfg, val_ds, device, members, sources):
+    """(averaged probabilities, batch) per eval batch from the device store."""
+    store = build_store(cfg.replace(relation_type="implicit"), val_ds, device)
+    tables = member_adj_tables(members, val_ds, device)
+    for R, idx in eval_batch_stream(cfg, store, cfg.resolved_eval_batch()):
+        yield averaged_probs(members, store, torch.from_numpy(idx).to(device), R, tables)
+
+
+def _host_passes(cfg, val_ds, device, members, sources):
+    """(averaged probabilities, batch) per eval batch of one shared host
+    stream; each member's edge labels packed from its table per batch."""
+    eval_batch, R = cfg.resolved_eval_batch(), cfg.resolved_num_rois()
+    shared = dataclasses.replace(val_ds, relation_type="implicit")
+    loader = host_loader(cfg, shared, eval_batch, False, include_adj=False)
+    entry_img = val_ds.entries.image_index
+    with contextlib.closing(prefetch_to_device(loader, device, depth=cfg.prefetch)) as batches:
+        for lo, batch in zip(range(0, len(entry_img), eval_batch), batches):
+            imgs = entry_img[lo : lo + eval_batch]
+            labels = {}
+            for rt, src in sources.items():
+                adj = np.zeros((eval_batch, R, R), np.int32)
+                k = min(src.shape[1], R)
+                adj[: len(imgs), :k, :k] = src[imgs, :k, :k]
+                labels[rt] = torch.from_numpy(adj).to(device)
+            yield member_probs(members, batch, labels), batch

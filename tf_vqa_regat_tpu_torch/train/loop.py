@@ -1,8 +1,18 @@
 """Train, eval and predict orchestration (counterpart of
 tf_vqa_regat_tpu/train/loop.py: `run_training`, `run_evaluation`,
 `run_prediction`, `_run_eval`, `_log_progress`, `_run_signature`,
-`Preempted` and `_PreemptWatcher`), over the device-resident stores of
-data/store.py.
+`Preempted`, `_PreemptWatcher`, `resolve_data_mode`,
+`check_roi_buckets_mode` and `_DataPath`), over the device-resident stores
+of data/store.py or the host loaders of data/loader.py.
+
+The data path is JAX's one policy at one process (`resolve_data_mode`):
+`--data_mode device` holds each split's tables on the card and gathers a
+batch there; `host` packs batches on the host and streams them to the card
+(`--prefetch` batches ahead); `auto` takes `device` when every split's
+tables, as JAX counts them (data/store.py::estimate_nbytes), fit
+`--device_store_budget_gb`, each split half of it when a train split is
+present, else `host`. Every entry point logs the mode it took with each
+split's estimate and the budget (`[data] data=...`).
 
 The log lines follow the JAX package's (and so the reference's) format: the
 optimizer banner, the LR line at every warmup epoch and every decay epoch,
@@ -29,13 +39,13 @@ update (train/step.py); under --roi_buckets they run at their batch's
 bucket R.
 
 Not ported (ROADMAP Queue A): the multi-process preemption sync and
-checkpoint barrier (multi-device); --train_block and --eval_block (one step
-per dispatch, as JAX's --train_block 1); host streaming and the sharded
-store (a split whose tables do not fit the card is refused).
+checkpoint barrier, and the sharded store (multi-device); --train_block and
+--eval_block (one step per dispatch, as JAX's --train_block 1).
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import signal
@@ -48,9 +58,10 @@ import numpy as np
 import torch
 
 from tf_vqa_regat_tpu_torch.config import Config
-from tf_vqa_regat_tpu_torch.data.ordering import ORDER_VERSION
-from tf_vqa_regat_tpu_torch.data.store import DeviceStore, gather_batch
 from tf_vqa_regat_tpu_torch.data.features import VQADataset
+from tf_vqa_regat_tpu_torch.data.loader import BatchLoader, prefetch_to_device
+from tf_vqa_regat_tpu_torch.data.ordering import ORDER_VERSION
+from tf_vqa_regat_tpu_torch.data.store import DeviceStore, estimate_nbytes, gather_batch
 from tf_vqa_regat_tpu_torch.models.regat import ReGAT, trainable_mask
 from tf_vqa_regat_tpu_torch.params import load_state_arrays, state_tensors
 from tf_vqa_regat_tpu_torch.train import checkpoint as ckpt
@@ -106,10 +117,11 @@ class _PreemptWatcher:
         return self._flag or 0 <= self._fault_step <= global_step
 
 
-def _run_signature(cfg: Config, steps_per_epoch: int) -> Dict[str, Any]:
+def _run_signature(cfg: Config, steps_per_epoch: int, data_mode: str) -> Dict[str, Any]:
     """Everything the seeded epoch order depends on, with the JAX keys: a
-    step checkpoint records it and a mid-epoch resume refuses another. The
-    port has one data path (the device store, one process) and dispatches
+    step checkpoint records it and a mid-epoch resume refuses another.
+    `data_mode` is the resolved one, so a mid-epoch resume across modes is
+    refused, as JAX refuses it. The port runs one process and dispatches
     one step at a time; the bucket list is the parsed one, so '100,64' and
     '64, 100' sign alike."""
     return {
@@ -118,14 +130,14 @@ def _run_signature(cfg: Config, steps_per_epoch: int) -> Dict[str, Any]:
         "steps_per_epoch": int(steps_per_epoch),
         "order": int(ORDER_VERSION),
         "roi_buckets": list(cfg.parsed_roi_buckets() or []),
-        "data_mode": "device",
+        "data_mode": str(data_mode),
         "dp": 1,
         "train_block": 1,  # one optimizer step per dispatch (JAX: --train_block 1)
     }
 
 
 def _resume_point(
-    cfg: Config, N: int, model: ReGAT, opt: Adamax
+    cfg: Config, N: int, data_mode: str, model: ReGAT, opt: Adamax
 ) -> Tuple[int, int, Optional[Dict[str, float]], float]:
     """--resume: restore the newest checkpoint into `model` and `opt` ->
     (first epoch, steps of it already taken, its accumulators or None, best
@@ -143,7 +155,7 @@ def _resume_point(
     sig_saved = meta.get("run")
     if "step_in_epoch" in meta and meta.get("dir") == restored:
         # a mid-epoch resume replays the same epoch order past the saved step
-        sig_now = _run_signature(cfg, N)
+        sig_now = _run_signature(cfg, N, data_mode)
         diffs = {
             k: (sig_saved.get(k), sig_now.get(k))
             for k in (sig_saved or {}) if sig_saved.get(k) != sig_now.get(k)
@@ -275,25 +287,136 @@ def eval_batch_stream(
     return ((R0, idx) for idx in store.epoch_indices(0, eval_batch, False, cfg.seed))
 
 
+def resolve_data_mode(
+    cfg: Config, val_ds: VQADataset, train_ds: Optional[VQADataset], include_adj: bool,
+    extra_bytes: int = 0,
+) -> str:
+    """The one data-path policy (JAX loop.py::resolve_data_mode at one
+    process, whose sharded leg needs a data-parallel mesh): a forced
+    --data_mode as given; under 'auto', 'device' when every split's tables
+    (estimate_nbytes at --feature_dtype) plus `extra_bytes` (arrays the
+    caller keeps on the card beside the store: the ensemble's member
+    edge-label tables) fit the budget, the whole of it for eval-only use
+    (`train_ds` None) and half of it per split with a train split; else
+    'host'. One mode for every split."""
+    if cfg.data_mode != "auto":
+        return cfg.data_mode
+    per_store = _per_store_budget(cfg, train_ds)
+    splits = [val_ds] + ([train_ds] if train_ds is not None else [])
+    if all(estimate_nbytes(ds, include_adj, cfg.feature_dtype) + extra_bytes <= per_store
+           for ds in splits):
+        return "device"
+    return "host"
+
+
+def _per_store_budget(cfg: Config, train_ds: Optional[VQADataset]) -> int:
+    budget = int(cfg.device_store_budget_gb * 1e9)
+    return budget // 2 if train_ds is not None else budget
+
+
+def data_mode_line(
+    cfg: Config, mode: str, val_ds: VQADataset, train_ds: Optional[VQADataset],
+    include_adj: bool, extra_bytes: int = 0,
+) -> str:
+    """The log line of a resolved data path: the mode, each split's
+    estimate and the budget it was held to (JAX's `data=` tag)."""
+    splits = ([train_ds] if train_ds is not None else []) + [val_ds]
+    sizes = ", ".join(
+        f"{ds.name} {(estimate_nbytes(ds, include_adj, cfg.feature_dtype) + extra_bytes) / 1e9:.4f}"
+        f" GB" for ds in splits)
+    return (f"[data] data={mode} (--data_mode {cfg.data_mode}): {sizes} at --feature_dtype "
+            f"{cfg.feature_dtype} against {_per_store_budget(cfg, train_ds) / 1e9:.4f} GB per "
+            f"split (--device_store_budget_gb {cfg.device_store_budget_gb:g}"
+            f"{', halved for a train split' if train_ds is not None else ''})")
+
+
+def check_roi_buckets_mode(cfg: Config, mode: str) -> None:
+    """--roi_buckets needs device-resident tables (each bucket's batch is
+    gathered on the card): refuse the host path, with JAX's message."""
+    if cfg.parsed_roi_buckets() and mode == "host":
+        raise ValueError(
+            f"--roi_buckets requires the device or sharded data mode "
+            f"(resolved mode: {mode!r}); per-size compiled programs need "
+            f"device-resident tables. Force --data_mode device/sharded "
+            f"or drop --roi_buckets."
+        )
+
+
+def host_loader(cfg: Config, ds: VQADataset, batch_size: int, shuffle: bool,
+                include_adj: bool = True) -> BatchLoader:
+    """The split's host loader at the config's roi count and feature dtype,
+    with the split's edge labels for an explicit relation type."""
+    return BatchLoader(ds, batch_size, cfg.resolved_num_rois(), shuffle, seed=cfg.seed,
+                       include_adj=include_adj and cfg.relation_type != "implicit",
+                       feature_dtype=cfg.feature_dtype)
+
+
+class _DataPath:
+    """The resolved data path of a train or eval run (JAX `_DataPath` at one
+    process): the device stores with the on-card gather, or the host
+    loaders with the prefetch. `train_ds` None: eval only. Both yield the
+    same batches (data/loader.py)."""
+
+    def __init__(self, cfg: Config, train_ds: Optional[VQADataset], val_ds: VQADataset,
+                 device: torch.device, logger: Logger):
+        self.cfg, self.device = cfg, device
+        include_adj = cfg.relation_type != "implicit"
+        self.mode = resolve_data_mode(cfg, val_ds, train_ds, include_adj)
+        check_roi_buckets_mode(cfg, self.mode)
+        logger.write(data_mode_line(cfg, self.mode, val_ds, train_ds, include_adj))
+        self.eval_batch = cfg.resolved_eval_batch()
+        self.eval_entries = len(val_ds)
+        if self.mode == "device":
+            self.train_store = None if train_ds is None else build_store(cfg, train_ds, device)
+            self.eval_store = (
+                build_store(cfg, val_ds, device) if train_ds is None
+                else DeviceStore(val_ds, device, feature_dtype=cfg.feature_dtype,
+                                 include_adj=include_adj, cache_dir=cfg.packed_cache))
+            self.steps_per_epoch = (0 if train_ds is None
+                                    else steps_per_epoch(cfg, self.train_store, cfg.batch_size))
+            self.eval_steps = steps_per_epoch(cfg, self.eval_store, self.eval_batch)
+        else:
+            self.train_loader = (None if train_ds is None
+                                 else host_loader(cfg, train_ds, cfg.batch_size, True))
+            self.eval_loader = host_loader(cfg, val_ds, self.eval_batch, False)
+            self.steps_per_epoch = 0 if train_ds is None else len(self.train_loader)
+            self.eval_steps = len(self.eval_loader)
+
+    def train_batches(self, epoch: int, skip: int = 0) -> Iterator[Dict[str, torch.Tensor]]:
+        """The epoch's train batches on the device past the first `skip`."""
+        if self.mode == "device":
+            return _batches(self.train_store, train_batch_stream(
+                self.cfg, self.train_store, epoch, skip), self.device)
+        return prefetch_to_device(self.train_loader, self.device, epoch, skip,
+                                  self.cfg.prefetch)
+
+    def eval_batches(self) -> Iterator[Dict[str, torch.Tensor]]:
+        """The split's eval batches on the device, in entry order (per bucket
+        under --roi_buckets)."""
+        if self.mode == "device":
+            return _batches(self.eval_store, eval_batch_stream(
+                self.cfg, self.eval_store, self.eval_batch), self.device)
+        return prefetch_to_device(self.eval_loader, self.device, depth=self.cfg.prefetch)
+
+
 def _run_eval(
-    model: ReGAT, store: DeviceStore, cfg: Config, epoch: int, logger: Logger,
+    model: ReGAT, data: _DataPath, cfg: Config, epoch: int, logger: Logger,
     device: torch.device,
 ) -> Tuple[float, float, float]:
     """One pass over the split in entry order (per bucket under
     --roi_buckets) -> (score %, mean loss, s)."""
-    B = cfg.resolved_eval_batch()
-    N = steps_per_epoch(cfg, store, B)
+    N = data.eval_steps
     logger.write("[DEBUG] Evaluation Start")
-    logger.write(f"[DEBUG] total eval data len: {store.num_entries}")
+    logger.write(f"[DEBUG] total eval data len: {data.eval_entries}")
     logger.write(f"[DEBUG] eval data loader len: {N}")
     acc = _zeros(device)
     start = time.time()
-    indices = eval_batch_stream(cfg, store, B)
-    for i, batch in enumerate(_batches(store, indices, device)):
-        m = eval_step(model, batch)
-        _accumulate(acc, m)
-        if cfg.print_freq > 0 and (i + 1) % cfg.print_freq == 0:
-            _log_progress(logger, acc, m["loss"], epoch, i, N, start)
+    with contextlib.closing(data.eval_batches()) as batches:
+        for i, batch in enumerate(batches):
+            m = eval_step(model, batch)
+            _accumulate(acc, m)
+            if cfg.print_freq > 0 and (i + 1) % cfg.print_freq == 0:
+                _log_progress(logger, acc, m["loss"], epoch, i, N, start)
     n = max(float(acc["n"]), 1.0)
     elapsed = time.time() - start
     return 100.0 * float(acc["score"]) / n, float(acc["loss_sum"]) / n, elapsed
@@ -312,20 +435,26 @@ def run_training(
     (model, best eval score %); raises `Preempted` after a preemption save."""
     check_grad_accum(cfg)
     model.to(device)
-    train_store = build_store(cfg, train_ds, device)
-    eval_store = DeviceStore(val_ds, device, feature_dtype=cfg.feature_dtype,
-                             include_adj=cfg.relation_type != "implicit",
-                             cache_dir=cfg.packed_cache)
-    N = steps_per_epoch(cfg, train_store, cfg.batch_size)
+    logger = Logger(os.path.join(cfg.output, "log.txt"))
+    try:
+        data = _DataPath(cfg, train_ds, val_ds, device, logger)
+    except BaseException:
+        logger.close()
+        raise
+    N = data.steps_per_epoch
     lr_fn = make_lr_schedule(cfg.base_lr, N, cfg.lr_decay_rate, cfg.lr_decay_step)
     opt = Adamax(model, trainable_mask(model, emb2_trainable), lr_fn, cfg.grad_clip)
 
     start_epoch, skip_steps, acc_resume, best_score = 0, 0, None, -1.0
     if cfg.resume:
-        start_epoch, skip_steps, acc_resume, best_score = _resume_point(cfg, N, model, opt)
-    run_sig = _run_signature(cfg, N)
+        try:
+            start_epoch, skip_steps, acc_resume, best_score = _resume_point(
+                cfg, N, data.mode, model, opt)
+        except BaseException:
+            logger.close()
+            raise
+    run_sig = _run_signature(cfg, N, data.mode)
 
-    logger = Logger(os.path.join(cfg.output, "log.txt"))
     metrics_writer = MetricsWriter(os.path.join(cfg.output, "metrics.jsonl"))
     logger.write(
         "optim: adamax lr=%.4f, decay_step=%d, decay_rate=%.2f,"
@@ -333,7 +462,8 @@ def run_training(
         + "grad_clip=%.2f" % cfg.grad_clip
     )
     # an exception anywhere still joins the in-flight async write, so every
-    # checkpoint issued before it is on disk
+    # checkpoint issued before it is on disk; closing the batch stream ends
+    # the host path's prefetch thread
     try:
         with ckpt.pending_joined(), _PreemptWatcher() as preempt:
             for epoch in range(start_epoch, cfg.epochs):
@@ -363,45 +493,45 @@ def run_training(
                     }
                     n_restored = float(acc_resume.get("n", 0.0))
                 start = time.time()
-                indices = train_batch_stream(cfg, train_store, epoch, skip)
-                for i, batch in enumerate(_batches(train_store, indices, device), skip):
-                    m = train_step(model, opt, batch, opt.count, cfg.seed, cfg.grad_accum)
-                    _accumulate(acc, m)
-                    if cfg.print_freq > 0 and (i + 1) % cfg.print_freq == 0:
-                        _log_progress(logger, acc, m["loss"], epoch, i, N, start)
-                    preempted = preempt.poll(epoch * N + i + 1)
-                    if preempted or (
-                        cfg.checkpoint_every_steps > 0
-                        and (i + 1) % cfg.checkpoint_every_steps == 0
-                        and i + 1 < N  # the epoch save supersedes it
-                    ):
-                        waited = ckpt.save_checkpoint(
-                            cfg.output, state_tensors(model, opt), epoch, best_score, False,
-                            step_in_epoch=i + 1,
-                            acc={k: float(v) for k, v in acc.items()},
-                            # a preemption save must be on disk before exit
-                            block=preempted or not cfg.async_checkpoint,
-                            run_sig=run_sig, retain=cfg.keep_ckpts,
-                        )
-                        if waited > 1.0 and not preempted:
-                            logger.write(
-                                f"[ckpt] async save back-pressure: waited "
-                                f"{waited:.1f}s for the previous write — "
-                                f"raise --checkpoint_every_steps (background "
-                                f"fetch+write outlasts the save cadence)"
+                with contextlib.closing(data.train_batches(epoch, skip)) as stream:
+                    for i, batch in enumerate(stream, skip):
+                        m = train_step(model, opt, batch, opt.count, cfg.seed, cfg.grad_accum)
+                        _accumulate(acc, m)
+                        if cfg.print_freq > 0 and (i + 1) % cfg.print_freq == 0:
+                            _log_progress(logger, acc, m["loss"], epoch, i, N, start)
+                        preempted = preempt.poll(epoch * N + i + 1)
+                        if preempted or (
+                            cfg.checkpoint_every_steps > 0
+                            and (i + 1) % cfg.checkpoint_every_steps == 0
+                            and i + 1 < N  # the epoch save supersedes it
+                        ):
+                            waited = ckpt.save_checkpoint(
+                                cfg.output, state_tensors(model, opt), epoch, best_score, False,
+                                step_in_epoch=i + 1,
+                                acc={k: float(v) for k, v in acc.items()},
+                                # a preemption save must be on disk before exit
+                                block=preempted or not cfg.async_checkpoint,
+                                run_sig=run_sig, retain=cfg.keep_ckpts,
                             )
-                        if preempted:
-                            logger.write(
-                                f"[preempt] checkpoint saved at epoch {epoch} "
-                                f"step {i + 1}; exiting — rerun with --resume"
-                            )
-                            raise Preempted(f"epoch {epoch} step {i + 1}")
+                            if waited > 1.0 and not preempted:
+                                logger.write(
+                                    f"[ckpt] async save back-pressure: waited "
+                                    f"{waited:.1f}s for the previous write — "
+                                    f"raise --checkpoint_every_steps (background "
+                                    f"fetch+write outlasts the save cadence)"
+                                )
+                            if preempted:
+                                logger.write(
+                                    f"[preempt] checkpoint saved at epoch {epoch} "
+                                    f"step {i + 1}; exiting — rerun with --resume"
+                                )
+                                raise Preempted(f"epoch {epoch} step {i + 1}")
                 n = max(float(acc["n"]), 1.0)
                 train_score = 100.0 * float(acc["score"]) / n
                 train_time = time.time() - start
 
                 eval_score, eval_loss, eval_time = _run_eval(
-                    model, eval_store, cfg, epoch, logger, device
+                    model, data, cfg, epoch, logger, device
                 )
                 logger.write(
                     f"[DEBUG] train_score: {train_score:.4f} eval_score: {eval_score:.4f}"
@@ -445,7 +575,8 @@ def run_evaluation(
 ) -> Tuple[float, float, float]:
     """`--mode eval`: one eval pass over the split -> (score %, mean loss, s)."""
     model.to(device)
-    return _run_eval(model, build_store(cfg, val_ds, device), cfg, 0, logger, device)
+    data = _DataPath(cfg, None, val_ds, device, logger)
+    return _run_eval(model, data, cfg, 0, logger, device)
 
 
 def run_prediction(
@@ -454,20 +585,35 @@ def run_prediction(
     """`--mode predict`: one forward pass over the split in entry order,
     the argmax answers written as the VQA submission JSON
     (`[{"question_id": int, "answer": str}, ...]`) to
-    `{output}/{relation_type}-{fusion}-{split}-predictions.json`. Reads no
-    soft targets, so an answerless split works; raises if an entry is
-    missed."""
+    `{output}/{relation_type}-{fusion}-{split}-predictions.json`. The device
+    path reads no soft targets (the host path's are zero on an answerless
+    split), so an answerless split works; raises if an entry is missed."""
     model.to(device).eval()
-    store = build_store(cfg, ds, device, targets=False)
+    include_adj = cfg.relation_type != "implicit"
+    mode = resolve_data_mode(cfg, ds, None, include_adj)
+    check_roi_buckets_mode(cfg, mode)
+    logger.write(data_mode_line(cfg, mode, ds, None, include_adj))
     qids = ds.entries.question_ids
     # -1-filled: a coverage gap fails the label2ans lookup, never writes garbage
     answers = np.full(len(qids), -1, dtype=np.int64)
     seen = np.zeros(len(qids), bool)
-    pending = []  # (host index batch, device labels), fetched once at the end
+    pending = []  # (host entry indices, device labels), fetched once at the end
+    eval_batch = cfg.resolved_eval_batch()
     with torch.no_grad():
-        for R, idx in eval_batch_stream(cfg, store, cfg.resolved_eval_batch()):
-            batch = gather_batch(store, torch.from_numpy(idx).to(device), R)
-            pending.append((idx, model(batch).argmax(dim=-1)))
+        if mode == "device":
+            store = build_store(cfg, ds, device, targets=False)
+            for R, idx in eval_batch_stream(cfg, store, eval_batch):
+                batch = gather_batch(store, torch.from_numpy(idx).to(device), R)
+                pending.append((idx, model(batch).argmax(dim=-1)))
+        else:
+            loader = host_loader(cfg, ds, eval_batch, False)
+            with contextlib.closing(prefetch_to_device(loader, device, depth=cfg.prefetch)) \
+                    as batches:
+                for pos, batch in zip(range(0, len(qids), eval_batch), batches):
+                    idx = np.full(eval_batch, -1, np.int64)
+                    n_real = min(eval_batch, len(qids) - pos)
+                    idx[:n_real] = np.arange(pos, pos + n_real)
+                    pending.append((idx, model(batch).argmax(dim=-1)))
     for idx, labels in pending:
         lab = labels.cpu().numpy()
         ok = idx >= 0
