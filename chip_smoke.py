@@ -66,8 +66,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
      be 2 per forward pass (one per direction), and one batch's logits must
      match the same model run with the plain versions;
  11. resume, configs/butd_vqa.json at full width, b=256, `--synthetic
-     --epochs 2 --synthetic_train_size 1536 --checkpoint_every_steps 2` (6
-     steps per epoch), through `main.main`: (a) uninterrupted, (a2) the same
+     --epochs 2 --synthetic_train_size 1536 --checkpoint_every_steps 2
+     --train_block 2` (6 steps per epoch in blocks of 2, each step a CUDA
+     graph replay), through `main.main`: (a) uninterrupted, (a2) the same
      again for the run-to-run spread, (b) with REGAT_FAULT_PREEMPT_STEP=8,
      which must return with meta at epoch 1, step 2 and no final .npz, and
      (c) (b)'s command plus `--resume`, whose final parameters and
@@ -180,9 +181,25 @@ Phases, each of which fails the run (non-zero exit, no result line):
      batch's pack time is split into the C++ gathers and bf16 rounding
      (without the interpreter lock) and the rest, which holds it; 5,000
      tiny launches are timed alone and while a thread packs.
+ 22. CUDA graphs (train/graphs.py), through which every step of 8-21 runs:
+     (a) from the same seeded parameters, 6 full-width b=256 train steps
+     (dropout on) graphed and eager through TrainSteps, bit-equal in
+     parameters, Adamax moments, counts and metrics, for butd f32 and bf16
+     at R = 36 and 100, spatial at R = 100 and `--grad_accum 2`; then ban
+     bf16, `--grad_accum 4` f32 and the host path at bf16, each at R = 36
+     and 100; for every row 2 launches of the family's kernel per
+     microbatch in both modes (replay-aware counts), the step time of both
+     (host clock over 6 more steps), each graph's warm-up + capture seconds
+     and both peak memories; (b) 9's eval pass (eval_block 8) graphed and
+     eager: equal score and loss, 2 B1 launches per batch, its time;
+     `--mode predict` answers equal; 13's ensemble score equal in both and
+     to 13's; serve (b = 1, 8, 32) answers and confidences equal, each
+     engine call's time in both.
 Counts of launches are set to 0 just before each path of 8-13 and 17-21
-runs and read just after it; the comparison launches of 3-7 and 14-16
-and of the plain-path comparisons do not count. Each phase prints its wall
+runs and read just after it; the comparison launches of 3-7, 14-16 and 22
+and of the plain-path comparisons do not count. Every step of 8-21 is a
+CUDA graph replay, whose wrapper counts are added per replay (a capture's
+are taken back), so a count is the launches the card ran. Each phase prints its wall
 time. Phases 8-13 run at the configs' full widths and depths, as before.
 Then it prints {"kernels": [...]} (each kernel's time, plain and library
 times, and its bound on an H100 SXM: the larger of the bytes it must move
@@ -1122,6 +1139,38 @@ def expected_launches(family, passes, train_passes=0):
     return want
 
 
+@contextlib.contextmanager
+def timed_steps():
+    """Record every train step the entry point takes, as (R, CUDA events
+    before and after it, its loss, whether its batch carries edge labels,
+    whether the call captured its graph first): a spy on TrainSteps.step,
+    through which each step's graph replays. The loss is copied, since the
+    next replay overwrites the graph's output."""
+    import torch
+
+    from tf_vqa_regat_tpu_torch.train.step import TrainSteps
+
+    real, records = TrainSteps.step, []
+
+    def step(self, R, inputs):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        graphs = len(self.graphs.capture_seconds())
+        ev[0].record()
+        m = real(self, R, inputs)
+        ev[1].record()
+        adj = ("adj_label" in inputs if self.store is None
+               else self.store.images.adj is not None)
+        records.append((R, ev, m["loss"].clone(), adj,
+                        len(self.graphs.capture_seconds()) > graphs))
+        return m
+
+    TrainSteps.step = step
+    try:
+        yield records
+    finally:
+        TrainSteps.step = real
+
+
 def check_entry_point(tmp, smi, family, extra=(), config=None, data=None, falling=True):
     """`--mode train` then `--mode eval` through `main.main`, at the widths
     of the family's config (or `config`), on the synthetic data or the
@@ -1133,48 +1182,42 @@ def check_entry_point(tmp, smi, family, extra=(), config=None, data=None, fallin
     import torch
 
     from tf_vqa_regat_tpu_torch import main as port_main
-    from tf_vqa_regat_tpu_torch.train import loop
 
     argv = entry_argv(family, tmp, "--print_freq", "4", *extra, config=config, data=data)
     label = " ".join([config or family, *extra] + (["(real layout)"] if data else []))
-    real_step, records = loop.train_step, []
     real_run, sizes = port_main.run_training, {}
-
-    def timed_step(model, opt, batch, *args, **kw):
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-        ev[0].record()
-        m = real_step(model, opt, batch, *args, **kw)
-        ev[1].record()
-        records.append((ev, m["loss"], "adj_label" in batch))
-        return m
 
     def sized_run(cfg, train_ds, val_ds, *args, **kw):
         sizes.update(train=len(train_ds), val=len(val_ds), train_name=train_ds.name,
                      val_name=val_ds.name)
         return real_run(cfg, train_ds, val_ds, *args, **kw)
 
-    loop.train_step, port_main.run_training = timed_step, sized_run
+    port_main.run_training = sized_run
     reset_counts()  # the train path starts here
     t0 = time.perf_counter()
     try:
-        path = port_main.main(argv + ["--mode", "train", "--epochs", "1"])
+        with timed_steps() as records:
+            path = port_main.main(argv + ["--mode", "train", "--epochs", "1"])
     finally:
-        loop.train_step, port_main.run_training = real_step, real_run
+        port_main.run_training = real_run
     wall = time.perf_counter() - t0
     launches = read_path_counts()
     torch.cuda.synchronize()
-    step_ms = [ev[0].elapsed_time(ev[1]) for ev, _, _ in records]
+    # the steps that replayed a graph captured before them
+    step_ms = [ev[0].elapsed_time(ev[1]) for _, ev, _, _, cap in records if not cap]
     # start to start on the device's timeline: the step plus any wait for
     # its batch (the host data path's stalls fall between steps)
-    periods = [a[0].elapsed_time(b[0]) for (a, _, _), (b, _, _) in zip(records, records[1:])]
-    losses = [float(loss) for _, loss, _ in records]
+    periods = [a[0].elapsed_time(b[0]) for (_, a, *_), (_, b, *_, cap)
+               in zip(records, records[1:]) if not cap]
+    losses = [float(loss) for _, _, loss, _, _ in records]
     LAST_TRAIN.clear()
-    LAST_TRAIN.update(sizes, steps=len(records), adj_batches=sum(adj for _, _, adj in records),
+    LAST_TRAIN.update(sizes, steps=len(records), adj_batches=sum(r[3] for r in records),
                       period_ms=statistics.median(periods) if periods else None)
     with open(os.path.join(tmp, "metrics.jsonl")) as fh:
         last = [json.loads(line) for line in fh][-1]
     print(f"{label} --mode train: {len(losses)} steps in {wall:.1f} s (run, set-up "
-          f"included); median step {statistics.median(step_ms)} ms (CUDA events) on {smi}, "
+          f"included); median step {statistics.median(step_ms)} ms (CUDA events, the "
+          f"steps after the first, which captures) on {smi}, "
           f"TF32 off; losses {losses}; launches {json.dumps(launches)}; splits "
           f"{json.dumps(LAST_TRAIN)}; last metrics {json.dumps(last)}", flush=True)
     cfg = port_main.parse(argv + ["--mode", "train"])[0]
@@ -1236,10 +1279,15 @@ def check_serve(ckpt, family, extra=(), config=None, data=None, bf16=False):
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
     url = f"http://127.0.0.1:{server.server_address[1]}"
-    forwards = [0]
-    hook = engine.model.register_forward_hook(
-        lambda *_: forwards.__setitem__(0, forwards[0] + 1)
-    )
+    # each engine call is one forward pass, a replay of its size's graph
+    # (a forward hook would run at the capture only)
+    forwards, real_step = [0], engine.step
+
+    def counted_step(*args):
+        forwards[0] += 1
+        return real_step(*args)
+
+    engine.step = counted_step
     try:
         ids = sorted(engine.img_index)[:12]
         questions = ["what color is the car ?", "how many people are on the left ?",
@@ -1312,7 +1360,7 @@ def check_serve(ckpt, family, extra=(), config=None, data=None, bf16=False):
         print(f"{label} engine.infer median ms by batch size {json.dumps(latency)}",
               flush=True)
     finally:
-        hook.remove()
+        engine.step = real_step
         server.shutdown()
         batcher.close()
         server.server_close()
@@ -1424,7 +1472,7 @@ def check_resume(tmp, smi, device):
     from tf_vqa_regat_tpu_torch.train.optim import Adamax, make_lr_schedule
 
     flags = ["--mode", "train", "--epochs", "2", "--synthetic_train_size", "1536",
-             "--checkpoint_every_steps", "2"]
+             "--checkpoint_every_steps", "2", "--train_block", "2"]
     outs = {k: os.path.join(tmp, k) for k in ("a", "a2", "b")}
     runs = {}
     for name in ("a", "a2"):
@@ -2146,7 +2194,7 @@ def check_grad_accum_resume(tmp, smi):
     from tf_vqa_regat_tpu_torch import main as port_main
 
     flags = ["--mode", "train", "--epochs", "2", "--synthetic_train_size", "1536",
-             "--checkpoint_every_steps", "2", "--grad_accum", "2"]
+             "--checkpoint_every_steps", "2", "--grad_accum", "2", "--train_block", "2"]
     reset_counts()  # the uninterrupted path starts here
     t0 = time.perf_counter()
     if port_main.main(entry_argv("implicit", os.path.join(tmp, "a"), *flags)) is None:
@@ -2186,7 +2234,6 @@ def check_bench_settings(tmp, smi, family, extra=()):
 
     from tf_vqa_regat_tpu_torch import main as port_main
     from tf_vqa_regat_tpu_torch.data.store import DeviceStore
-    from tf_vqa_regat_tpu_torch.train import loop
 
     argv = entry_argv(family, tmp, "--print_freq", "4", *BENCH_FLAGS, *extra)
     cfg = port_main.parse(argv + ["--mode", "train"])[0]
@@ -2207,29 +2254,19 @@ def check_bench_settings(tmp, smi, family, extra=()):
                 out[("B2", R)] = 2 * (evals[R] + (steps[R] if train else 0))
         return {k: v for k, v in out.items() if v}
 
-    real_step, records = loop.train_step, []
-
-    def timed_step(model, opt, batch, *args, **kw):
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-        ev[0].record()
-        m = real_step(model, opt, batch, *args, **kw)
-        ev[1].record()
-        records.append((batch["features"].shape[1], ev, m["loss"]))
-        return m
-
-    loop.train_step = timed_step
     reset_counts()  # the train path starts here
-    try:
+    with timed_steps() as records:
         path = port_main.main(argv + ["--mode", "train", "--epochs", "1"])
-    finally:
-        loop.train_step = real_step
     rows = rows_counts()
     launches = read_path_counts()
     torch.cuda.synchronize()
-    per_bucket = {R: [ev[0].elapsed_time(ev[1]) for r, ev, _ in records if r == R]
+    per_bucket = {R: [ev[0].elapsed_time(ev[1]) for r, ev, *_ in records if r == R]
                   for R in buckets}
-    losses = [float(loss) for _, _, loss in records]
-    step_ms = {R: statistics.median(t) for R, t in per_bucket.items() if t}
+    losses = [float(loss) for _, _, loss, _, _ in records]
+    # the steps that replayed a graph captured before them
+    step_ms = {R: statistics.median(t) for R, t in (
+        (R, [ev[0].elapsed_time(ev[1]) for r, ev, *_, cap in records if r == R and not cap])
+        for R in buckets) if t}
     with open(os.path.join(tmp, "metrics.jsonl")) as fh:
         last = [json.loads(line) for line in fh][-1]
     label = f"{CONFIGS[family]} {' '.join(BENCH_FLAGS + tuple(extra))}"
@@ -2867,6 +2904,221 @@ def check_host_ensemble(tmp_root, smi):
     return [launches]
 
 
+# Phase 22: the train steps held graphed against eager (bit for bit), then
+# timed: (family, extra flags, R, data path)
+GRAPH_CHECKS = (("implicit", (), 36, "device"), ("implicit", (), 100, "device"),
+                ("implicit", ("--compute_dtype", "bfloat16"), 36, "device"),
+                ("implicit", ("--compute_dtype", "bfloat16"), 100, "device"),
+                ("spatial", (), 100, "device"),
+                ("implicit", ("--grad_accum", "2"), 100, "device"))
+GRAPH_TIMINGS = tuple((family, extra, R, path) for R in (36, 100) for family, extra, path in (
+    ("ban", ("--compute_dtype", "bfloat16"), "device"),
+    ("implicit", ("--grad_accum", "4"), "device"),
+    ("implicit", ("--feature_dtype", "bfloat16", "--compute_dtype", "bfloat16"), "host")))
+GRAPH_STEPS = 6  # one block of the synthetic 1,536-question split
+GRAPH_SPLITS = {}
+
+
+def graph_setup(device, family, extra, R, path):
+    """(config, train split, device store or None on the host path) of a
+    phase-22 row: the family's full widths, b=256, 1,536 questions."""
+    from tf_vqa_regat_tpu_torch.data.store import DeviceStore
+    from tf_vqa_regat_tpu_torch.main import build_dataset
+
+    flags = ["--mode", "train", "--num_rois", str(R), *SHORT_TRAIN, *extra]
+    cfg = full_width_config(family, flags + (["--data_mode", "host"] if path == "host" else []))
+    # the rows' configs draw one synthetic split: made once
+    key = (cfg.adaptive, cfg.relation_type == "semantic")
+    if key not in GRAPH_SPLITS:
+        GRAPH_SPLITS[key] = build_dataset(cfg, "train")
+    ds = GRAPH_SPLITS[key]
+    store = None if path == "host" else DeviceStore(
+        ds, device, feature_dtype=cfg.feature_dtype, include_adj=cfg.relation_type != "implicit")
+    return cfg, ds, store
+
+
+def graph_train_steps(device, cfg, ds, store, graphed):
+    """GRAPH_STEPS train steps of the full-width model (seeded init, dropout
+    on) through TrainSteps, from the device store or, with `store` None,
+    the host path; then GRAPH_STEPS more, timed (host clock to a
+    synchronise): -> (params, moments, the first steps' metrics and counts;
+    ms per step; the capture seconds; the peak device memory in GB; the
+    first steps' launches)."""
+    import numpy as np
+    import torch
+
+    from tf_vqa_regat_tpu_torch.data.loader import prefetch_to_device
+    from tf_vqa_regat_tpu_torch.models.regat import ReGAT, trainable_mask
+    from tf_vqa_regat_tpu_torch.train.loop import host_loader
+    from tf_vqa_regat_tpu_torch.train.optim import Adamax, make_lr_schedule
+    from tf_vqa_regat_tpu_torch.train.step import TrainSteps
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    model = ReGAT(cfg, ds.ntoken, ds.v_dim, ds.num_ans).to(device)
+    opt = Adamax(model, trainable_mask(model, False), make_lr_schedule(
+        cfg.base_lr, GRAPH_STEPS, cfg.lr_decay_rate, cfg.lr_decay_step), cfg.grad_clip)
+    train = TrainSteps(model, opt, cfg, device, store, graphed)
+    if store is None:
+        loader = host_loader(cfg, ds, cfg.batch_size, True)
+
+        def block(epoch):
+            out = []
+            with contextlib.closing(prefetch_to_device(loader, device, epoch)) as batches:
+                for batch in batches:
+                    out.append({k: v.clone() for k, v in train.batch(batch).items()})
+            return out
+    else:
+        blk = np.stack(list(store.epoch_indices(0, cfg.batch_size, True, cfg.seed)))
+        R = cfg.resolved_num_rois()
+
+        def block(epoch):
+            return [{k: v.clone() for k, v in train.block(R, blk, len(blk)).items()}]
+
+    reset_counts()
+    first = block(0)
+    launches = counts()
+    torch.cuda.synchronize()
+    state = {"params": [p.detach().clone() for p in opt.params],
+             "mu": [t.clone() for t in opt.mu], "nu": [t.clone() for t in opt.nu],
+             "metrics": first, "count": (opt.count, int(opt.count_t))}
+    t0 = time.perf_counter()
+    block(1)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / GRAPH_STEPS
+    peak = torch.cuda.max_memory_allocated(device) / 1e9
+    return state, ms, train.graphs.capture_seconds(), peak, launches
+
+
+def check_graphs_train(device, smi):
+    """Phase 22 (a): graphed against eager train steps, bit for bit, and the
+    timings of both. Returns {label: (graphed ms, eager ms, capture s, peak
+    GB graphed, eager)}."""
+    import torch
+
+    rows = {}
+    for family, extra, R, path in GRAPH_CHECKS + GRAPH_TIMINGS:
+        label = f"{CONFIGS[family]} {' '.join(extra)} R={R} {path}".replace("  ", " ")
+        cfg, ds, store = graph_setup(device, family, extra, R, path)
+        g, g_ms, capture, g_peak, g_launch = graph_train_steps(device, cfg, ds, store, True)
+        e, e_ms, _, e_peak, e_launch = graph_train_steps(device, cfg, ds, store, False)
+        del store
+        torch.cuda.empty_cache()
+        equal = {k: all(torch.equal(a, b) for a, b in zip(g[k], e[k]))
+                 for k in ("params", "mu", "nu")}
+        equal["metrics"] = all(torch.equal(a[k], b[k]) for a, b in zip(g["metrics"], e["metrics"])
+                               for k in a)
+        diff = max(float((a - b).abs().max()) for a, b in zip(g["params"], e["params"]))
+        kernel = "B1 train" if family in B1_FAMILIES else "B2"
+        steps = GRAPH_STEPS
+        want = {n: 0 for n in g_launch}
+        want[kernel] = 2 * cfg.grad_accum * steps
+        rows[label] = (g_ms, e_ms, capture, g_peak, e_peak)
+        print(f"graphs {label}: {steps} steps graphed vs eager: bit-equal "
+              f"{json.dumps(equal)} (params max abs diff {diff}), counts {g['count']} / "
+              f"{e['count']}; launches graphed {json.dumps(g_launch)}, eager "
+              f"{json.dumps(e_launch)}; ms/step (host clock, {steps} steps after the first "
+              f"{steps}) graphed {g_ms:.3f}, eager {e_ms:.3f}; capture (warm-up + capture) "
+              f"{json.dumps({str(k): round(v, 3) for k, v in capture.items()})} s; peak "
+              f"memory graphed {g_peak:.2f} GB, eager {e_peak:.2f} GB; on {smi}", flush=True)
+        if g_launch != want or e_launch != want:
+            fail(f"graphs {label}: launches graphed {g_launch}, eager {e_launch}, want {want}")
+        if (family, extra, R, path) in GRAPH_CHECKS and not all(equal.values()):
+            fail(f"graphs {label}: graphed and eager steps differ: {equal}, params {diff}")
+        if g["count"] != e["count"] or g["count"] != (steps, steps):
+            fail(f"graphs {label}: step counts {g['count']} / {e['count']}")
+    return rows
+
+
+def check_graphs_eval_serve(tmp, smi, device, npz):
+    """Phase 22 (b): eval, predict, the ensemble and serve graphed against
+    eager (metrics, answers and the score equal; served answers and
+    confidences equal), with the eval pass's and each serve engine call's
+    times (host clock) in both, and 2 launches per eval forward pass."""
+    import torch
+
+    from tf_vqa_regat_tpu_torch import main as port_main
+    from tf_vqa_regat_tpu_torch.serve import InferenceEngine
+    from tf_vqa_regat_tpu_torch.train import loop
+    from tf_vqa_regat_tpu_torch.train.ensemble import run_ensemble_eval
+    from tf_vqa_regat_tpu_torch.train.logging import Logger
+
+    cfg = port_main.parse(entry_argv("implicit", tmp, "--mode", "eval"))[0]
+    ds = port_main.build_datasets(cfg)[1]
+    model = port_main.load_model(cfg.replace(checkpoint=npz["implicit"]), ds).to(device)
+    logger = Logger(os.path.join(tmp, "graphs_log.txt"))
+    evals, passes = {}, -(-len(ds) // cfg.resolved_eval_batch())
+    for graphed in (True, False):
+        data = loop._DataPath(cfg, None, ds, device, logger)
+        steps = data.eval_steps_of(model, graphed)
+        reset_counts()
+        first = loop._run_eval(steps, data, cfg, 0, logger, device)
+        launches = counts()
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            again = loop._run_eval(steps, data, cfg, 0, logger, device)
+            times.append((time.perf_counter() - t0) * 1e3)
+        evals[graphed] = (first[:2], again[:2], statistics.median(times), launches,
+                          steps.graphs.capture_seconds())
+        del steps, data
+    (g, e) = evals[True], evals[False]
+    print(f"graphs eval pass ({passes} batches of {cfg.resolved_eval_batch()}, eval_block "
+          f"{cfg.eval_block}): graphed (score, loss) {g[0]}, eager {e[0]}; ms per pass "
+          f"(host clock, median of 3) graphed {g[2]:.3f}, eager {e[2]:.3f}; capture "
+          f"{json.dumps({str(k): round(v, 3) for k, v in g[4].items()})} s; launches graphed "
+          f"{json.dumps(g[3])}, eager {json.dumps(e[3])} on {smi}", flush=True)
+    want = expected_launches("implicit", passes)
+    if g[0] != e[0] or g[1] != g[0] or g[3] != want or e[3] != want:
+        fail(f"graphs eval: graphed {g}, eager {e}, launches want {want}")
+
+    files = {}
+    for graphed in (True, False):
+        out = os.path.join(tmp, f"predict_{graphed}")
+        path = loop.run_prediction(cfg.replace(output=out), ds, model, device, logger, graphed)
+        with open(path) as fh:
+            files[graphed] = json.load(fh)
+    print(f"graphs predict: {len(files[True])} answers, graphed equal to eager "
+          f"{files[True] == files[False]}", flush=True)
+    if files[True] != files[False]:
+        fail("graphs predict: graphed and eager answers differ")
+
+    ecfg = port_main.parse(entry_argv("semantic", tmp, "--mode", "ensemble_eval",
+                                      "--ensemble_checkpoints", LAST_ENSEMBLE["spec"]))[0]
+    eds = port_main.build_dataset(ecfg)
+    scores = {g: run_ensemble_eval(ecfg, eds, device, logger, g) for g in (True, False)}
+    print(f"graphs ensemble: score graphed {scores[True]}, eager {scores[False]}", flush=True)
+    if scores[True] != scores[False] or scores[True] != LAST_ENSEMBLE["score"]:
+        fail(f"graphs ensemble: scores {scores}, phase 13's {LAST_ENSEMBLE['score']}")
+
+    questions = ["what color is the car ?", "how many people are on the left ?",
+                 "is the man on the dog ?", "what is the woman in ?"]
+    ids = sorted(int(i) for i in ds.entries.image_ids)[:40]
+    served, latency = {}, {}
+    for graphed in (True, False):
+        engine = InferenceEngine(cfg, ds, model, device, graphed=graphed)
+        served[graphed] = [engine.infer([questions[i % 4] for i in range(B)],
+                                        [ids[i % len(ids)] for i in range(B)])
+                           for B in engine.batch_sizes]
+        for B in engine.batch_sizes:
+            qs, im = [questions[i % 4] for i in range(B)], [ids[i % len(ids)] for i in range(B)]
+            runs = []
+            for _ in range(23):
+                t0 = time.perf_counter()
+                engine.infer(qs, im)
+                runs.append((time.perf_counter() - t0) * 1e3)
+            latency.setdefault(B, {})["graphed" if graphed else "eager"] = statistics.median(
+                runs[3:])
+        del engine
+    print(f"graphs serve engine call ms (host clock, median of 20) by batch size "
+          f"{json.dumps(latency)}; answers and confidences graphed equal to eager "
+          f"{served[True] == served[False]} on {smi}", flush=True)
+    if served[True] != served[False]:
+        fail("graphs serve: graphed and eager answers differ")
+    logger.close()
+
+
 def build_kernels():
     """Build every CUDA source of the port, one nvcc each, all at once."""
     from tf_vqa_regat_tpu_torch.ops.kernels import build
@@ -3004,6 +3256,12 @@ def main() -> None:
         torch.cuda.empty_cache()
         with phase("21, host streaming"):
             launches += check_host_streaming(tmp_root, smi_line, device)
+        torch.cuda.empty_cache()
+        with phase("22, graphs: train steps"):
+            check_graphs_train(device, smi_line)
+        torch.cuda.empty_cache()
+        with phase("22, graphs: eval, predict, ensemble, serve"):
+            check_graphs_eval_serve(os.path.join(tmp_root, "graphs"), smi_line, device, npz)
         torch.cuda.empty_cache()
 
     if any(m.split(".")[0] in ("jax", "jaxlib", "tf_vqa_regat_tpu") for m in sys.modules):

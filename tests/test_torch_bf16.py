@@ -267,7 +267,8 @@ def test_entry_point_at_the_bench_settings(trained, relation_type, capsys):
     # 64 questions over 8 images of 24-96 boxes: 8, 8 and 48 entries in the
     # three buckets, so 1 + 1 + 3 steps of 16 (4 without buckets)
     assert "[DEBUG] epoch 0, number of steps: 5" in log
-    assert "[DEBUG] eval data loader len: 8" in log  # 3 + 2 + 3 batches of 4
+    # 3 + 2 + 3 batches of 4, one block per bucket at --eval_block 8 (JAX's count)
+    assert "[DEBUG] eval data loader len: 3" in log
     score, loss = main(argv + ["--mode", "eval", "--checkpoint", path])
     assert loss == last["eval_loss"] and score == last["eval_score"]
     pred = main(argv + ["--mode", "predict", "--checkpoint", path])

@@ -65,7 +65,7 @@ def _cfg(out, **kw):
         num_hid=32, relation_dim=48, num_heads=4, nongt_dim=6, imp_pos_emb_dim=16,
         fusion="butd", relation_type="implicit", residual_connection=True, adaptive=True,
         num_rois=24, epochs=2, batch_size=16, print_freq=100, base_lr=5e-3,
-        output=str(out) + "/",
+        train_block=1, output=str(out) + "/",
     )
     base.update(kw)
     return Config(**base)
@@ -210,7 +210,8 @@ def test_main_exits_cleanly_on_preemption(tmp_path, monkeypatch, capsys):
             "--num_rois", "24", "--synthetic", "--synthetic_train_size", "32",
             "--synthetic_val_size", "16", "--batch_size", "16", "--epochs", "2",
             "--print_freq", "0", "--device", "cpu", "--output", str(tmp_path) + "/",
-            "--mode", "train", "--no-async_checkpoint", "--keep_ckpts", "1"]
+            "--mode", "train", "--no-async_checkpoint", "--keep_ckpts", "1",
+            "--train_block", "1"]
     monkeypatch.setenv("REGAT_FAULT_PREEMPT_STEP", "3")
     assert main(argv) is None
     assert "preempted at epoch 1 step 1 — checkpoint saved; rerun the same command with " \

@@ -161,9 +161,9 @@ def test_microbatches_are_strided(setup, monkeypatch):
     seen = []
     real = tstep.train_forward
 
-    def spy(model, mb, step, seed, microbatch=0):
+    def spy(model, mb, step, seed, microbatch=0, generator=None):
         seen.append((microbatch, mb["question"].clone()))
-        return real(model, mb, step, seed, microbatch)
+        return real(model, mb, step, seed, microbatch, generator)
 
     monkeypatch.setattr(tstep, "train_forward", spy)
     model = ReGAT(_port_cfg(CFG), ntoken, V_DIM, NUM_ANS)

@@ -101,7 +101,7 @@ def test_serve_loads_the_trained_model(trained):
     assert not thread.is_alive()
 
 
-@pytest.mark.parametrize("flag,error", [(["--train_block", "2"], SystemExit),
+@pytest.mark.parametrize("flag,error", [(["--dp_size", "2"], SystemExit),
                                         (["--data_mode", "sharded"], ValueError)])
 def test_unported_training_flags_are_refused(flag, error):
     """A flag of a feature not ported is refused by the parser; the

@@ -197,9 +197,9 @@ def _metrics(out):
 def test_training_run_equals_jax_run_training(tmp_path, layout):
     from tf_vqa_regat_tpu.train.loop import run_training as jax_run_training
 
-    cfg = _cfg(tmp_path / "port", **layout)
+    cfg = _cfg(tmp_path / "port", train_block=1, **layout)
     jcfg = JaxConfig(**{**{f.name: getattr(cfg, f.name) for f in dataclasses.fields(Config)},
-                        "data_mode": "device"}, use_pallas=True, train_block=1)
+                        "data_mode": "device"}, use_pallas=True)
     jcfg = dataclasses.replace(jcfg, output=str(tmp_path / "jax") + "/")
     (train, val), (jtrain, jval) = _splits(cfg.adaptive)
     params = init_regat(jax.random.PRNGKey(0), jcfg, train.ntoken, V_DIM, NUM_ANS)
@@ -228,12 +228,12 @@ def test_training_run_equals_jax_run_training(tmp_path, layout):
 
 
 def test_bucketed_preempt_and_resume_equals_uninterrupted(tmp_path, monkeypatch):
-    """Two epochs of 6 bucketed steps; the fault hook at global step 8 =
-    epoch 1, step 2: the resumed run skips 2 batches of the bucketed stream
-    and equals the uninterrupted run."""
+    """Two epochs of 6 bucketed steps, one step per block; the fault hook at
+    global step 8 = epoch 1, step 2: the resumed run skips 2 batches of the
+    bucketed stream and equals the uninterrupted run."""
     (train, val), _ = _splits(True)
     kw = dict(epochs=2, roi_buckets="100,36,64", base_lr=5e-3, dropout=0.2,
-              save_every_epoch=True)
+              save_every_epoch=True, train_block=1)
 
     def run(cfg):
         model = ReGAT(cfg, train.ntoken, V_DIM, NUM_ANS)

@@ -110,6 +110,23 @@ class Config:
     roi_buckets: str = ""
     # Eval batch size; 0 = the reference's batch_size // 4.
     eval_batch: int = 0
+    # Eval, predict and ensemble batches per block on the device path: the
+    # stream groups K batches of one roi size, the tail block padded with
+    # all -1 batches, and a block's metrics are summed before they reach
+    # the pass's accumulators (JAX's one program per block; on CUDA each
+    # batch is a replay of the step's graph, train/graphs.py). 1 = one
+    # batch per block.
+    eval_block: int = 8
+    # Train steps per block on the device path (JAX's one program per
+    # block): 0 = auto, 8 on the device store and 1 on the host path
+    # (train/loop.py::resolve_train_block); an explicit K > 1 on the host
+    # path is refused. Under --roi_buckets the epoch stream groups K
+    # same-bucket batches per block, which changes the order in which the
+    # optimizer sees them (recorded in the resume signature); step lines,
+    # step checkpoints and preemption fall on block boundaries. The tail
+    # block runs its real steps only, which leaves the state as JAX's
+    # padded no-op steps leave it.
+    train_block: int = 0
     # Host-to-device prefetch depth of the host data path: batches packed
     # and copied ahead by a background thread (0 = in the caller's thread).
     prefetch: int = 2
@@ -167,6 +184,12 @@ class Config:
             raise ValueError(
                 f"--serve_batch_sizes needs >=1 positive sizes, got "
                 f"{self.serve_batch_sizes!r}"
+            )
+        if self.train_block < 0 or self.eval_block < 0:
+            raise ValueError(
+                f"--train_block/--eval_block must be >= 0 (0 = auto for "
+                f"train / off for eval; 1 disables blocking), got "
+                f"{self.train_block}/{self.eval_block}"
             )
         if self.grad_accum < 1:
             raise ValueError(f"--grad_accum must be >= 1, got {self.grad_accum}")

@@ -27,7 +27,10 @@ relations with BUTD fusion, and implicit relations with BAN and MuTAN fusion
 float32|bfloat16|int8`, `--roi_buckets`, `--compute_dtype bfloat16`, and
 the data path `--data_mode auto|device|host` with
 `--device_store_budget_gb` and `--prefetch` (train/loop.py::
-resolve_data_mode). Training writes checkpoints under
+resolve_data_mode), and `--train_block` / `--eval_block`, the batches per
+block of train and of eval, predict and the ensemble (train/loop.py). On
+CUDA every train, eval, predict, ensemble and serve step is a replay of its
+shape's CUDA graph (train/graphs.py). Training writes checkpoints under
 `{output}/checkpoints/` (train/checkpoint.py; `--resume` continues from the
 newest) and, at its end, `{output}/{relation_type}-{fusion}-pretrained_model.npz`
 (params.py). A preempted run (SIGTERM) saves a step checkpoint, prints how

@@ -4,9 +4,9 @@
 Initialisers follow Keras' defaults, as the JAX package's do, and draw from an
 explicit `torch.Generator` on the CPU, so one seed gives one model on every
 machine. Dropout draws its bits on the tensor's device from the step's
-generator (`step_generator`, the counterpart of `RngGen` over
-`fold_in(base_rng, step)`), so a step's masks depend only on the seed, the
-step and the order of the draws. The numbers differ from JAX's for the same
+generator (`step_generator` seeded with `step_seed`, the counterpart of
+`RngGen` over `fold_in(base_rng, step)`), so a step's masks depend only on
+the seed, the step and the order of the draws. The numbers differ from JAX's for the same
 seed (another PRNG): tests carry parameters across with `params.py`, and
 check masks by placement and keep rate.
 """
@@ -56,22 +56,29 @@ def normal(
     return stddev * torch.randn(tuple(shape), generator=generator)
 
 
-def step_generator(base_seed: int, step: int, device, microbatch: int = 0) -> torch.Generator:
-    """A generator on `device` seeded from (base_seed, step, microbatch): one
-    per train step, as the JAX step folds the step into its base key, and
-    under gradient accumulation one per microbatch, as JAX folds the
-    microbatch index in after it. The seed's halves are base_seed and step,
-    each plus microbatch times an odd constant (the golden ratio's 2**32
-    multiple), modulo 2**32, so microbatch 0 is the single-pass step's
-    generator. The upper half is a bijection of the microbatch index: no
-    two (step, microbatch) of one base seed share a 64-bit seed (the card's
-    Philox generator). The CPU's mt19937 keeps the lower half only; there
-    (step, microbatch) still differ for steps within 8.2 million of each
-    other at up to 256 microbatches."""
+def step_seed(base_seed: int, step: int, microbatch: int = 0) -> int:
+    """The 64-bit seed of (base_seed, step, microbatch): one per train step,
+    as the JAX step folds the step into its base key, and under gradient
+    accumulation one per microbatch, as JAX folds the microbatch index in
+    after it. The seed's halves are base_seed and step, each plus microbatch
+    times an odd constant (the golden ratio's 2**32 multiple), modulo 2**32,
+    so microbatch 0 is the single-pass step's seed. The upper half is a
+    bijection of the microbatch index: no two (step, microbatch) of one base
+    seed share a 64-bit seed (the card's Philox generator). The CPU's
+    mt19937 keeps the lower half only; there (step, microbatch) still differ
+    for steps within 8.2 million of each other at up to 256 microbatches."""
     mix = microbatch * 0x9E3779B9
     hi = (base_seed + mix) & 0xFFFFFFFF
+    return (hi << 32) | ((step + mix) & 0xFFFFFFFF)
+
+
+def step_generator(base_seed: int, step: int, device, microbatch: int = 0) -> torch.Generator:
+    """A generator on `device` seeded with step_seed(base_seed, step,
+    microbatch). `manual_seed` resets a generator's offset, so a generator
+    re-seeded so draws what a new one draws: a CUDA graph keeps its
+    generators and re-seeds them before each replay (train/graphs.py)."""
     g = torch.Generator(device=device)
-    g.manual_seed((hi << 32) | ((step + mix) & 0xFFFFFFFF))
+    g.manual_seed(step_seed(base_seed, step, microbatch))
     return g
 
 

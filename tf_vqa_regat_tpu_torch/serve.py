@@ -3,7 +3,9 @@ tf_vqa_regat_tpu/serve.py, replicated store only).
 
 - Requests are micro-batched to a small set of fixed batch sizes
   (`--serve_batch_sizes`, default 1,8,32); each size runs once at startup,
-  which also builds the CUDA kernels, so the first request pays neither.
+  which builds the CUDA kernels and, on CUDA, captures the size's forward
+  pass as a CUDA graph (train/graphs.py) that every later call replays, so
+  the first request pays neither (JAX's pre-compiled batch sizes).
 - The split's feature tables live on the device (data/store.py), at
   --feature_dtype; a request ships its 14 token ids and an image index, and
   its rows are gathered at `resolved_num_rois()` (36 under fixed-36). A
@@ -46,6 +48,7 @@ from tf_vqa_regat_tpu_torch.data.store import (
 )
 from tf_vqa_regat_tpu_torch.data.features import VQADataset
 from tf_vqa_regat_tpu_torch.models.regat import ReGAT
+from tf_vqa_regat_tpu_torch.train.graphs import StepGraphs
 
 # Largest client batch one POST may carry (see do_POST).
 MAX_CLIENT_BATCH = 512
@@ -72,6 +75,35 @@ def check_budget(cfg: Config, ds: VQADataset, include_adj: bool) -> None:
     )
 
 
+@torch.inference_mode()
+def answer_logits(model: ReGAT, store: ImageStore, num_rois: int, question, img,
+                  valid) -> torch.Tensor:
+    """The eval forward pass of `model` on the rows of `store` at images
+    `img` (InferenceEngine.logits)."""
+    n_box = torch.where(valid, torch.clamp(store.img_len[img], max=num_rois),
+                        torch.zeros_like(img))
+    features, norm_bb, bb = gather_image_features(store, img, n_box, num_rois)
+    batch = {"features": features, "norm_bb": norm_bb, "bb": bb, "question": question,
+             "num_boxes": n_box}
+    if store.adj is not None:
+        batch["adj_label"] = gather_adj(store.adj, img, num_rois, valid)
+    return model(batch)
+
+
+def _answer_step(model: ReGAT, store: ImageStore, num_rois: int):
+    """The engine's step for StepGraphs: (argmax label [B], its sigmoid
+    confidence [B])."""
+
+    @torch.inference_mode()
+    def step(B, inputs, generators) -> Tuple[torch.Tensor, torch.Tensor]:
+        logits = answer_logits(model, store, num_rois, inputs["question"], inputs["img"],
+                               inputs["valid"])
+        best = torch.argmax(logits, dim=-1)
+        return best, torch.sigmoid(torch.gather(logits, 1, best[:, None])[:, 0])
+
+    return step
+
+
 class InferenceEngine:
     """Fixed-batch-size inference over device-resident features: the eval
     forward pass, then (argmax label, sigmoid confidence) per example."""
@@ -83,6 +115,7 @@ class InferenceEngine:
         model: ReGAT,
         device: torch.device,
         batch_sizes: Tuple[int, ...] = (1, 8, 32),
+        graphed: Optional[bool] = None,
     ):
         self.ds = ds
         self.device = torch.device(device)
@@ -98,7 +131,12 @@ class InferenceEngine:
         }
         self.max_q_len = ds.entries.q_tokens.shape[1]
         self.batch_sizes = tuple(sorted(set(batch_sizes)))
-        for B in self.batch_sizes:  # warm every size; builds the kernels
+        # one graph per batch size; a replay's outputs live until the next,
+        # so a call reads them under the lock
+        self.graphs = StepGraphs(_answer_step(self.model, self.store, self.num_rois),
+                                 self.device, graphed)
+        self._lock = threading.Lock()
+        for B in self.batch_sizes:  # warm every size: builds the kernels, captures
             self.step(
                 torch.zeros((B, self.max_q_len), dtype=torch.int64, device=self.device),
                 torch.zeros((B,), dtype=torch.int64, device=self.device),
@@ -107,29 +145,18 @@ class InferenceEngine:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    @torch.inference_mode()
     def logits(self, question, img, valid) -> torch.Tensor:
         """[B, num_answers] for token ids [B, T], image indices [B] and
         validity [B]; invalid (padded) slots get zero boxes and no edges."""
-        n_box = torch.where(
-            valid,
-            torch.clamp(self.store.img_len[img], max=self.num_rois),
-            torch.zeros_like(img),
-        )
-        features, norm_bb, bb = gather_image_features(self.store, img, n_box, self.num_rois)
-        batch = {"features": features, "norm_bb": norm_bb, "bb": bb, "question": question,
-                 "num_boxes": n_box}
-        if self.store.adj is not None:
-            batch["adj_label"] = gather_adj(self.store.adj, img, self.num_rois, valid)
-        return self.model(batch)
+        return answer_logits(self.model, self.store, self.num_rois, question, img, valid)
 
-    @torch.inference_mode()
-    def step(self, question, img, valid) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(argmax label [B], sigmoid confidence of that label [B])."""
-        logits = self.logits(question, img, valid)
-        best = torch.argmax(logits, dim=-1)
-        conf = torch.sigmoid(torch.gather(logits, 1, best[:, None])[:, 0])
-        return best, conf
+    def step(self, question, img, valid) -> Tuple[np.ndarray, np.ndarray]:
+        """(argmax label [B], sigmoid confidence of that label [B]) on the
+        host, for token ids [B, T], image indices [B] and validity [B]."""
+        with self._lock:
+            best, conf = self.graphs(
+                question.shape[0], {"question": question, "img": img, "valid": valid})
+            return best.cpu().numpy(), conf.cpu().numpy()
 
     def _encode(self, text: str) -> List[int]:
         """Tokenize against the model's vocabulary: ids past it map to the
@@ -173,7 +200,6 @@ class InferenceEngine:
                 torch.from_numpy(img).to(self.device),
                 torch.from_numpy(valid).to(self.device),
             )
-            best, conf = best.cpu().numpy(), conf.cpu().numpy()
             for j in range(m):
                 if errs[j] is not None:
                     out.append({"error": errs[j]})

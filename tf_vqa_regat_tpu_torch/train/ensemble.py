@@ -12,7 +12,8 @@ The data path is train/loop.py's `resolve_data_mode`, with the members'
 edge-label tables counted beside the store (JAX ensemble.py:300-330). On
 the device path the split's tables are uploaded once, at --feature_dtype,
 and shared; the batches are the ones eval and predict read (train/loop.py::
-eval_batch_stream), per bucket under --roi_buckets. The shared batch
+blocked_eval_stream, --eval_block batches per block), per bucket under
+--roi_buckets. The shared batch
 carries no edge labels: each explicit member adds its own table, uploaded
 once and gathered for the batch (JAX ensemble.py:238-256): a semantic
 member the split's semantic labels, a spatial member the file's spatial
@@ -32,7 +33,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import time
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -44,18 +45,22 @@ from tf_vqa_regat_tpu_torch.data.loader import prefetch_to_device
 from tf_vqa_regat_tpu_torch.models.regat import ReGAT
 from tf_vqa_regat_tpu_torch.params import load_jax_arrays
 from tf_vqa_regat_tpu_torch.train.checkpoint import load_params
+from tf_vqa_regat_tpu_torch.train.graphs import StepGraphs, to_device
 from tf_vqa_regat_tpu_torch.train.logging import Logger
 from tf_vqa_regat_tpu_torch.train.loop import (
+    blocked_eval_stream,
     build_store,
     check_roi_buckets_mode,
     data_mode_line,
-    eval_batch_stream,
     host_loader,
     resolve_data_mode,
 )
 from tf_vqa_regat_tpu_torch.train.loss import vqa_score_sum
+from tf_vqa_regat_tpu_torch.train.step import real_batches
 
 Member = Tuple[str, ReGAT]
+# the host path's per-member edge labels among a graph's inputs
+LABELS = "adj_label/"
 
 
 def parse_members(spec: str) -> List[Tuple[str, str]]:
@@ -146,9 +151,12 @@ def member_probs(
 
 
 def run_ensemble_eval(
-    cfg: Config, val_ds: VQADataset, device: torch.device, logger: Logger
+    cfg: Config, val_ds: VQADataset, device: torch.device, logger: Logger,
+    graphed: Optional[bool] = None,
 ) -> float:
-    """The ensemble's VQA score (%) over the split, in entry order."""
+    """The ensemble's VQA score (%) over the split, in entry order. On CUDA
+    (`graphed`, train/graphs.py) each batch is a replay of one graph that
+    runs every member, as JAX's `one_batch` runs them in one program."""
     members = load_members(cfg, val_ds, device, logger)
     # the members' edge-label tables sit on the card beside the store in
     # device mode, so the budget counts them (int8, one byte each)
@@ -161,7 +169,7 @@ def run_ensemble_eval(
     n = torch.zeros((), device=device)
     start = time.time()
     for probs, batch in (_resident_passes if mode == "device" else _host_passes)(
-            cfg, val_ds, device, members, sources):
+            cfg, val_ds, device, members, sources, graphed):
         score += vqa_score_sum(probs, batch["target"], batch["valid"])
         n += batch["valid"].to(torch.float32).sum()
     score_pct = 100.0 * float(score) / max(float(n), 1.0)
@@ -172,28 +180,46 @@ def run_ensemble_eval(
     return score_pct
 
 
-def _resident_passes(cfg, val_ds, device, members, sources):
-    """(averaged probabilities, batch) per eval batch from the device store."""
+def _resident_passes(cfg, val_ds, device, members, sources, graphed=None):
+    """(averaged probabilities, batch) per eval batch from the device store,
+    walking blocked_eval_stream's blocks (JAX's ensemble block); on CUDA
+    each batch is one replay, its outputs valid until the next."""
     store = build_store(cfg.replace(relation_type="implicit"), val_ds, device)
     tables = member_adj_tables(members, val_ds, device)
-    for R, idx in eval_batch_stream(cfg, store, cfg.resolved_eval_batch()):
-        yield averaged_probs(members, store, torch.from_numpy(idx).to(device), R, tables)
+
+    def one_batch(R, inputs, generators):
+        return averaged_probs(members, store, inputs["idx"], R, tables)
+
+    steps = StepGraphs(one_batch, device, graphed)
+    for R, blk in blocked_eval_stream(cfg, store, cfg.resolved_eval_batch())[2]:
+        nreal = real_batches(blk)
+        idx = to_device(blk[:nreal], device)
+        for j in range(nreal):
+            yield steps(R, {"idx": idx[j]})
 
 
-def _host_passes(cfg, val_ds, device, members, sources):
+def _host_passes(cfg, val_ds, device, members, sources, graphed=None):
     """(averaged probabilities, batch) per eval batch of one shared host
-    stream; each member's edge labels packed from its table per batch."""
+    stream; each member's edge labels packed from its table per batch. On
+    CUDA each batch is one replay, its outputs valid until the next."""
     eval_batch, R = cfg.resolved_eval_batch(), cfg.resolved_num_rois()
     shared = dataclasses.replace(val_ds, relation_type="implicit")
     loader = host_loader(cfg, shared, eval_batch, False, include_adj=False)
     entry_img = val_ds.entries.image_index
+
+    def one_batch(R, inputs, generators):
+        batch = {k: v for k, v in inputs.items() if not k.startswith(LABELS)}
+        labels = {k[len(LABELS):]: v for k, v in inputs.items() if k.startswith(LABELS)}
+        return member_probs(members, batch, labels), batch
+
+    steps = StepGraphs(one_batch, device, graphed)
     with contextlib.closing(prefetch_to_device(loader, device, depth=cfg.prefetch)) as batches:
         for lo, batch in zip(range(0, len(entry_img), eval_batch), batches):
             imgs = entry_img[lo : lo + eval_batch]
-            labels = {}
+            inputs = dict(batch)
             for rt, src in sources.items():
                 adj = np.zeros((eval_batch, R, R), np.int32)
                 k = min(src.shape[1], R)
                 adj[: len(imgs), :k, :k] = src[imgs, :k, :k]
-                labels[rt] = torch.from_numpy(adj).to(device)
-            yield member_probs(members, batch, labels), batch
+                inputs[LABELS + rt] = to_device(adj, device)
+            yield steps(R, inputs)

@@ -34,13 +34,22 @@ batch at its bucket's roi count) and its steps are the bucket counts; eval,
 predict and the ensemble read one batch composition, `eval_batch_stream`.
 The feature tables are held at --feature_dtype.
 
+Blocks (JAX's --train_block and --eval_block): on the device path the train
+epoch is consumed in blocks of K same-bucket batches (`resolve_train_block`:
+8 by default, 1 on the host path), each block run as K steps with no host
+read between them; the step line, step checkpoints and the preemption poll
+fall on block boundaries, and a mid-epoch resume skips whole blocks. Eval,
+predict and the ensemble read `blocked_eval_stream`, K = --eval_block. On
+CUDA each step is a replay of its shape's CUDA graph (train/graphs.py,
+train/step.py::TrainSteps and EvalSteps); on the CPU, which runs only when
+the caller asks for it, the same steps run eagerly.
+
 --grad_accum k runs each optimizer step as k strided microbatches with one
 update (train/step.py); under --roi_buckets they run at their batch's
 bucket R.
 
 Not ported (ROADMAP Queue A): the multi-process preemption sync and
-checkpoint barrier, and the sharded store (multi-device); --train_block and
---eval_block (one step per dispatch, as JAX's --train_block 1).
+checkpoint barrier, and the sharded store (multi-device).
 """
 
 from __future__ import annotations
@@ -51,7 +60,6 @@ import os
 import signal
 import threading
 import time
-from itertools import islice
 from typing import Any, Dict, Iterable, Iterator, Optional, Tuple
 
 import numpy as np
@@ -72,7 +80,8 @@ from tf_vqa_regat_tpu_torch.train.optim import (
     Adamax,
     make_lr_schedule,
 )
-from tf_vqa_regat_tpu_torch.train.step import eval_step, train_step
+from tf_vqa_regat_tpu_torch.train.graphs import StepGraphs, to_device
+from tf_vqa_regat_tpu_torch.train.step import EvalSteps, TrainSteps, real_batches
 
 Metrics = Dict[str, torch.Tensor]
 
@@ -85,10 +94,12 @@ class Preempted(RuntimeError):
 
 
 class _PreemptWatcher:
-    """SIGTERM -> save at the next step boundary, then exit cleanly. A
-    handler on the main thread sets a flag polled after every optimizer
-    step; `REGAT_FAULT_PREEMPT_STEP=<global step>` fires at the first step
-    boundary at or after that step. The previous handler is restored on
+    """SIGTERM -> save at the next dispatch boundary, then exit cleanly. A
+    handler on the main thread sets a flag polled at each dispatch boundary
+    (after every train block: every optimizer step under --train_block 1);
+    `REGAT_FAULT_PREEMPT_STEP=<global step>` fires at the first boundary at
+    or after that step (>=: a step inside a block fires at the block's
+    end, as a real SIGTERM would). The previous handler is restored on
     exit. (The JAX package's multi-process branch, its preemption sync
     service, is ROADMAP Queue A, multi-device.)"""
 
@@ -117,12 +128,27 @@ class _PreemptWatcher:
         return self._flag or 0 <= self._fault_step <= global_step
 
 
+# --train_block 0 (auto) resolves to this on the device store (JAX's
+# default, loop.py:131-138)
+AUTO_TRAIN_BLOCK = 8
+
+
+def resolve_train_block(cfg: Config, data_mode: str) -> int:
+    """The effective train block K: --train_block 0 means AUTO_TRAIN_BLOCK
+    on the device store and 1 on the host path, which streams one batch at a
+    time; an explicit K is K (and refused on the host path by _DataPath)."""
+    if cfg.train_block == 0:
+        return AUTO_TRAIN_BLOCK if data_mode == "device" else 1
+    return cfg.train_block
+
+
 def _run_signature(cfg: Config, steps_per_epoch: int, data_mode: str) -> Dict[str, Any]:
     """Everything the seeded epoch order depends on, with the JAX keys: a
     step checkpoint records it and a mid-epoch resume refuses another.
     `data_mode` is the resolved one, so a mid-epoch resume across modes is
-    refused, as JAX refuses it. The port runs one process and dispatches
-    one step at a time; the bucket list is the parsed one, so '100,64' and
+    refused, as JAX refuses it; so is one across another effective train
+    block, whose blocks group the bucketed stream otherwise. The port runs
+    one process; the bucket list is the parsed one, so '100,64' and
     '64, 100' sign alike."""
     return {
         "batch_size": int(cfg.batch_size),
@@ -132,7 +158,7 @@ def _run_signature(cfg: Config, steps_per_epoch: int, data_mode: str) -> Dict[st
         "roi_buckets": list(cfg.parsed_roi_buckets() or []),
         "data_mode": str(data_mode),
         "dp": 1,
-        "train_block": 1,  # one optimizer step per dispatch (JAX: --train_block 1)
+        "train_block": int(resolve_train_block(cfg, data_mode)),
     }
 
 
@@ -220,13 +246,6 @@ def _log_progress(logger, acc: Metrics, last: torch.Tensor, epoch, i, N, start) 
     )
 
 
-def _batches(
-    store: DeviceStore, indices: Iterable[Tuple[int, np.ndarray]], device: torch.device
-):
-    for R, idx in indices:
-        yield gather_batch(store, torch.from_numpy(idx).to(device), R)
-
-
 def build_store(
     cfg: Config, ds: VQADataset, device: torch.device, targets: bool = True
 ) -> DeviceStore:
@@ -259,18 +278,16 @@ def steps_per_epoch(cfg: Config, store: DeviceStore, batch_size: int) -> int:
 
 
 def train_batch_stream(
-    cfg: Config, store: DeviceStore, epoch: int, skip: int = 0
+    cfg: Config, store: DeviceStore, epoch: int
 ) -> Iterator[Tuple[int, np.ndarray]]:
-    """The epoch's shuffled (R, idx) train batches past the first `skip`
-    (a mid-epoch resume): the bucketed stream under --roi_buckets, else the
-    epoch permutation at the one static roi count."""
+    """The epoch's shuffled (R, idx) train batches: the bucketed stream
+    under --roi_buckets, else the epoch permutation at the one static roi
+    count."""
     buckets = cfg.parsed_roi_buckets()
     if buckets:
-        it = store.epoch_indices_bucketed(epoch, cfg.batch_size, buckets, True, cfg.seed)
-    else:
-        R0 = cfg.resolved_num_rois()
-        it = ((R0, idx) for idx in store.epoch_indices(epoch, cfg.batch_size, True, cfg.seed))
-    return islice(it, skip, None)
+        return store.epoch_indices_bucketed(epoch, cfg.batch_size, buckets, True, cfg.seed)
+    R0 = cfg.resolved_num_rois()
+    return ((R0, idx) for idx in store.epoch_indices(epoch, cfg.batch_size, True, cfg.seed))
 
 
 def eval_batch_stream(
@@ -285,6 +302,44 @@ def eval_batch_stream(
         return store.epoch_indices_bucketed(0, eval_batch, buckets, False, cfg.seed)
     R0 = cfg.resolved_num_rois()
     return ((R0, idx) for idx in store.epoch_indices(0, eval_batch, False, cfg.seed))
+
+
+def _block_batches_counted(
+    batches: Iterable[Tuple[int, np.ndarray]], K: int, batch_size: int
+) -> Iterator[Tuple[int, np.ndarray, int]]:
+    """Group a stream of (R, idx[B]) batches into (R, idx_block[K, B],
+    nreal) blocks, keeping the stream's order within each R; `nreal` is the
+    number of real batches in the block. A block is yielded when its R has K
+    batches; at the end each R's partial block is padded with all -1
+    batches (JAX loop.py::_block_batches_counted)."""
+    pending: Dict[int, list] = {}
+    for R, idx in batches:
+        pending.setdefault(R, []).append(idx)
+        if len(pending[R]) == K:
+            yield R, np.stack(pending.pop(R)), K
+    for R, lst in pending.items():
+        pad = [np.full(batch_size, -1, np.int32)] * (K - len(lst))
+        yield R, np.stack(lst + pad), len(lst)
+
+
+def _block_batches(
+    batches: Iterable[Tuple[int, np.ndarray]], K: int, batch_size: int
+) -> Iterator[Tuple[int, np.ndarray]]:
+    """The eval-facing view of _block_batches_counted: (R, idx_block[K, B])."""
+    for R, blk, _ in _block_batches_counted(batches, K, batch_size):
+        yield R, blk
+
+
+def blocked_eval_stream(
+    cfg: Config, store: DeviceStore, eval_batch: int
+) -> Tuple[int, list, Iterator[Tuple[int, np.ndarray]]]:
+    """eval_batch_stream grouped into [K, B] blocks, K = --eval_block (0
+    counts as 1), for eval, predict and the ensemble -> (K, the roi sizes,
+    the stream of (R, idx_block[K, B])) (JAX loop.py::blocked_eval_stream
+    at one device)."""
+    K = max(cfg.eval_block, 1)
+    sizes = cfg.parsed_roi_buckets() or [cfg.resolved_num_rois()]
+    return K, sizes, _block_batches(eval_batch_stream(cfg, store, eval_batch), K, eval_batch)
 
 
 def resolve_data_mode(
@@ -363,6 +418,15 @@ class _DataPath:
         include_adj = cfg.relation_type != "implicit"
         self.mode = resolve_data_mode(cfg, val_ds, train_ds, include_adj)
         check_roi_buckets_mode(cfg, self.mode)
+        # an explicit K > 1 on the host path is refused; auto resolves to 1 there
+        if cfg.train_block > 1 and train_ds is not None and self.mode == "host":
+            raise ValueError(
+                f"--train_block requires the device or sharded data mode "
+                f"(resolved mode: {self.mode!r}); the scanned block gathers its "
+                f"K batches from device-resident tables. Force --data_mode "
+                f"device/sharded or drop --train_block."
+            )
+        self.train_block = resolve_train_block(cfg, self.mode)
         logger.write(data_mode_line(cfg, self.mode, val_ds, train_ds, include_adj))
         self.eval_batch = cfg.resolved_eval_batch()
         self.eval_entries = len(val_ds)
@@ -374,46 +438,89 @@ class _DataPath:
                                  include_adj=include_adj, cache_dir=cfg.packed_cache))
             self.steps_per_epoch = (0 if train_ds is None
                                     else steps_per_epoch(cfg, self.train_store, cfg.batch_size))
-            self.eval_steps = steps_per_epoch(cfg, self.eval_store, self.eval_batch)
+            self.eval_steps = self._eval_block_count()
         else:
+            self.train_store = self.eval_store = None
             self.train_loader = (None if train_ds is None
                                  else host_loader(cfg, train_ds, cfg.batch_size, True))
             self.eval_loader = host_loader(cfg, val_ds, self.eval_batch, False)
             self.steps_per_epoch = 0 if train_ds is None else len(self.train_loader)
             self.eval_steps = len(self.eval_loader)
 
-    def train_batches(self, epoch: int, skip: int = 0) -> Iterator[Dict[str, torch.Tensor]]:
-        """The epoch's train batches on the device past the first `skip`."""
-        if self.mode == "device":
-            return _batches(self.train_store, train_batch_stream(
-                self.cfg, self.train_store, epoch, skip), self.device)
-        return prefetch_to_device(self.train_loader, self.device, epoch, skip,
-                                  self.cfg.prefetch)
+    def _eval_block_count(self) -> int:
+        """The number of eval blocks the device path yields (the `eval data
+        loader len` line; JAX loop.py::_eval_block_count at one device)."""
+        K = max(self.cfg.eval_block, 1)
+        buckets = self.cfg.parsed_roi_buckets()
+        if buckets:
+            counts = self.eval_store.bucketed_batch_counts(self.eval_batch, buckets)
+            return sum(-(-b // K) for b in counts if b > 0)
+        return -(-self.eval_store.steps_per_epoch(self.eval_batch) // K)
 
-    def eval_batches(self) -> Iterator[Dict[str, torch.Tensor]]:
-        """The split's eval batches on the device, in entry order (per bucket
-        under --roi_buckets)."""
+    def train_stream(self, epoch: int, skip: int = 0) -> Iterator[Tuple[int, Any]]:
+        """The epoch's train dispatches past the first `skip` steps as
+        (nsteps, item), the loop's step count advancing by nsteps per item
+        (JAX `_DataPath.train_stream`): on the device path (R, idx_block[K,
+        B]) blocks of the train stream, K = the effective --train_block,
+        nsteps its real batches (within a bucket the order is the per-step
+        one; across buckets the optimizer meets K same-R batches in a row);
+        on the host path (1, batch on the device). `skip` is consumed in
+        whole blocks: a skip that falls inside a block raises."""
+        cfg = self.cfg
+        if self.mode == "host":
+            with contextlib.closing(prefetch_to_device(
+                    self.train_loader, self.device, epoch, skip, cfg.prefetch)) as batches:
+                for batch in batches:
+                    yield 1, batch
+            return
+        K = self.train_block
+        raw = train_batch_stream(cfg, self.train_store, epoch)
+        consumed = 0
+        for R, blk, nreal in _block_batches_counted(raw, K, cfg.batch_size):
+            if consumed < skip:
+                if consumed + nreal > skip:
+                    raise ValueError(
+                        f"mid-epoch resume at step {skip} does not align "
+                        f"with the --train_block {K} dispatch boundaries "
+                        f"(block covers steps {consumed}..{consumed + nreal})"
+                    )
+                consumed += nreal
+                continue
+            yield nreal, (R, blk)
+
+    def eval_stream(self) -> Iterator[Any]:
+        """The split's eval items in entry order (per bucket under
+        --roi_buckets): (R, idx_block[K, B]) blocks of blocked_eval_stream on
+        the device path, batches on the device on the host path."""
         if self.mode == "device":
-            return _batches(self.eval_store, eval_batch_stream(
-                self.cfg, self.eval_store, self.eval_batch), self.device)
-        return prefetch_to_device(self.eval_loader, self.device, depth=self.cfg.prefetch)
+            yield from blocked_eval_stream(self.cfg, self.eval_store, self.eval_batch)[2]
+            return
+        with contextlib.closing(prefetch_to_device(
+                self.eval_loader, self.device, depth=self.cfg.prefetch)) as batches:
+            yield from batches
+
+    def eval_steps_of(self, model: ReGAT, graphed: Optional[bool] = None,
+                      pool: Any = None) -> EvalSteps:
+        """`model`'s eval steps on this path (graphed on CUDA)."""
+        return EvalSteps(model, self.device, self.eval_store, graphed, pool)
 
 
 def _run_eval(
-    model: ReGAT, data: _DataPath, cfg: Config, epoch: int, logger: Logger,
+    steps: EvalSteps, data: _DataPath, cfg: Config, epoch: int, logger: Logger,
     device: torch.device,
 ) -> Tuple[float, float, float]:
     """One pass over the split in entry order (per bucket under
-    --roi_buckets) -> (score %, mean loss, s)."""
+    --roi_buckets), a block per item on the device path -> (score %, mean
+    loss, s)."""
     N = data.eval_steps
     logger.write("[DEBUG] Evaluation Start")
     logger.write(f"[DEBUG] total eval data len: {data.eval_entries}")
     logger.write(f"[DEBUG] eval data loader len: {N}")
     acc = _zeros(device)
     start = time.time()
-    with contextlib.closing(data.eval_batches()) as batches:
-        for i, batch in enumerate(batches):
-            m = eval_step(model, batch)
+    with contextlib.closing(data.eval_stream()) as items:
+        for i, item in enumerate(items):
+            m = steps.block(*item) if data.mode == "device" else steps.batch(item)
             _accumulate(acc, m)
             if cfg.print_freq > 0 and (i + 1) % cfg.print_freq == 0:
                 _log_progress(logger, acc, m["loss"], epoch, i, N, start)
@@ -454,6 +561,9 @@ def run_training(
             logger.close()
             raise
     run_sig = _run_signature(cfg, N, data.mode)
+    # the graphs capture the restored tensors: no step runs before the resume
+    train = TrainSteps(model, opt, cfg, device, data.train_store)
+    evaluate = data.eval_steps_of(model, pool=train.graphs.pool)
 
     metrics_writer = MetricsWriter(os.path.join(cfg.output, "metrics.jsonl"))
     logger.write(
@@ -493,21 +603,33 @@ def run_training(
                     }
                     n_restored = float(acc_resume.get("n", 0.0))
                 start = time.time()
-                with contextlib.closing(data.train_batches(epoch, skip)) as stream:
-                    for i, batch in enumerate(stream, skip):
-                        m = train_step(model, opt, batch, opt.count, cfg.seed, cfg.grad_accum)
-                        _accumulate(acc, m)
-                        if cfg.print_freq > 0 and (i + 1) % cfg.print_freq == 0:
+                done = skip  # optimizer steps of this epoch taken
+                with contextlib.closing(data.train_stream(epoch, skip)) as stream:
+                    for nsteps, item in stream:
+                        m = (train.block(*item, nsteps) if data.mode == "device"
+                             else train.batch(item))
+                        # the block's loss_sum, not loss * n (the last step's
+                        # loss weighted by the block's count)
+                        for k in acc:
+                            acc[k] += m[k]
+                        prev, done = done, done + nsteps
+                        i = done - 1  # the last step's index in the epoch
+                        # a block prints and saves where it crosses a multiple
+                        # (per step: (i + 1) % print_freq == 0)
+                        if cfg.print_freq > 0 and (
+                            done // cfg.print_freq > prev // cfg.print_freq
+                        ):
                             _log_progress(logger, acc, m["loss"], epoch, i, N, start)
-                        preempted = preempt.poll(epoch * N + i + 1)
+                        preempted = preempt.poll(epoch * N + done)
                         if preempted or (
                             cfg.checkpoint_every_steps > 0
-                            and (i + 1) % cfg.checkpoint_every_steps == 0
-                            and i + 1 < N  # the epoch save supersedes it
+                            and done // cfg.checkpoint_every_steps
+                            > prev // cfg.checkpoint_every_steps
+                            and done < N  # the epoch save supersedes it
                         ):
                             waited = ckpt.save_checkpoint(
                                 cfg.output, state_tensors(model, opt), epoch, best_score, False,
-                                step_in_epoch=i + 1,
+                                step_in_epoch=done,
                                 acc={k: float(v) for k, v in acc.items()},
                                 # a preemption save must be on disk before exit
                                 block=preempted or not cfg.async_checkpoint,
@@ -523,15 +645,15 @@ def run_training(
                             if preempted:
                                 logger.write(
                                     f"[preempt] checkpoint saved at epoch {epoch} "
-                                    f"step {i + 1}; exiting — rerun with --resume"
+                                    f"step {done}; exiting — rerun with --resume"
                                 )
-                                raise Preempted(f"epoch {epoch} step {i + 1}")
+                                raise Preempted(f"epoch {epoch} step {done}")
                 n = max(float(acc["n"]), 1.0)
                 train_score = 100.0 * float(acc["score"]) / n
                 train_time = time.time() - start
 
                 eval_score, eval_loss, eval_time = _run_eval(
-                    model, data, cfg, epoch, logger, device
+                    evaluate, data, cfg, epoch, logger, device
                 )
                 logger.write(
                     f"[DEBUG] train_score: {train_score:.4f} eval_score: {eval_score:.4f}"
@@ -576,18 +698,21 @@ def run_evaluation(
     """`--mode eval`: one eval pass over the split -> (score %, mean loss, s)."""
     model.to(device)
     data = _DataPath(cfg, None, val_ds, device, logger)
-    return _run_eval(model, data, cfg, 0, logger, device)
+    return _run_eval(data.eval_steps_of(model), data, cfg, 0, logger, device)
 
 
 def run_prediction(
     cfg: Config, ds: VQADataset, model: ReGAT, device: torch.device, logger: Logger,
+    graphed: Optional[bool] = None,
 ) -> str:
     """`--mode predict`: one forward pass over the split in entry order,
     the argmax answers written as the VQA submission JSON
     (`[{"question_id": int, "answer": str}, ...]`) to
     `{output}/{relation_type}-{fusion}-{split}-predictions.json`. The device
     path reads no soft targets (the host path's are zero on an answerless
-    split), so an answerless split works; raises if an entry is missed."""
+    split), so an answerless split works; raises if an entry is missed.
+    The device path runs blocked_eval_stream's blocks; each forward pass is
+    a replay of its R's graph on CUDA (`graphed`, train/graphs.py)."""
     model.to(device).eval()
     include_adj = cfg.relation_type != "implicit"
     mode = resolve_data_mode(cfg, ds, None, include_adj)
@@ -599,21 +724,30 @@ def run_prediction(
     seen = np.zeros(len(qids), bool)
     pending = []  # (host entry indices, device labels), fetched once at the end
     eval_batch = cfg.resolved_eval_batch()
-    with torch.no_grad():
-        if mode == "device":
-            store = build_store(cfg, ds, device, targets=False)
-            for R, idx in eval_batch_stream(cfg, store, eval_batch):
-                batch = gather_batch(store, torch.from_numpy(idx).to(device), R)
-                pending.append((idx, model(batch).argmax(dim=-1)))
-        else:
-            loader = host_loader(cfg, ds, eval_batch, False)
-            with contextlib.closing(prefetch_to_device(loader, device, depth=cfg.prefetch)) \
-                    as batches:
-                for pos, batch in zip(range(0, len(qids), eval_batch), batches):
-                    idx = np.full(eval_batch, -1, np.int64)
-                    n_real = min(eval_batch, len(qids) - pos)
-                    idx[:n_real] = np.arange(pos, pos + n_real)
-                    pending.append((idx, model(batch).argmax(dim=-1)))
+    store = build_store(cfg, ds, device, targets=False) if mode == "device" else None
+
+    def predict(R, inputs, generators):
+        batch = inputs if store is None else gather_batch(store, inputs["idx"], R)
+        with torch.no_grad():
+            return model(batch).argmax(dim=-1)
+
+    steps = StepGraphs(predict, device, graphed)
+    if mode == "device":
+        for R, blk in blocked_eval_stream(cfg, store, eval_batch)[2]:
+            nreal = real_batches(blk)
+            idx = to_device(blk[:nreal], device)
+            for j in range(nreal):
+                # the graph's output is overwritten by the next replay
+                pending.append((blk[j], steps(R, {"idx": idx[j]}).clone()))
+    else:
+        loader = host_loader(cfg, ds, eval_batch, False)
+        with contextlib.closing(prefetch_to_device(loader, device, depth=cfg.prefetch)) \
+                as batches:
+            for pos, batch in zip(range(0, len(qids), eval_batch), batches):
+                idx = np.full(eval_batch, -1, np.int64)
+                n_real = min(eval_batch, len(qids) - pos)
+                idx[:n_real] = np.arange(pos, pos + n_real)
+                pending.append((idx, steps(batch["features"].shape[1], batch).clone()))
     for idx, labels in pending:
         lab = labels.cpu().numpy()
         ok = idx >= 0
