@@ -195,8 +195,31 @@ Phases, each of which fails the run (non-zero exit, no result line):
      `--mode predict` answers equal; 13's ensemble score equal in both and
      to 13's; serve (b = 1, 8, 32) answers and confidences equal, each
      engine call's time in both.
-Counts of launches are set to 0 just before each path of 8-13 and 17-21
-runs and read just after it; the comparison launches of 3-7, 14-16 and 22
+ 23. data parallelism (parallel/, data/sharded_store.py, train/step.py's
+     reduced step): (a) one rank over NCCL (REGAT_AUTO_DISTRIBUTED=1 at
+     WORLD_SIZE=1, each `main.main` call opening and closing its group):
+     butd_vqa.json at full width, b=256, `--data_mode sharded` on 1,536
+     questions, train, eval and predict with the checks of 8, 9 and 12;
+     then the graphed b=256 step from the same seeded parameters with no
+     group and in an NCCL group of one (two graphs and the all-reduce
+     between them), in turns, and the all-reduce of the step's buffer (every
+     parameter's gradient and 3 sums) alone, its bytes and time; (b) two
+     ranks sharing the one card over gloo (NCCL refuses that; gloo stages
+     its CUDA collectives through the host), child processes of this script
+     that open the group, then call `main.main`: butd_vqa.json at full
+     width, b=256 (128 a rank), `--dropout 0 --data_mode device`, 6 steps in
+     blocks of 2: the per-epoch metrics against (a'), the same flags at one
+     rank with no group, within DP_METRIC_RTOL, both ranks' parameters
+     bit-identical (and their distance from (a')'s printed) and equal at
+     RESUME_RTOL / RESUME_ATOL to the two ranks' reduced step computed in
+     this process (each rank's gradient sums added, then applied); semantic_vqa.json
+     `--data_mode sharded` at 2 ranks through B2 with the sharded semantic
+     adjacency; the butd run preempted by REGAT_FAULT_PREEMPT_STEP=4 and
+     resumed, equal to the uninterrupted one at RESUME_RTOL / RESUME_ATOL;
+     every run 2 launches of its kernel per forward pass on each rank; the
+     step time and the gloo all-reduce's own time (staged through the host).
+Counts of launches are set to 0 just before each path of 8-13, 17-21 and 23
+(in each rank's process in 23 (b)) runs and read just after it; the comparison launches of 3-7, 14-16 and 22
 and of the plain-path comparisons do not count. Every step of 8-21 is a
 CUDA graph replay, whose wrapper counts are added per replay (a capture's
 are taken back), so a count is the launches the card ran. Each phase prints its wall
@@ -3119,6 +3142,414 @@ def check_graphs_eval_serve(tmp, smi, device, npz):
     logger.close()
 
 
+# phase 23: data parallelism. (b)'s flags: butd's full width, b = 256 (128 a
+# rank), 6 steps in blocks of 2 with a step checkpoint every 2, dropout off
+DP_FLAGS = ("--synthetic_train_size", "1536", "--synthetic_val_size", "256", "--dropout", "0",
+            "--train_block", "2", "--checkpoint_every_steps", "2", "--mode", "train",
+            "--epochs", "1")
+# per-epoch metrics of 2 ranks against 1: the same gradient summed in
+# another order (two halves of the batch, then their sum), through the
+# full-width model for 6 steps, as phase 7 holds one step's loss summed in
+# another order (LOSS_RTOL). tests/test_torch_dp_entry.py holds the small
+# CPU model to 1e-5; at full width on an H100 the eval loss of 2 ranks read
+# 2.3e-5 from 1 rank's after the loss fell from 2,169 to 35 in 6 steps
+DP_METRIC_RTOL = LOSS_RTOL
+# JAX's data-parallel parameter tolerance (tests/test_parallel.py), printed
+# for 2 ranks against 1: not held, since Adamax moves a leaf whose true
+# gradient is zero by about lr times the sign of its rounding noise
+DP_PARAM_RTOL, DP_PARAM_ATOL = 2e-3, 1e-4
+DP_STEPS = 6
+
+
+def free_port() -> int:
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+@contextlib.contextmanager
+def nccl_world_one():
+    """torchrun's variables for one rank and REGAT_AUTO_DISTRIBUTED=1, so that
+    each `main.main` call opens (and closes) an NCCL group of one; each
+    rendezvous on a fresh port. Yields the (opened, backend, world size) of
+    every group the entry point opened."""
+    import torch.distributed as dist
+
+    from tf_vqa_regat_tpu_torch.parallel import distributed
+
+    env = dict(REGAT_AUTO_DISTRIBUTED="1", RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+               LOCAL_WORLD_SIZE="1", MASTER_ADDR="127.0.0.1")
+    saved = {k: os.environ.get(k) for k in [*env, "MASTER_PORT"]}
+    real, groups = distributed.maybe_initialize, []
+
+    def spy(device_type="cuda"):
+        os.environ["MASTER_PORT"] = str(free_port())
+        opened = real(device_type)
+        groups.append((opened, dist.get_backend(), dist.get_world_size()))
+        return opened
+
+    os.environ.update(env)
+    distributed.maybe_initialize = spy
+    try:
+        yield groups
+    finally:
+        distributed.maybe_initialize = real
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def allreduce_ms(flat, reps=20):
+    """Median ms of the all-reduce of `flat` alone: CUDA events under NCCL,
+    the host clock to a synchronise under gloo (which stages it through the
+    host)."""
+    import torch
+    import torch.distributed as dist
+
+    out = []
+    for _ in range(reps + 3):
+        torch.cuda.synchronize()
+        if dist.get_backend() == "nccl":
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            dist.all_reduce(flat)
+            ev[1].record()
+            torch.cuda.synchronize()
+            out.append(ev[0].elapsed_time(ev[1]))
+        else:
+            t0 = time.perf_counter()
+            dist.all_reduce(flat)
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(out[3:])
+
+
+def dp_step_times(device, smi):
+    """(a): the graphed b=256 butd step from the device store with no group
+    and in an NCCL group of one (its gradient sums all-reduced between two
+    graphs), from the same seeded parameters, in turns; the all-reduce's
+    bytes and its time alone."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from tf_vqa_regat_tpu_torch.models.regat import ReGAT, trainable_mask
+    from tf_vqa_regat_tpu_torch.parallel.mesh import Mesh
+    from tf_vqa_regat_tpu_torch.train.optim import Adamax, make_lr_schedule
+    from tf_vqa_regat_tpu_torch.train.step import TrainSteps
+
+    cfg, ds, store = graph_setup(device, "implicit", (), 100, "device")
+    blk = np.stack(list(store.epoch_indices(0, cfg.batch_size, True, cfg.seed)))
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}",
+                            world_size=1, rank=0)
+    try:
+        steps = {}
+        for group in (False, True):
+            model = ReGAT(cfg, ds.ntoken, ds.v_dim, ds.num_ans).to(device)
+            opt = Adamax(model, trainable_mask(model, False), make_lr_schedule(
+                cfg.base_lr, DP_STEPS, cfg.lr_decay_rate, cfg.lr_decay_step), cfg.grad_clip)
+            steps[group] = TrainSteps(model, opt, cfg, device, store, mesh=Mesh(1, group=group))
+            steps[group].block(100, blk, len(blk))  # captures
+        ms = {False: [], True: []}
+        for _ in range(3):
+            for group, train in steps.items():
+                idx = torch.from_numpy(blk).to(device)
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(blk) + 1)]
+                ev[0].record()
+                for j in range(len(blk)):
+                    train.step(100, {"idx": idx[j]})
+                    ev[j + 1].record()
+                torch.cuda.synchronize()
+                ms[group] += [a.elapsed_time(b) for a, b in zip(ev, ev[1:])]
+        flat = steps[True].sums.flat
+        reduce_ms = allreduce_ms(flat)
+    finally:
+        dist.destroy_process_group()
+    del steps, store
+    torch.cuda.empty_cache()
+    out = {"step_ms_no_group": statistics.median(ms[False]),
+           "step_ms_nccl_group": statistics.median(ms[True]),
+           "allreduce_ms": reduce_ms, "allreduce_bytes": flat.numel() * 4}
+    print(f"dp (a) butd b=256 graphed step, median of {len(ms[True])} (CUDA events, TF32 "
+          f"off) on {smi}: no group {out['step_ms_no_group']:.3f} ms, NCCL group of one "
+          f"{out['step_ms_nccl_group']:.3f} ms (two graphs and the all-reduce between them); "
+          f"the all-reduce of {out['allreduce_bytes']} bytes (every parameter's gradient and "
+          f"3 sums) alone {reduce_ms:.4f} ms (NCCL, one rank, CUDA events)", flush=True)
+    return out
+
+
+def check_dp_nccl(tmp, smi, device):
+    """(a): butd_vqa.json at full width, b=256, `--data_mode sharded` through
+    `main.main` in an NCCL group of one: train (phase 8's checks), eval
+    (9's) and predict (12's). Returns the paths' launches."""
+    with nccl_world_one() as groups:
+        npz, train_launches, _ = check_entry_point(
+            tmp, smi, "implicit", SHORT_TRAIN + ("--data_mode", "sharded"))
+        predict_launches = check_predict(tmp, smi, "implicit", npz, device,
+                                         ("--data_mode", "sharded"))
+    with open(os.path.join(tmp, "log.txt")) as fh:
+        sharded = "[data] data=sharded (--data_mode sharded)" in fh.read()
+    print(f"dp (a) groups the entry point opened (opened, backend, world): {groups}; "
+          f"logged data=sharded: {sharded}", flush=True)
+    if groups != [(True, "nccl", 1)] * 3 or not sharded:
+        fail(f"dp (a): groups {groups}, data=sharded logged {sharded}")
+    return [train_launches, predict_launches]
+
+
+def dp_commands(tmp):
+    """(b)'s commands, each run by both ranks: butd device, semantic sharded,
+    butd preempted at step 4, resumed."""
+    outs = {k: os.path.join(tmp, k) for k in ("butd", "semantic", "preempted")}
+    butd = entry_argv("implicit", outs["butd"], *DP_FLAGS, "--data_mode", "device")
+    pre = entry_argv("implicit", outs["preempted"], *DP_FLAGS, "--data_mode", "device")
+    return outs, [
+        {"argv": butd, "kernel": "B1"},
+        {"argv": entry_argv("semantic", outs["semantic"], *DP_FLAGS, "--data_mode", "sharded"),
+         "kernel": "B2"},
+        {"argv": pre, "env": {"REGAT_FAULT_PREEMPT_STEP": "4"}, "kernel": "B1"},
+        {"argv": pre + ["--resume"], "kernel": "B1"},
+    ]
+
+
+def dp_child(spec_path, rank):
+    """One rank of (b): open the gloo group, then run each command through
+    `main.main`, recording its launches, forward passes, step times and
+    final parameters, and last the all-reduce of the step's buffer alone."""
+    sys.path.insert(0, REPO)
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from tf_vqa_regat_tpu_torch import main as port_main
+    from tf_vqa_regat_tpu_torch.train.step import EvalSteps, TrainSteps, real_batches
+
+    with open(spec_path) as fh:
+        spec = json.load(fh)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{spec['port']}",
+                            world_size=2, rank=rank)
+    real_step, real_block, real_batch = TrainSteps.step, EvalSteps.block, EvalSteps.batch
+    real_run = port_main.run_training
+    records, flat_numel = [], [0]
+    for i, cmd in enumerate(spec["commands"]):
+        os.environ.pop("REGAT_FAULT_PREEMPT_STEP", None)
+        os.environ.update(cmd.get("env", {}))
+        rec = {"steps": [], "eval_passes": 0}
+
+        def step(self, R, inputs):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            graphs = len(self.graphs.capture_seconds())
+            ev[0].record()
+            m = real_step(self, R, inputs)
+            ev[1].record()
+            rec["steps"].append((ev, len(self.graphs.capture_seconds()) > graphs))
+            flat_numel[0] = self.sums.flat.numel()
+            return m
+
+        def block(self, R, blk):
+            rec["eval_passes"] += real_batches(blk)
+            return real_block(self, R, blk)
+
+        def batch(self, b):
+            rec["eval_passes"] += 1
+            return real_batch(self, b)
+
+        def run(*a, **k):
+            model, best = real_run(*a, **k)
+            np.savez(os.path.join(spec["out"], f"params-{i}-rank{rank}.npz"),
+                     **{n: p.detach().cpu().numpy() for n, p in model.named_parameters()})
+            return model, best
+
+        TrainSteps.step, EvalSteps.block, EvalSteps.batch = step, block, batch
+        port_main.run_training = run
+        reset_counts()
+        t0 = time.perf_counter()
+        result = port_main.main(cmd["argv"])
+        torch.cuda.synchronize()
+        steps = rec.pop("steps")
+        rec.update(wall_s=time.perf_counter() - t0, launches=counts(), preempted=result is None,
+                   train_steps=len(steps),
+                   step_ms=[a.elapsed_time(b) for (a, b), cap in steps if not cap])
+        records.append(rec)
+    flat = torch.zeros(flat_numel[0], device="cuda")
+    reduce_ms = allreduce_ms(flat)
+    dist.destroy_process_group()
+    with open(os.path.join(spec["out"], f"child-rank{rank}.json"), "w") as fh:
+        json.dump({"records": records, "allreduce_ms": reduce_ms,
+                   "allreduce_bytes": flat_numel[0] * 4}, fh)
+
+
+def run_dp_children(tmp, commands, timeout=600):
+    """Both ranks of (b) as child processes of this script (stopped on any
+    failure) -> each rank's report."""
+    os.makedirs(tmp, exist_ok=True)
+    spec = os.path.join(tmp, "dp_spec.json")
+    with open(spec, "w") as fh:
+        json.dump({"port": free_port(), "out": tmp, "commands": commands}, fh)
+    env = {k: v for k, v in os.environ.items() if not k.startswith(("REGAT_", "MASTER_"))}
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dp_child", spec,
+                               str(r)], cwd=REPO, env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for r in (0, 1)]
+    try:
+        logs = [p.communicate(timeout=timeout)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        with open(os.path.join(tmp, f"child-rank{r}.log"), "w") as fh:
+            fh.write(log)
+        if p.returncode != 0:
+            fail(f"dp (b) rank {r} exited {p.returncode}:\n{log[-4000:]}")
+    reports = []
+    for r in (0, 1):
+        with open(os.path.join(tmp, f"child-rank{r}.json")) as fh:
+            reports.append(json.load(fh))
+    return reports
+
+
+def dp_reference(argv, device):
+    """(b)'s butd run computed by its two ranks' functions in this process,
+    eagerly: per step each rank's gradient sums of its 128 rows
+    (`grad_sums`), the two buffers added (the all-reduce's one addition),
+    the update applied to each (`apply_sums`) -> rank 0's final parameters."""
+    import torch
+
+    from tf_vqa_regat_tpu_torch import main as port_main
+    from tf_vqa_regat_tpu_torch.data.store import DeviceStore, gather_batch
+    from tf_vqa_regat_tpu_torch.models.regat import ReGAT, trainable_mask
+    from tf_vqa_regat_tpu_torch.parallel.mesh import batch_slice
+    from tf_vqa_regat_tpu_torch.train import step as tstep
+    from tf_vqa_regat_tpu_torch.train.optim import Adamax, make_lr_schedule
+
+    cfg = port_main.parse(argv)[0]
+    ds = port_main.build_dataset(cfg, "train")
+    store, R = DeviceStore(ds, device), cfg.resolved_num_rois()
+    ranks = []
+    for _ in range(2):
+        model = ReGAT(cfg, ds.ntoken, ds.v_dim, ds.num_ans).to(device)
+        opt = Adamax(model, trainable_mask(model, False), make_lr_schedule(
+            cfg.base_lr, DP_STEPS, cfg.lr_decay_rate, cfg.lr_decay_step), cfg.grad_clip)
+        ranks.append((model, opt, tstep.FlatSums(opt.params, device)))
+    for idx in store.epoch_indices(0, cfg.batch_size, True, cfg.seed):
+        for r, (model, opt, sums) in enumerate(ranks):
+            rows = torch.from_numpy(batch_slice(idx, r, 2)).to(device)
+            sums.write(*tstep.grad_sums(model, opt.params, gather_batch(store, rows, R),
+                                        opt.count, cfg.seed, cfg.grad_accum, rank=r))
+        total = ranks[0][2].flat + ranks[1][2].flat
+        for model, opt, sums in ranks:
+            sums.flat.copy_(total)
+            tstep.apply_sums(opt, sums)
+    return {n: p.detach().cpu().numpy() for n, p in ranks[0][0].named_parameters()}
+
+
+def check_dp_gloo(tmp, smi):
+    """(b): two ranks on the one card over gloo (module docstring). Returns
+    every rank's launches of every run."""
+    import numpy as np
+    import torch
+
+    from tf_vqa_regat_tpu_torch import main as port_main
+    from tf_vqa_regat_tpu_torch.data.sharded_store import sharded_layout
+
+    outs, commands = dp_commands(tmp)
+    t0 = time.perf_counter()
+    reports = run_dp_children(tmp, commands)
+    wall = time.perf_counter() - t0
+    # (a'): (b)'s butd flags at world 1, no group, in this process
+    solo_out = os.path.join(tmp, "solo")
+    reset_counts()
+    port_main.main(entry_argv("implicit", solo_out, *DP_FLAGS, "--data_mode", "device"))
+    solo_launches = read_path_counts()
+    launches = [solo_launches]
+    # the train steps of each run: butd, semantic sharded (the larger
+    # shard's entries over 128 a rank), preempted at step 4, resumed
+    cfg = port_main.parse(commands[1]["argv"])[0]
+    max_entries = sharded_layout(port_main.build_dataset(cfg, "train"), 2)[2]
+    run_steps = (DP_STEPS, -(-max_entries // (cfg.batch_size // 2)), 4, DP_STEPS - 4)
+    for i, cmd in enumerate(commands):
+        for r, rep in enumerate(reports):
+            rec = rep["records"][i]
+            family = "implicit" if cmd["kernel"] == "B1" else "semantic"
+            want = expected_launches(family, rec["eval_passes"], rec["train_steps"])
+            print(f"dp (b) run {i} rank {r}: {rec['train_steps']} steps, {rec['eval_passes']} "
+                  f"eval passes, launches {json.dumps(rec['launches'])}, preempted "
+                  f"{rec['preempted']}, {rec['wall_s']:.1f} s wall", flush=True)
+            if rec["launches"] != want or rec["train_steps"] != run_steps[i]:
+                fail(f"dp (b) run {i} rank {r}: {rec['train_steps']} steps, launches "
+                     f"{rec['launches']}, want {want}")
+            if rec["preempted"] != (i == 2):
+                fail(f"dp (b) run {i} rank {r}: preempted {rec['preempted']}")
+            launches.append(rec["launches"])
+    # the ranks' parameters bit-identical; (b) against (a')
+    for i in (0, 1, 3):
+        ranks = [np.load(os.path.join(tmp, f"params-{i}-rank{r}.npz")) for r in (0, 1)]
+        same = all(np.array_equal(ranks[0][k], ranks[1][k]) for k in ranks[0].files)
+        if not same:
+            fail(f"dp (b) command {i}: the ranks' parameters differ")
+    two, one = read_run(outs["butd"]), read_run(solo_out)
+    gaps = {f"{k}@{e}": abs(two[1][e][k] - one[1][e][k]) / max(abs(one[1][e][k]), 1e-30)
+            for e in one[1] for k in ("train_loss", "train_score", "eval_score", "eval_loss")}
+    metric = max(gaps.values())
+    beyond = sum(int((np.abs(two[0][k] - one[0][k]) > DP_PARAM_ATOL
+                      + DP_PARAM_RTOL * np.abs(one[0][k])).sum()) for k in one[0])
+    total = sum(v.size for v in one[0].values())
+    diff = max(float(np.abs(two[0][k] - one[0][k]).max()) for k in one[0])
+    resumed = run_distance(two, read_run(outs["preempted"]))
+    with np.load(os.path.join(tmp, "params-0-rank0.npz")) as z:
+        ranked = {k: z[k] for k in z.files}
+    ref = dp_reference(commands[0]["argv"], torch.device("cuda", 0))
+    ref_diff = max(float(np.abs(ranked[k] - v).max()) for k, v in ref.items())
+    ref_excess = max(float((np.abs(ranked[k] - v) - RESUME_ATOL - RESUME_RTOL * np.abs(v)).max())
+                     for k, v in ref.items())
+    ref_bits = all(np.array_equal(ranked[k], v) for k, v in ref.items())
+    step_ms = statistics.median(reports[0]["records"][0]["step_ms"])
+    print(f"dp (b) 2 ranks over gloo on one card vs (a') 1 rank: metrics max rel diff {metric} "
+          f"(bound {DP_METRIC_RTOL}; each {json.dumps(gaps)}); params max abs diff {diff}, {beyond} of {total} elements "
+          f"beyond JAX's dp tolerance (rtol {DP_PARAM_RTOL}, atol {DP_PARAM_ATOL}; not held); "
+          f"vs the two ranks' reduced step in one process (eager): params max abs diff "
+          f"{ref_diff}, excess {ref_excess}, bit-equal {ref_bits}; "
+          f"preempted at step 4 and resumed vs uninterrupted: params max abs diff "
+          f"{resumed[0]}, excess {resumed[1]}, metrics {resumed[2]}, bit-equal {resumed[3]}; "
+          f"butd step (128 a rank) median {step_ms:.3f} ms (CUDA events, graphs and the gloo "
+          f"all-reduce staged through the host, two ranks sharing one card); the gloo "
+          f"all-reduce of {reports[0]['allreduce_bytes']} bytes alone "
+          f"{reports[0]['allreduce_ms']:.3f} ms (host clock, staged through the host, not an "
+          f"NVLink or NCCL number); children {wall:.1f} s wall; on {smi}", flush=True)
+    if not metric <= DP_METRIC_RTOL:
+        fail(f"dp (b): 2 ranks' metrics differ from 1 rank's by rel {metric}")
+    if not resumed[1] <= 0.0 or not resumed[2] <= RESUME_RTOL:
+        fail(f"dp (b): the resumed run differs from the uninterrupted one: {resumed}")
+    if not ref_excess <= 0.0:
+        fail(f"dp (b): the 2-rank run differs from its ranks computed in one process by "
+             f"{ref_diff} (excess {ref_excess})")
+    for k in outs.values():
+        shutil.rmtree(os.path.join(k, "checkpoints"), ignore_errors=True)
+    return launches, {"step_ms_gloo": step_ms, "allreduce_ms_gloo": reports[0]["allreduce_ms"]}
+
+
+def run_phase_23(tmp_root, smi, device):
+    """Phase 23, (a) and (b); returns the launches of their paths."""
+    import torch
+
+    with phase("23 (a), one rank over NCCL"):
+        launches = check_dp_nccl(os.path.join(tmp_root, "dp_nccl"), smi, device)
+        dp_step_times(device, smi)
+    torch.cuda.empty_cache()
+    with phase("23 (b), two ranks over gloo on one card"):
+        launches += check_dp_gloo(os.path.join(tmp_root, "dp_gloo"), smi)[0]
+    torch.cuda.empty_cache()
+    return launches
+
+
 def build_kernels():
     """Build every CUDA source of the port, one nvcc each, all at once."""
     from tf_vqa_regat_tpu_torch.ops.kernels import build
@@ -3142,7 +3573,14 @@ def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--baseline", help="another checkout whose B1 and B2 phases 3-5 "
                         "time in turns with this one")
+    parser.add_argument("--only", choices=("23",),
+                        help="build the kernels and run this phase alone (no result line)")
+    parser.add_argument("--dp_child", nargs=2, metavar=("SPEC", "RANK"),
+                        help=argparse.SUPPRESS)  # one rank of phase 23 (b)
     args = parser.parse_args()
+    if args.dp_child:
+        dp_child(args.dp_child[0], int(args.dp_child[1]))
+        return
     start = time.perf_counter()
     if not os.path.isdir(os.path.join(REPO, "tf_vqa_regat_tpu_torch")):
         fail("run from the root of a checkout: tf_vqa_regat_tpu_torch/ is missing")
@@ -3168,6 +3606,12 @@ def main() -> None:
 
     device = torch.device("cuda", 0)
     smi_line = smi.stdout.strip().splitlines()[0]
+    if args.only == "23":
+        with tempfile.TemporaryDirectory() as tmp_root:
+            run_phase_23(tmp_root, smi_line, device)
+        print(f"phase 23 alone: {time.perf_counter() - start:.1f} s wall; no result line",
+              flush=True)
+        return
     from tf_vqa_regat_tpu_torch.ops.kernels import graph_attention as ga
     from tf_vqa_regat_tpu_torch.ops.kernels import implicit_attention as ia
 
@@ -3263,6 +3707,7 @@ def main() -> None:
         with phase("22, graphs: eval, predict, ensemble, serve"):
             check_graphs_eval_serve(os.path.join(tmp_root, "graphs"), smi_line, device, npz)
         torch.cuda.empty_cache()
+        launches += run_phase_23(tmp_root, smi_line, device)
 
     if any(m.split(".")[0] in ("jax", "jaxlib", "tf_vqa_regat_tpu") for m in sys.modules):
         fail("JAX or the JAX package was imported")

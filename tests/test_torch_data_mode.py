@@ -2,8 +2,8 @@
 package, on the CPU:
 
 (a) the Config fields `data_mode`, `device_store_budget_gb` and `prefetch`
-    parse as JAX's; `--data_mode sharded` is refused, naming the
-    multi-device item;
+    parse as JAX's; `--data_mode sharded` parses, and `--tp_size 2` is
+    refused, naming the multi-device item;
 (b) `estimate_nbytes` equals JAX's `device_store.estimate_nbytes` to the
     byte (each feature dtype, with and without the edge labels, adaptive
     and fixed-36, implicit, spatial and semantic splits);
@@ -88,9 +88,10 @@ def test_config_fields_and_the_sharded_refusal():
     cfg = parse_with_config(["--data_mode", "host", "--device_store_budget_gb", "70",
                              "--prefetch", "0"])
     assert (cfg.data_mode, cfg.device_store_budget_gb, cfg.prefetch) == ("host", 70.0, 0)
-    with pytest.raises(ValueError, match="ROADMAP Queue A, multi-device"):
-        parse_with_config(["--data_mode", "sharded"])
-    with pytest.raises(ValueError, match="auto|device|host"):
+    assert parse_with_config(["--data_mode", "sharded"]).data_mode == "sharded"
+    with pytest.raises(ValueError, match="ROADMAP Queue A item 4, multi-device: tensor"):
+        parse_with_config(["--tp_size", "2"])
+    with pytest.raises(ValueError, match="auto|device|host|sharded"):
         parse_with_config(["--data_mode", "disk"])
 
 

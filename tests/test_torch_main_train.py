@@ -101,11 +101,16 @@ def test_serve_loads_the_trained_model(trained):
     assert not thread.is_alive()
 
 
-@pytest.mark.parametrize("flag,error", [(["--dp_size", "2"], SystemExit),
-                                        (["--data_mode", "sharded"], ValueError)])
+@pytest.mark.parametrize("flag,error", [
+    (["--sp_rois"], SystemExit),
+    (["--tp_size", "2"], ValueError),
+    (["--data_mode", "sharded", "--mode", "serve"], NotImplementedError),
+    (["--data_mode", "sharded", "--mode", "ensemble_eval"], NotImplementedError),
+])
 def test_unported_training_flags_are_refused(flag, error):
-    """A flag of a feature not ported is refused by the parser; the
-    data-parallel value of a ported flag by the config."""
+    """A flag of a feature not ported is refused by the parser (--sp_rois,
+    which the port leaves out); tensor parallelism by the config; serve
+    and the ensemble over the sharded store by the entry point."""
     with pytest.raises(error):
         parse(SMALL + ["--mode", "train"] + flag)
 

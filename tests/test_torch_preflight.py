@@ -73,21 +73,26 @@ def test_estimates_and_resolutions_equal_the_jax_tool(roots, adaptive, relation_
     ref = {n: jax_sized_split(root, n, adaptive, relation_type) for n in ("train", "val")}
     try:
         rows = preflight.estimate_tables(ours["val"], 8.0, relation_type)
-        sizes = sorted({b for n in ours for _, b, _ in preflight.estimate_tables(
-            ours[n], 8.0, relation_type)})
+        sizes = sorted({x for n in ours for dp in (2, 4) for _, b, sh, _ in
+                        preflight.estimate_tables(ours[n], 8.0, relation_type, dp)
+                        for x in (b, sh)})
         budgets = sorted({f * b / 1e9 for b in sizes for f in (0.5, 1.0, 2.0, 2.01)})
         seen = set()
         for budget in budgets:
             for name in ("train", "val"):
-                got = preflight.estimate_tables(ours[name], budget, relation_type)
-                want = jax_tool.estimate_tables(ref[name], 1, budget, relation_type)
-                assert [(d, b, m) for d, b, m in got] == [(d, r, m) for d, r, _, m in want]
-                seen |= {m for *_, m in got}
-            got = preflight.train_run_modes(ours["train"], ours["val"], budget, relation_type)
-            assert got == jax_tool.train_run_modes(ref["train"], ref["val"], 1, budget,
-                                                   relation_type)
-            seen |= set(got.values())
-        assert seen == {"device", "host"} and [d for d, *_ in rows] == list(preflight.DTYPES)
+                for dp in (1, 2, 4):
+                    got = preflight.estimate_tables(ours[name], budget, relation_type, dp)
+                    want = jax_tool.estimate_tables(ref[name], dp, budget, relation_type)
+                    assert got == want, (name, budget, dp)
+                    seen |= {m for *_, m in got}
+            for dp in (1, 2, 4):
+                got = preflight.train_run_modes(ours["train"], ours["val"], budget,
+                                                relation_type, dp)
+                assert got == jax_tool.train_run_modes(ref["train"], ref["val"], dp, budget,
+                                                       relation_type)
+                seen |= set(got.values())
+        assert seen == {"device", "sharded", "host"}
+        assert [d for d, *_ in rows] == list(preflight.DTYPES)
         for name in ("train", "val"):
             assert preflight.int8_check(ours[name].store.features, 100) == \
                 jax_tool.int8_check(ref[name].store.features, 100)
@@ -99,9 +104,9 @@ def test_estimates_and_resolutions_equal_the_jax_tool(roots, adaptive, relation_
 def test_json_report_and_missing_files(roots, capsys):
     root = roots[True]
     preflight.main(["--data_folder", root, "--adaptive", "--budget_gb", "0.0001", "--json",
-                    "--relation_type", "semantic"])
+                    "--relation_type", "semantic", "--dp", "1"])
     rep = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
-    assert rep["ok"] and rep["card"] is None
+    assert rep["ok"] and rep["card"] is None and rep["dp"] == 1
     assert set(rep["train_run_auto_mode"].values()) == {"host"}
     for name in ("train", "val"):
         split = rep["splits"][name]
@@ -109,6 +114,8 @@ def test_json_report_and_missing_files(roots, capsys):
         assert any(f["path"].endswith(os.path.join(name, "meta.json")) for f in split["files"])
         est = {e["feature_dtype"]: e["device_bytes"] for e in split["estimates"]}
         assert est["int8"] < est["bfloat16"] < est["float32"]
+        shard = {e["feature_dtype"]: e["per_shard_bytes"] for e in split["estimates"]}
+        assert shard["int8"] < shard["bfloat16"] < shard["float32"]
         assert split["int8_check"]["n_sampled"] > 0
     os.rename(os.path.join(root, "Bottom-up-features-adaptive", "val", "meta.json"),
               os.path.join(root, "meta.json.away"))

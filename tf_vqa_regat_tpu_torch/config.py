@@ -71,6 +71,11 @@ class Config:
     # --- extensions the port implements ---
     # Static roi padding; 0 = 36 for the fixed layout, 100 adaptive.
     num_rois: int = 0
+    # Data-parallel size (0 = every process of the group) and tensor-parallel
+    # size; dp x tp must equal the process group's size (parallel/mesh.py).
+    # Tensor parallelism is not ported: --tp_size > 1 is refused.
+    dp_size: int = 0
+    tp_size: int = 1
     # bf16 matmuls and bf16 activation storage; the parameters, the Adamax
     # state, the softmax statistics, the kernels' inputs and outputs, the
     # loss and the answer logits stay f32. Explicit casts where the JAX
@@ -131,11 +136,14 @@ class Config:
     # and copied ahead by a background thread (0 = in the caller's thread).
     prefetch: int = 2
     # Data path: "device" holds each split's tables on the card and gathers
-    # a batch there; "host" packs batches on the host and streams them
-    # (data/loader.py); "auto" takes "device" when every split's tables
-    # (data/store.py::estimate_nbytes at --feature_dtype) fit the budget,
-    # each split half of it when a train split is present, else "host"
-    # (train/loop.py::resolve_data_mode, JAX's policy at one process).
+    # a batch there; "sharded" partitions the images over the data-parallel
+    # ranks, each holding its own images' rows (data/sharded_store.py);
+    # "host" packs batches on the host and streams them (data/loader.py);
+    # "auto" takes "device" when every split's tables (data/store.py::
+    # estimate_nbytes at --feature_dtype) fit the budget, each split half of
+    # it when a train split is present, else "sharded" at dp > 1 when every
+    # split's per-shard tables fit, else "host" (train/loop.py::
+    # resolve_data_mode, JAX's policy).
     data_mode: str = "auto"
     device_store_budget_gb: float = 8.0
     # --mode serve: port, fixed batch sizes, straggler wait.
@@ -172,13 +180,21 @@ class Config:
             v = getattr(self, field)
             if v not in allowed:
                 raise ValueError(f"--{field} {v!r} is not one of {'|'.join(allowed)}")
-        if self.data_mode == "sharded":
+        if self.data_mode not in ("auto", "device", "host", "sharded"):
             raise ValueError(
-                "--data_mode sharded (tables partitioned over a data-parallel mesh) is "
-                "not ported yet (ROADMAP Queue A, multi-device); use auto, device or host"
+                f"--data_mode {self.data_mode!r} is not one of auto|device|host|sharded")
+        if self.tp_size > 1:
+            raise ValueError(
+                f"--tp_size {self.tp_size}: tensor parallelism (head-sharded attention "
+                f"projections and the classifier's column and row split) is not ported "
+                f"yet (ROADMAP Queue A item 4, multi-device: tensor parallelism); run "
+                f"data parallel with --tp_size 1"
             )
-        if self.data_mode not in ("auto", "device", "host"):
-            raise ValueError(f"--data_mode {self.data_mode!r} is not one of auto|device|host")
+        if self.tp_size < 1 or self.dp_size < 0:
+            raise ValueError(
+                f"--dp_size must be >= 0 (0 = every process) and --tp_size >= 1, got "
+                f"{self.dp_size}/{self.tp_size}"
+            )
         sizes = [x for x in self.serve_batch_sizes.split(",") if x.strip()]
         if not sizes or any(int(x) <= 0 for x in sizes):
             raise ValueError(
@@ -198,8 +214,12 @@ class Config:
                 f"--serve_max_delay_ms must be >= 0, got {self.serve_max_delay_ms}"
             )
 
-    def resolved_eval_batch(self) -> int:
-        return self.eval_batch if self.eval_batch > 0 else max(self.batch_size // 4, 1)
+    def resolved_eval_batch(self, dp: int = 1) -> int:
+        """The eval batch (0: the reference's batch_size // 4), rounded up to
+        a multiple of the data-parallel size `dp` (the batch is split over
+        the ranks)."""
+        base = self.eval_batch if self.eval_batch > 0 else max(self.batch_size // 4, 1)
+        return -(-base // dp) * dp
 
     def resolved_num_rois(self) -> int:
         if self.num_rois > 0:

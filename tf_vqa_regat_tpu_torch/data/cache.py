@@ -59,16 +59,18 @@ def load_packed_cache(
 def save_packed_cache(
     meta_p: str, feat_p: str, scale_p: str, sig: dict,
     chunks: Iterable[Tuple[int, int, np.ndarray, Optional[np.ndarray]]],
-    shape: Tuple[int, int], feat_dtype: np.dtype, with_scale: bool,
+    shape: Tuple[int, ...], feat_dtype: np.dtype, with_scale: bool,
 ) -> None:
-    """Write the [T, v] table of `chunks` (row range a:b, its rows at the
-    stored dtype, its scales or None) chunk by chunk through memory maps,
-    each file under a temporary name then renamed, and the meta last."""
+    """Write the table of `chunks` (a range a:b of its first axis, those rows
+    at the stored dtype, their scales or None) chunk by chunk through memory
+    maps, each file under a temporary name then renamed, and the meta last.
+    The table is [T, v], or the sharded store's [dp, max_rows, v] with
+    [dp, max_rows] scales."""
     os.makedirs(os.path.dirname(meta_p) or ".", exist_ok=True)
     tmp = {p: f"{p}.{os.getpid()}.tmp" for p in (feat_p, scale_p)}
     feat = np.lib.format.open_memmap(tmp[feat_p], mode="w+", dtype=feat_dtype, shape=shape)
     scale = (np.lib.format.open_memmap(tmp[scale_p], mode="w+", dtype=np.float32,
-                                       shape=shape[:1]) if with_scale else None)
+                                       shape=shape[:-1]) if with_scale else None)
     for a, b, f, s in chunks:
         feat[a:b] = f
         if scale is not None:

@@ -73,6 +73,7 @@ class BatchLoader:
         include_adj: bool = False,
         feature_dtype: str = "float32",
         native: bool = True,
+        shard: Tuple[int, int] = (0, 1),
     ):
         if feature_dtype not in WIRE_DTYPES:
             raise ValueError(
@@ -92,6 +93,12 @@ class BatchLoader:
         if include_adj:
             self.adj = {"semantic": store.semantic_adj,
                         "spatial": store.spatial_adj}.get(dataset.relation_type)
+        # (rank, dp): this rank packs rows [rank B/dp, (rank+1) B/dp) of each
+        # global batch of batch_size (parallel/mesh.py::batch_slice)
+        self.rank, self.dp = shard
+        if batch_size % self.dp:
+            raise ValueError(f"batch {batch_size} not divisible by dp={self.dp}")
+        self.local_batch = batch_size // self.dp
         self.steps_per_epoch = -(-len(dataset) // batch_size)
         start, count = image_rows(dataset)
         self._nbox = np.minimum(count, num_rois).astype(np.int32)  # [num_img]
@@ -108,13 +115,15 @@ class BatchLoader:
 
     def epoch_indices(self, epoch_idx: int = 0, skip: int = 0) -> Iterator[np.ndarray]:
         """The entry indices of each batch of the epoch past the first `skip`
-        (the seeded permutation with `shuffle`, else entry order); the last
-        batch may be short."""
+        (the seeded permutation with `shuffle`, else entry order), this
+        rank's rows of it under a shard; the last batch may be short (or
+        empty on a rank past its end)."""
         n = len(self.dataset)
         order = epoch_perm_rng(self.seed, epoch_idx).permutation(n) if self.shuffle \
             else np.arange(n)
+        lo, hi = self.rank * self.local_batch, (self.rank + 1) * self.local_batch
         for start in range(skip * self.batch_size, n, self.batch_size):
-            yield order[start : start + self.batch_size]
+            yield order[start : start + self.batch_size][lo:hi]
 
     def epoch(self, epoch_idx: int = 0, skip: int = 0) -> Iterator[Batch]:
         """The epoch's batches on the host, each in fresh tensors; `skip`
@@ -125,7 +134,7 @@ class BatchLoader:
     def empty_batch(self, pin_memory: bool = False) -> Batch:
         """Uninitialized host tensors of one batch (pinned with
         `pin_memory`), which `pack` fills."""
-        ds, B, R = self.dataset, self.batch_size, self.num_rois
+        ds, B, R = self.dataset, self.local_batch, self.num_rois
         store = ds.store
         shapes = {
             "features": ((B, R, store.v_dim), self.wire_dtype),
@@ -157,9 +166,10 @@ class BatchLoader:
             native.gather_rows_plain(flat, rows, out)
 
     def pack(self, idx: np.ndarray, out: Optional[Batch] = None) -> Batch:
-        """The batch of entries `idx` (at most batch_size), written over every
-        element of `out` (fresh tensors when None), which it returns."""
-        ds, B, R = self.dataset, self.batch_size, self.num_rois
+        """The batch of entries `idx` (at most this rank's share of
+        batch_size), written over every element of `out` (fresh tensors when
+        None), which it returns."""
+        ds, R = self.dataset, self.num_rois
         ent, store = ds.entries, ds.store
         if out is None:
             out = self.empty_batch()

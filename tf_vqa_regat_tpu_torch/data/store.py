@@ -199,8 +199,8 @@ def check_fits(ds: VQADataset, feature_dtype: str, adj: Optional[np.ndarray],
             f"--feature_dtype {feature_dtype}, more than the {free / 1e9:.2f} GB free on "
             f"{device}: hold the features at --feature_dtype bfloat16 (half) or int8 (a "
             f"quarter), or stream them from the host (--data_mode host, or auto with a "
-            f"smaller --device_store_budget_gb). The sharded store is not ported yet "
-            f"(ROADMAP Queue A, multi-device)."
+            f"smaller --device_store_budget_gb), or with more than one data-parallel rank "
+            f"partition it over the ranks (--data_mode sharded, data/sharded_store.py)."
         )
 
 

@@ -37,6 +37,14 @@ newest) and, at its end, `{output}/{relation_type}-{fusion}-pretrained_model.npz
 to resume and exits 0 without the final file. `--checkpoint` takes an .npz
 or a checkpoint directory. `--mode export_h5` raises NotImplementedError
 naming the ROADMAP item that ports it.
+
+Data parallelism (parallel/): one process per rank, the group opened from
+the environment before anything else (parallel/distributed.py::
+maybe_initialize, the JAX package's REGAT_* contract, or torchrun's under
+REGAT_AUTO_DISTRIBUTED=1), NCCL for `--device cuda` (each rank on
+cuda:LOCAL_RANK) and gloo for `--device cpu`, and closed on the way out
+when this entry point opened it. `--dp_size` and `--data_mode sharded`
+(train, eval, predict) as in the JAX package; rank 0 writes the files.
 """
 
 from __future__ import annotations
@@ -57,6 +65,7 @@ from tf_vqa_regat_tpu_torch.data.glove import tfidf_from_questions
 from tf_vqa_regat_tpu_torch.data.synthetic import synthetic_dataset
 from tf_vqa_regat_tpu_torch.models.language import word_embedding_load_glove
 from tf_vqa_regat_tpu_torch.models.regat import ReGAT, check_supported
+from tf_vqa_regat_tpu_torch.parallel import distributed
 from tf_vqa_regat_tpu_torch.params import load_jax_arrays, save_npz
 from tf_vqa_regat_tpu_torch.serve import make_server
 from tf_vqa_regat_tpu_torch.train.checkpoint import load_params
@@ -72,6 +81,10 @@ from tf_vqa_regat_tpu_torch.train.loop import (
 PORTED_MODES = ("train", "eval", "serve", "predict", "ensemble_eval")
 _NOT_PORTED = {
     "export_h5": "ROADMAP Queue A, persistence and the other modes: export_h5 and .h5 import",
+}
+_NOT_SHARDED = {
+    "serve": "ROADMAP Queue A item 4, multi-device: serve over the sharded store",
+    "ensemble_eval": "ROADMAP Queue A item 4, multi-device: the sharded ensemble",
 }
 
 
@@ -93,13 +106,14 @@ def split_device_flag(argv: List[str]) -> Tuple[str, List[str]]:
 
 
 def resolve_device(name: str) -> torch.device:
+    """This rank's device for `--device name` (distributed.rank_device)."""
     device = torch.device(name)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             f"--device {name}: no CUDA device is visible. Pass --device cpu to "
             f"run the plain PyTorch versions on the CPU."
         )
-    return device
+    return distributed.rank_device(name)
 
 
 def build_dataset(cfg: Config, name: str = "val") -> VQADataset:
@@ -209,8 +223,9 @@ def load_model(cfg: Config, ds: VQADataset) -> ReGAT:
     return model
 
 
-def parse(argv: Optional[List[str]] = None) -> Tuple[Config, torch.device]:
-    """(config, device) of a ported mode; raises for any other."""
+def parse(argv: Optional[List[str]] = None) -> Tuple[Config, str]:
+    """(config, --device value) of a ported mode; raises for any other, and
+    for a mode that does not run over the sharded store."""
     device_name, rest = split_device_flag(sys.argv[1:] if argv is None else argv)
     cfg = parse_with_config(rest)
     if cfg.mode not in PORTED_MODES:
@@ -218,8 +233,12 @@ def parse(argv: Optional[List[str]] = None) -> Tuple[Config, torch.device]:
         if item is None:
             raise ValueError(f"unknown mode {cfg.mode!r}")
         raise NotImplementedError(f"--mode {cfg.mode} is not ported yet ({item})")
+    if cfg.data_mode == "sharded" and cfg.mode in _NOT_SHARDED:
+        raise NotImplementedError(
+            f"--mode {cfg.mode} over --data_mode sharded is not ported yet "
+            f"({_NOT_SHARDED[cfg.mode]}); use --data_mode device or host")
     check_supported(cfg)
-    return cfg, resolve_device(device_name)
+    return cfg, device_name
 
 
 def final_model_path(cfg: Config) -> str:
@@ -253,8 +272,9 @@ def train(cfg: Config, device: torch.device) -> Optional[str]:
         )
         return None
     path = final_model_path(cfg)
-    save_npz(path, model)
-    print(f"saved final model to {path} (best eval score {best:.4f})", flush=True)
+    if distributed.is_primary():
+        save_npz(path, model)
+        print(f"saved final model to {path} (best eval score {best:.4f})", flush=True)
     return path
 
 
@@ -301,7 +321,8 @@ def ensemble_eval(cfg: Config, device: torch.device) -> float:
 def build_server(argv: Optional[List[str]] = None):
     """(server, batcher, engine) exactly as `--mode serve` runs them; the
     server is bound but not started."""
-    cfg, device = parse(argv)
+    cfg, device_name = parse(argv)
+    device = resolve_device(device_name)
     if cfg.mode != "serve":
         raise ValueError(f"build_server builds --mode serve, not --mode {cfg.mode}")
     ds = build_datasets(cfg)[1]
@@ -327,17 +348,25 @@ def serve(argv: Optional[List[str]] = None) -> None:
 
 def main(argv: Optional[List[str]] = None):
     """Runs the mode; returns train's written path (None if preempted),
-    eval's (score, loss), predict's JSON path or the ensemble's score."""
-    cfg, device = parse(argv)
-    if cfg.mode == "train":
-        return train(cfg, device)
-    if cfg.mode == "eval":
-        return evaluate(cfg, device)
-    if cfg.mode == "predict":
-        return predict(cfg, device)
-    if cfg.mode == "ensemble_eval":
+    eval's (score, loss), predict's JSON path or the ensemble's score. The
+    process group is opened from the environment first (a group the caller
+    opened is used as it is) and closed on the way out if opened here."""
+    cfg, device_name = parse(argv)
+    if cfg.mode == "serve":
+        return serve(argv)
+    opened = distributed.maybe_initialize(torch.device(device_name).type)
+    try:
+        device = resolve_device(device_name)
+        if cfg.mode == "train":
+            return train(cfg, device)
+        if cfg.mode == "eval":
+            return evaluate(cfg, device)
+        if cfg.mode == "predict":
+            return predict(cfg, device)
         return ensemble_eval(cfg, device)
-    return serve(argv)
+    finally:
+        if opened:
+            distributed.destroy()
 
 
 if __name__ == "__main__":

@@ -56,29 +56,37 @@ def normal(
     return stddev * torch.randn(tuple(shape), generator=generator)
 
 
-def step_seed(base_seed: int, step: int, microbatch: int = 0) -> int:
-    """The 64-bit seed of (base_seed, step, microbatch): one per train step,
-    as the JAX step folds the step into its base key, and under gradient
+# data-parallel ranks take microbatch indices this far apart in step_seed
+RANK_STRIDE = 1 << 16
+
+
+def step_seed(base_seed: int, step: int, microbatch: int = 0, rank: int = 0) -> int:
+    """The 64-bit seed of (base_seed, step, microbatch, rank): one per train
+    step, as the JAX step folds the step into its base key, under gradient
     accumulation one per microbatch, as JAX folds the microbatch index in
-    after it. The seed's halves are base_seed and step, each plus microbatch
-    times an odd constant (the golden ratio's 2**32 multiple), modulo 2**32,
-    so microbatch 0 is the single-pass step's seed. The upper half is a
-    bijection of the microbatch index: no two (step, microbatch) of one base
-    seed share a 64-bit seed (the card's Philox generator). The CPU's
-    mt19937 keeps the lower half only; there (step, microbatch) still differ
+    after it, and under data parallelism one per rank (a deviation: JAX
+    draws one mask over the global batch, which torch cannot replay). Rank r's
+    microbatch a takes the index i = a + r * RANK_STRIDE. The seed's halves
+    are base_seed and step, each plus i times an odd constant (the golden
+    ratio's 2**32 multiple), modulo 2**32, so microbatch 0 of rank 0 is the
+    single-pass step's seed. The upper half is a bijection of i: no two
+    (step, microbatch, rank) of one base seed share a 64-bit seed (the
+    card's Philox generator) while a < RANK_STRIDE. The CPU's mt19937 keeps
+    the lower half only; there (step, microbatch) of one rank still differ
     for steps within 8.2 million of each other at up to 256 microbatches."""
-    mix = microbatch * 0x9E3779B9
+    mix = (microbatch + rank * RANK_STRIDE) * 0x9E3779B9
     hi = (base_seed + mix) & 0xFFFFFFFF
     return (hi << 32) | ((step + mix) & 0xFFFFFFFF)
 
 
-def step_generator(base_seed: int, step: int, device, microbatch: int = 0) -> torch.Generator:
+def step_generator(base_seed: int, step: int, device, microbatch: int = 0,
+                   rank: int = 0) -> torch.Generator:
     """A generator on `device` seeded with step_seed(base_seed, step,
     microbatch). `manual_seed` resets a generator's offset, so a generator
     re-seeded so draws what a new one draws: a CUDA graph keeps its
     generators and re-seeds them before each replay (train/graphs.py)."""
     g = torch.Generator(device=device)
-    g.manual_seed(step_seed(base_seed, step, microbatch))
+    g.manual_seed(step_seed(base_seed, step, microbatch, rank))
     return g
 
 

@@ -3,19 +3,22 @@ run it against a converted `--data_folder` before the first real training
 run, to learn which --feature_dtype and --data_mode a run will take.
 
     python -m tf_vqa_regat_tpu_torch.preflight --data_folder ./data --adaptive \\
-        [--budget_gb 8] [--splits train,val] [--relation_type implicit] \\
+        [--dp 8] [--budget_gb 8] [--splits train,val] [--relation_type implicit] \\
         [--sample_rows 4096] [--tfidf] [--json]
 
 Reports, per split:
   1. the file inventory: every path the port's loaders open, the converted
      feature directory (data/convert.py's `.npy` files and `meta.json`) in
      place of the HDF5 file, with sizes and MISSING markers;
-  2. the device-table estimate at f32, bf16 and int8 (data/store.py::
-     estimate_nbytes, JAX's count) and the eval-only `--data_mode auto`
-     resolution at `--budget_gb` (what --mode eval and predict take for this
-     split; serve refuses a split over the budget), one process; with train
-     and val both listed, the joint `--mode train` resolution (each split
-     against half the budget), exactly the call run_training makes;
+  2. the device-table estimate at f32, bf16 and int8, replicated (data/
+     store.py::estimate_nbytes, JAX's count) and per shard at `--dp` ranks
+     (data/sharded_store.py::estimate_sharded_nbytes, with the semantic
+     table only, as the sharded store holds it), and the eval-only
+     `--data_mode auto` resolution at `--budget_gb` and dp (what --mode eval
+     and predict take for this split; serve refuses a split over the
+     budget); with train and val both listed, the joint `--mode train`
+     resolution (each split against half the budget), exactly the call
+     run_training makes at dp ranks;
   3. the int8 quantization check on a strided sample of the split's real
      feature rows through the port's `quantize_rows`: relative L2 error and
      the outlier ratio rowmax / row-RMS;
@@ -23,8 +26,7 @@ and the card's total memory when a CUDA device is visible.
 
 Nothing is uploaded and the entry tables are not joined: the estimate's
 entry terms come from the question file's length, the feature table is
-memory-mapped and only the sampled rows are read. There is no sharded
-column: the sharded store is not ported (ROADMAP Queue A, multi-device).
+memory-mapped and only the sampled rows are read.
 """
 
 from __future__ import annotations
@@ -47,6 +49,7 @@ from tf_vqa_regat_tpu_torch.data.features import (
     load_feature_store,
     split_stem,
 )
+from tf_vqa_regat_tpu_torch.data.sharded_store import estimate_sharded_nbytes
 from tf_vqa_regat_tpu_torch.data.store import estimate_nbytes, quantize_rows
 from tf_vqa_regat_tpu_torch.train.loop import resolve_data_mode
 
@@ -118,22 +121,25 @@ def _cfg(ds: VQADataset, dtype: str, budget_gb: float, relation_type: str) -> Co
                   device_store_budget_gb=budget_gb, relation_type=relation_type)
 
 
-def estimate_tables(ds: VQADataset, budget_gb: float, relation_type: str
-                    ) -> List[Tuple[str, int, str]]:
-    """(dtype, device bytes, eval-only auto mode) per feature dtype."""
+def estimate_tables(ds: VQADataset, budget_gb: float, relation_type: str, dp: int = 1
+                    ) -> List[Tuple[str, int, int, str]]:
+    """(dtype, replicated bytes, per-shard bytes at dp, eval-only auto mode
+    at dp) per feature dtype (JAX tools/preflight.py::estimate_tables)."""
     include_adj = relation_type in ("semantic", "spatial")
     return [(dtype, estimate_nbytes(ds, include_adj, dtype),
-             resolve_data_mode(_cfg(ds, dtype, budget_gb, relation_type), ds, None, include_adj))
+             estimate_sharded_nbytes(ds, include_adj and relation_type == "semantic", dtype, dp),
+             resolve_data_mode(_cfg(ds, dtype, budget_gb, relation_type), ds, None, include_adj,
+                               dp=dp))
             for dtype in DTYPES]
 
 
 def train_run_modes(train_ds: VQADataset, val_ds: VQADataset, budget_gb: float,
-                    relation_type: str) -> Dict[str, str]:
-    """dtype -> the mode `--mode train --data_mode auto` takes: both splits
-    resolved jointly, each against half the budget."""
+                    relation_type: str, dp: int = 1) -> Dict[str, str]:
+    """dtype -> the mode `--mode train --data_mode auto` takes at dp ranks:
+    both splits resolved jointly, each against half the budget."""
     include_adj = relation_type in ("semantic", "spatial")
     return {dtype: resolve_data_mode(_cfg(val_ds, dtype, budget_gb, relation_type), val_ds,
-                                     train_ds, include_adj)
+                                     train_ds, include_adj, dp=dp)
             for dtype in DTYPES}
 
 
@@ -174,8 +180,8 @@ def card_memory() -> Optional[Dict[str, object]]:
 
 
 def report(args: argparse.Namespace) -> dict:
-    rep: dict = {"data_folder": args.data_folder, "budget_gb": args.budget_gb, "splits": {},
-                 "card": card_memory()}
+    rep: dict = {"data_folder": args.data_folder, "budget_gb": args.budget_gb, "dp": args.dp,
+                 "splits": {}, "card": card_memory()}
     say = (lambda *a: None) if args.json else print
     loaded: Dict[str, VQADataset] = {}
     ok = True
@@ -195,14 +201,15 @@ def report(args: argparse.Namespace) -> dict:
             continue
         ds = sized_split(args.data_folder, name, args.adaptive, args.relation_type)
         loaded[name] = ds
-        rows = estimate_tables(ds, args.budget_gb, args.relation_type)
-        split["estimates"] = [{"feature_dtype": d, "device_bytes": b, "auto_mode": m}
-                              for d, b, m in rows]
+        rows = estimate_tables(ds, args.budget_gb, args.relation_type, args.dp)
+        split["estimates"] = [{"feature_dtype": d, "device_bytes": b, "per_shard_bytes": sh,
+                               "auto_mode": m} for d, b, sh, m in rows]
         say(f"  questions: {len(ds):,}; feature rows: "
             f"{int(np.prod(ds.store.features.shape[:-1])):,} x {ds.store.v_dim}")
-        say(f"  {'dtype':9s} {'on the card':>12s}  auto at {args.budget_gb:g} GB (eval-only)")
-        for d, b, m in rows:
-            say(f"  {d:9s} {_fmt_bytes(b):>12s}  {m}")
+        say(f"  {'dtype':9s} {'replicated':>12s} {'/shard@dp%d' % args.dp:>12s}  auto at "
+            f"{args.budget_gb:g} GB (eval-only)")
+        for d, b, sh, m in rows:
+            say(f"  {d:9s} {_fmt_bytes(b):>12s} {_fmt_bytes(sh):>12s}  {m}")
         chk = int8_check(ds.store.features, args.sample_rows)
         split["int8_check"] = chk
         say(f"  int8 sample ({chk['n_sampled']} rows): rel L2 err mean "
@@ -213,10 +220,10 @@ def report(args: argparse.Namespace) -> dict:
                 "training before trusting --feature_dtype int8")
     if "train" in loaded and "val" in loaded:
         modes = train_run_modes(loaded["train"], loaded["val"], args.budget_gb,
-                                args.relation_type)
+                                args.relation_type, args.dp)
         rep["train_run_auto_mode"] = modes
         say(f"== `--mode train` resolution (train and val jointly, "
-            f"{args.budget_gb / 2:g} GB per split) ==")
+            f"{args.budget_gb / 2:g} GB per split, dp={args.dp}) ==")
         for d, m in modes.items():
             say(f"  {d:9s} auto-> {m}")
     if rep["card"] is not None:
@@ -230,6 +237,7 @@ def main(argv: Optional[List[str]] = None) -> None:
     ap.add_argument("--data_folder", required=True)
     ap.add_argument("--adaptive", action="store_true")
     ap.add_argument("--splits", default="train,val")
+    ap.add_argument("--dp", type=int, default=8, help="data-parallel ranks of the run")
     ap.add_argument("--budget_gb", type=float, default=8.0)
     ap.add_argument("--sample_rows", type=int, default=4096)
     ap.add_argument("--relation_type", default="implicit")

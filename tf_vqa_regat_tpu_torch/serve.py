@@ -11,7 +11,8 @@ tf_vqa_regat_tpu/serve.py, replicated store only).
   its rows are gathered at `resolved_num_rois()` (36 under fixed-36). A
   split whose tables (estimate_nbytes) exceed --device_store_budget_gb is
   refused before any upload, with JAX's message and remedy at one process
-  (the sharded store it would fall back to is ROADMAP Queue A).
+  (JAX's fallback there, serving over the sharded store, is ROADMAP Queue A
+  item 4; the entry point refuses `--data_mode sharded` for serve).
 - Concurrent requests are coalesced for up to `--serve_max_delay_ms` into
   one forward pass at the smallest fixed size that fits.
 
@@ -71,7 +72,8 @@ def check_budget(cfg: Config, ds: VQADataset, include_adj: bool) -> None:
         f"serve: split {ds.name!r} at --feature_dtype {cfg.feature_dtype} needs "
         f"~{need / 1e9:.2f} GB on the device, but the device budget is "
         f"{cfg.device_store_budget_gb:.2f} GB (--device_store_budget_gb). {remedy} "
-        f"or serve a smaller split."
+        f"or serve a smaller split (serving over the sharded store is ROADMAP Queue A "
+        f"item 4, multi-device)."
     )
 
 

@@ -163,6 +163,11 @@ def run_ensemble_eval(
     sources = member_adj_sources(members, val_ds)
     extra = sum(int(src.size) for src in sources.values())
     mode = resolve_data_mode(cfg, val_ds, None, False, extra)
+    if mode == "sharded":
+        raise NotImplementedError(
+            "--mode ensemble_eval over --data_mode sharded is not ported yet (ROADMAP "
+            "Queue A item 4, multi-device: the sharded ensemble); use --data_mode device "
+            "or host")
     check_roi_buckets_mode(cfg, mode)
     logger.write(data_mode_line(cfg, mode, val_ds, None, False, extra))
     score = torch.zeros((), device=device)

@@ -2,17 +2,32 @@
 tf_vqa_regat_tpu/train/loop.py: `run_training`, `run_evaluation`,
 `run_prediction`, `_run_eval`, `_log_progress`, `_run_signature`,
 `Preempted`, `_PreemptWatcher`, `resolve_data_mode`,
-`check_roi_buckets_mode` and `_DataPath`), over the device-resident stores
-of data/store.py or the host loaders of data/loader.py.
+`check_roi_buckets_mode`, `build_store` and `_DataPath`), over the
+device-resident stores of data/store.py, the sharded store of
+data/sharded_store.py or the host loaders of data/loader.py.
 
-The data path is JAX's one policy at one process (`resolve_data_mode`):
-`--data_mode device` holds each split's tables on the card and gathers a
-batch there; `host` packs batches on the host and streams them to the card
-(`--prefetch` batches ahead); `auto` takes `device` when every split's
-tables, as JAX counts them (data/store.py::estimate_nbytes), fit
+The data path is JAX's one policy (`resolve_data_mode`): `--data_mode
+device` holds each split's tables on the card and gathers a batch there;
+`sharded` holds on each data-parallel rank only its own images' rows;
+`host` packs batches on the host and streams them to the card (`--prefetch`
+batches ahead); `auto` takes `device` when every split's tables, as JAX
+counts them (data/store.py::estimate_nbytes), fit
 `--device_store_budget_gb`, each split half of it when a train split is
-present, else `host`. Every entry point logs the mode it took with each
-split's estimate and the budget (`[data] data=...`).
+present, else `sharded` at dp > 1 when every split's per-shard tables
+(estimate_sharded_nbytes) fit, else `host`. Every entry point logs the mode
+it took with each split's estimate and the budget (`[data] data=...`).
+
+Data parallelism (parallel/): dp ranks, one process each (`make_mesh` over
+the process group, --dp_size), split every global batch along its batch
+axis. In device and host modes every rank holds the replicated tables and
+takes its rows of the same global index batch; in sharded mode the global
+batch's segment r holds rank r's shard-local entries. The train step sums
+the ranks' gradient sums before the global valid-count division
+(train/step.py); eval and predict sum the ranks' metrics and answers. After
+the init and after a resume the parameters are broadcast from rank 0.
+Rank 0 alone writes log.txt, metrics.jsonl, checkpoints and predictions
+(train/logging.py, train/checkpoint.py); a SIGTERM to any rank makes every
+rank save at the same boundary (`_PreemptWatcher`).
 
 The log lines follow the JAX package's (and so the reference's) format: the
 optimizer banner, the LR line at every warmup epoch and every decay epoch,
@@ -48,8 +63,8 @@ the caller asks for it, the same steps run eagerly.
 update (train/step.py); under --roi_buckets they run at their batch's
 bucket R.
 
-Not ported (ROADMAP Queue A): the multi-process preemption sync and
-checkpoint barrier, and the sharded store (multi-device).
+Not ported (ROADMAP Queue A item 4): tensor parallelism, and the
+ensemble over the sharded store.
 """
 
 from __future__ import annotations
@@ -69,8 +84,14 @@ from tf_vqa_regat_tpu_torch.config import Config
 from tf_vqa_regat_tpu_torch.data.features import VQADataset
 from tf_vqa_regat_tpu_torch.data.loader import BatchLoader, prefetch_to_device
 from tf_vqa_regat_tpu_torch.data.ordering import ORDER_VERSION
+from tf_vqa_regat_tpu_torch.data.sharded_store import (
+    ShardedDeviceStore,
+    estimate_sharded_nbytes,
+)
 from tf_vqa_regat_tpu_torch.data.store import DeviceStore, estimate_nbytes, gather_batch
 from tf_vqa_regat_tpu_torch.models.regat import ReGAT, trainable_mask
+from tf_vqa_regat_tpu_torch.parallel import distributed
+from tf_vqa_regat_tpu_torch.parallel.mesh import Mesh, batch_slice, make_mesh
 from tf_vqa_regat_tpu_torch.params import load_state_arrays, state_tensors
 from tf_vqa_regat_tpu_torch.train import checkpoint as ckpt
 from tf_vqa_regat_tpu_torch.train.logging import Logger, MetricsWriter, time_since
@@ -100,8 +121,10 @@ class _PreemptWatcher:
     `REGAT_FAULT_PREEMPT_STEP=<global step>` fires at the first boundary at
     or after that step (>=: a step inside a block fires at the block's
     end, as a real SIGTERM would). The previous handler is restored on
-    exit. (The JAX package's multi-process branch, its preemption sync
-    service, is ROADMAP Queue A, multi-device.)"""
+    exit. With more than one rank the poll is a MAX all-reduce of the local
+    flag, so a SIGTERM to any one rank makes every rank save at the same
+    boundary (JAX's preemption sync point): every rank polls at the same
+    boundaries."""
 
     def __init__(self) -> None:
         self._flag = False
@@ -125,7 +148,7 @@ class _PreemptWatcher:
         self._flag = True
 
     def poll(self, global_step: int) -> bool:
-        return self._flag or 0 <= self._fault_step <= global_step
+        return distributed.any_rank(self._flag or 0 <= self._fault_step <= global_step)
 
 
 # --train_block 0 (auto) resolves to this on the device store (JAX's
@@ -135,21 +158,24 @@ AUTO_TRAIN_BLOCK = 8
 
 def resolve_train_block(cfg: Config, data_mode: str) -> int:
     """The effective train block K: --train_block 0 means AUTO_TRAIN_BLOCK
-    on the device store and 1 on the host path, which streams one batch at a
-    time; an explicit K is K (and refused on the host path by _DataPath)."""
+    on the device and sharded stores and 1 on the host path, which streams
+    one batch at a time; an explicit K is K (and refused on the host path by
+    _DataPath)."""
     if cfg.train_block == 0:
-        return AUTO_TRAIN_BLOCK if data_mode == "device" else 1
+        return AUTO_TRAIN_BLOCK if data_mode in ("device", "sharded") else 1
     return cfg.train_block
 
 
-def _run_signature(cfg: Config, steps_per_epoch: int, data_mode: str) -> Dict[str, Any]:
+def _run_signature(cfg: Config, steps_per_epoch: int, data_mode: str,
+                   dp: int = 1) -> Dict[str, Any]:
     """Everything the seeded epoch order depends on, with the JAX keys: a
     step checkpoint records it and a mid-epoch resume refuses another.
-    `data_mode` is the resolved one, so a mid-epoch resume across modes is
-    refused, as JAX refuses it; so is one across another effective train
-    block, whose blocks group the bucketed stream otherwise. The port runs
-    one process; the bucket list is the parsed one, so '100,64' and
-    '64, 100' sign alike."""
+    `data_mode` is the resolved one and `dp` the data-parallel size, so a
+    mid-epoch resume across modes or topologies (the sharded store draws
+    per-shard permutations) is refused, as JAX refuses it; so is one across
+    another effective train block, whose blocks group the bucketed stream
+    otherwise. The bucket list is the parsed one, so '100,64' and '64, 100'
+    sign alike."""
     return {
         "batch_size": int(cfg.batch_size),
         "seed": int(cfg.seed),
@@ -157,13 +183,13 @@ def _run_signature(cfg: Config, steps_per_epoch: int, data_mode: str) -> Dict[st
         "order": int(ORDER_VERSION),
         "roi_buckets": list(cfg.parsed_roi_buckets() or []),
         "data_mode": str(data_mode),
-        "dp": 1,
+        "dp": int(dp),
         "train_block": int(resolve_train_block(cfg, data_mode)),
     }
 
 
 def _resume_point(
-    cfg: Config, N: int, data_mode: str, model: ReGAT, opt: Adamax
+    cfg: Config, N: int, data_mode: str, model: ReGAT, opt: Adamax, dp: int = 1,
 ) -> Tuple[int, int, Optional[Dict[str, float]], float]:
     """--resume: restore the newest checkpoint into `model` and `opt` ->
     (first epoch, steps of it already taken, its accumulators or None, best
@@ -181,7 +207,7 @@ def _resume_point(
     sig_saved = meta.get("run")
     if "step_in_epoch" in meta and meta.get("dir") == restored:
         # a mid-epoch resume replays the same epoch order past the saved step
-        sig_now = _run_signature(cfg, N, data_mode)
+        sig_now = _run_signature(cfg, N, data_mode, dp)
         diffs = {
             k: (sig_saved.get(k), sig_now.get(k))
             for k in (sig_saved or {}) if sig_saved.get(k) != sig_now.get(k)
@@ -214,10 +240,14 @@ def _resume_point(
     return int(restored.split("_")[1]) + 1, 0, None, best_score
 
 
-def check_grad_accum(cfg: Config) -> None:
-    """Refuse a batch size that --grad_accum does not divide, with the JAX
-    package's message (one process, so its data-mesh size dp is 1)."""
-    dp = 1
+def check_grad_accum(cfg: Config, dp: int = 1) -> None:
+    """Refuse a batch size that the data-parallel size dp, or --grad_accum
+    times dp, does not divide, with the JAX package's messages."""
+    if cfg.batch_size % dp != 0:
+        raise ValueError(
+            f"batch_size {cfg.batch_size} must be divisible by the data-mesh "
+            f"size {dp} (the batch dim is sharded over it)"
+        )
     if cfg.grad_accum > 1 and cfg.batch_size % (cfg.grad_accum * dp) != 0:
         raise ValueError(
             f"batch_size {cfg.batch_size} must be divisible by "
@@ -247,15 +277,27 @@ def _log_progress(logger, acc: Metrics, last: torch.Tensor, epoch, i, N, start) 
 
 
 def build_store(
-    cfg: Config, ds: VQADataset, device: torch.device, targets: bool = True
-) -> DeviceStore:
-    """The split's device store at --feature_dtype, through --packed_cache,
-    with the split's edge labels for an explicit relation type (JAX
-    loop.py's `include_adj`); under --roi_buckets, prints the JAX package's
-    clamp warning when an image has more boxes than the largest bucket."""
-    store = DeviceStore(ds, device, targets, cfg.feature_dtype,
-                        include_adj=cfg.relation_type != "implicit",
-                        cache_dir=cfg.packed_cache)
+    cfg: Config, ds: VQADataset, device: torch.device, targets: bool = True,
+    mode: str = "device", mesh: Optional[Mesh] = None, warn: bool = True,
+):
+    """The split's store for a resolved device-resident mode, at
+    --feature_dtype, through --packed_cache (JAX loop.py::build_store):
+    'device' replicates the tables with the split's edge labels for an
+    explicit relation type; 'sharded' holds this rank's shard, with the
+    semantic table only (spatial labels are built in the step from the
+    boxes). With `warn`, under --roi_buckets, prints the JAX package's clamp
+    warning when an image has more boxes than the largest bucket."""
+    if mode == "sharded":
+        mesh = mesh if mesh is not None else Mesh(dp=1)
+        store = ShardedDeviceStore(ds, device, mesh.rank, mesh.dp, targets, cfg.feature_dtype,
+                                   include_adj=cfg.relation_type == "semantic",
+                                   cache_dir=cfg.packed_cache)
+    else:
+        store = DeviceStore(ds, device, targets, cfg.feature_dtype,
+                            include_adj=cfg.relation_type != "implicit",
+                            cache_dir=cfg.packed_cache)
+    if not warn:
+        return store
     buckets = cfg.parsed_roi_buckets()
     if buckets and store.num_entries:
         max_boxes = int(store.entry_nbox.max())
@@ -344,16 +386,18 @@ def blocked_eval_stream(
 
 def resolve_data_mode(
     cfg: Config, val_ds: VQADataset, train_ds: Optional[VQADataset], include_adj: bool,
-    extra_bytes: int = 0,
+    extra_bytes: int = 0, dp: int = 1,
 ) -> str:
-    """The one data-path policy (JAX loop.py::resolve_data_mode at one
-    process, whose sharded leg needs a data-parallel mesh): a forced
+    """The one data-path policy (JAX loop.py::resolve_data_mode): a forced
     --data_mode as given; under 'auto', 'device' when every split's tables
     (estimate_nbytes at --feature_dtype) plus `extra_bytes` (arrays the
     caller keeps on the card beside the store: the ensemble's member
     edge-label tables) fit the budget, the whole of it for eval-only use
     (`train_ds` None) and half of it per split with a train split; else
-    'host'. One mode for every split."""
+    'sharded' when dp > 1 and every split's per-shard tables
+    (estimate_sharded_nbytes, with the semantic table only, as build_store
+    builds it) plus extra_bytes // dp fit; else 'host'. One mode for every
+    split."""
     if cfg.data_mode != "auto":
         return cfg.data_mode
     per_store = _per_store_budget(cfg, train_ds)
@@ -361,6 +405,11 @@ def resolve_data_mode(
     if all(estimate_nbytes(ds, include_adj, cfg.feature_dtype) + extra_bytes <= per_store
            for ds in splits):
         return "device"
+    adj_sharded = include_adj and cfg.relation_type == "semantic"
+    if dp > 1 and all(
+            estimate_sharded_nbytes(ds, adj_sharded, cfg.feature_dtype, dp)
+            + extra_bytes // dp <= per_store for ds in splits):
+        return "sharded"
     return "host"
 
 
@@ -371,14 +420,21 @@ def _per_store_budget(cfg: Config, train_ds: Optional[VQADataset]) -> int:
 
 def data_mode_line(
     cfg: Config, mode: str, val_ds: VQADataset, train_ds: Optional[VQADataset],
-    include_adj: bool, extra_bytes: int = 0,
+    include_adj: bool, extra_bytes: int = 0, dp: int = 1,
 ) -> str:
     """The log line of a resolved data path: the mode, each split's
-    estimate and the budget it was held to (JAX's `data=` tag)."""
+    estimate (per shard in sharded mode) and the budget it was held to
+    (JAX's `data=` tag)."""
     splits = ([train_ds] if train_ds is not None else []) + [val_ds]
-    sizes = ", ".join(
-        f"{ds.name} {(estimate_nbytes(ds, include_adj, cfg.feature_dtype) + extra_bytes) / 1e9:.4f}"
-        f" GB" for ds in splits)
+
+    def est(ds):
+        if mode == "sharded":
+            return estimate_sharded_nbytes(
+                ds, include_adj and cfg.relation_type == "semantic", cfg.feature_dtype, dp)
+        return estimate_nbytes(ds, include_adj, cfg.feature_dtype) + extra_bytes
+
+    per = f" per shard of {dp}" if mode == "sharded" else ""
+    sizes = ", ".join(f"{ds.name} {est(ds) / 1e9:.4f} GB{per}" for ds in splits)
     return (f"[data] data={mode} (--data_mode {cfg.data_mode}): {sizes} at --feature_dtype "
             f"{cfg.feature_dtype} against {_per_store_budget(cfg, train_ds) / 1e9:.4f} GB per "
             f"split (--device_store_budget_gb {cfg.device_store_budget_gb:g}"
@@ -398,25 +454,29 @@ def check_roi_buckets_mode(cfg: Config, mode: str) -> None:
 
 
 def host_loader(cfg: Config, ds: VQADataset, batch_size: int, shuffle: bool,
-                include_adj: bool = True) -> BatchLoader:
+                include_adj: bool = True, mesh: Optional[Mesh] = None) -> BatchLoader:
     """The split's host loader at the config's roi count and feature dtype,
-    with the split's edge labels for an explicit relation type."""
+    with the split's edge labels for an explicit relation type, packing this
+    rank's rows of each global batch."""
+    mesh = mesh if mesh is not None else Mesh(dp=1)
     return BatchLoader(ds, batch_size, cfg.resolved_num_rois(), shuffle, seed=cfg.seed,
                        include_adj=include_adj and cfg.relation_type != "implicit",
-                       feature_dtype=cfg.feature_dtype)
+                       feature_dtype=cfg.feature_dtype, shard=(mesh.rank, mesh.dp))
 
 
 class _DataPath:
-    """The resolved data path of a train or eval run (JAX `_DataPath` at one
-    process): the device stores with the on-card gather, or the host
-    loaders with the prefetch. `train_ds` None: eval only. Both yield the
-    same batches (data/loader.py)."""
+    """The resolved data path of a train or eval run (JAX `_DataPath`): the
+    device or sharded stores with the on-card gather, or the host loaders
+    with the prefetch, each rank taking its rows of `mesh`'s global batches.
+    `train_ds` None: eval only. The device and host paths yield the same
+    batches (data/loader.py)."""
 
     def __init__(self, cfg: Config, train_ds: Optional[VQADataset], val_ds: VQADataset,
-                 device: torch.device, logger: Logger):
+                 device: torch.device, logger: Logger, mesh: Optional[Mesh] = None):
         self.cfg, self.device = cfg, device
+        self.mesh = mesh = mesh if mesh is not None else Mesh(dp=1)
         include_adj = cfg.relation_type != "implicit"
-        self.mode = resolve_data_mode(cfg, val_ds, train_ds, include_adj)
+        self.mode = resolve_data_mode(cfg, val_ds, train_ds, include_adj, dp=mesh.dp)
         check_roi_buckets_mode(cfg, self.mode)
         # an explicit K > 1 on the host path is refused; auto resolves to 1 there
         if cfg.train_block > 1 and train_ds is not None and self.mode == "host":
@@ -427,29 +487,28 @@ class _DataPath:
                 f"device/sharded or drop --train_block."
             )
         self.train_block = resolve_train_block(cfg, self.mode)
-        logger.write(data_mode_line(cfg, self.mode, val_ds, train_ds, include_adj))
-        self.eval_batch = cfg.resolved_eval_batch()
+        logger.write(data_mode_line(cfg, self.mode, val_ds, train_ds, include_adj, dp=mesh.dp))
+        self.eval_batch = cfg.resolved_eval_batch(mesh.dp)
         self.eval_entries = len(val_ds)
-        if self.mode == "device":
-            self.train_store = None if train_ds is None else build_store(cfg, train_ds, device)
-            self.eval_store = (
-                build_store(cfg, val_ds, device) if train_ds is None
-                else DeviceStore(val_ds, device, feature_dtype=cfg.feature_dtype,
-                                 include_adj=include_adj, cache_dir=cfg.packed_cache))
+        if self.mode in ("device", "sharded"):
+            self.train_store = (None if train_ds is None
+                                else build_store(cfg, train_ds, device, mode=self.mode, mesh=mesh))
+            self.eval_store = build_store(cfg, val_ds, device, mode=self.mode, mesh=mesh,
+                                          warn=train_ds is None)
             self.steps_per_epoch = (0 if train_ds is None
                                     else steps_per_epoch(cfg, self.train_store, cfg.batch_size))
             self.eval_steps = self._eval_block_count()
         else:
             self.train_store = self.eval_store = None
             self.train_loader = (None if train_ds is None
-                                 else host_loader(cfg, train_ds, cfg.batch_size, True))
-            self.eval_loader = host_loader(cfg, val_ds, self.eval_batch, False)
+                                 else host_loader(cfg, train_ds, cfg.batch_size, True, mesh=mesh))
+            self.eval_loader = host_loader(cfg, val_ds, self.eval_batch, False, mesh=mesh)
             self.steps_per_epoch = 0 if train_ds is None else len(self.train_loader)
             self.eval_steps = len(self.eval_loader)
 
     def _eval_block_count(self) -> int:
-        """The number of eval blocks the device path yields (the `eval data
-        loader len` line; JAX loop.py::_eval_block_count at one device)."""
+        """The number of eval blocks the device or sharded path yields (the
+        `eval data loader len` line; JAX loop.py::_eval_block_count)."""
         K = max(self.cfg.eval_block, 1)
         buckets = self.cfg.parsed_roi_buckets()
         if buckets:
@@ -490,9 +549,10 @@ class _DataPath:
 
     def eval_stream(self) -> Iterator[Any]:
         """The split's eval items in entry order (per bucket under
-        --roi_buckets): (R, idx_block[K, B]) blocks of blocked_eval_stream on
-        the device path, batches on the device on the host path."""
-        if self.mode == "device":
+        --roi_buckets): (R, idx_block[K, B]) global blocks of
+        blocked_eval_stream on the device and sharded paths, this rank's
+        batches on the device on the host path."""
+        if self.mode in ("device", "sharded"):
             yield from blocked_eval_stream(self.cfg, self.eval_store, self.eval_batch)[2]
             return
         with contextlib.closing(prefetch_to_device(
@@ -502,7 +562,7 @@ class _DataPath:
     def eval_steps_of(self, model: ReGAT, graphed: Optional[bool] = None,
                       pool: Any = None) -> EvalSteps:
         """`model`'s eval steps on this path (graphed on CUDA)."""
-        return EvalSteps(model, self.device, self.eval_store, graphed, pool)
+        return EvalSteps(model, self.device, self.eval_store, graphed, pool, self.mesh)
 
 
 def _run_eval(
@@ -520,7 +580,7 @@ def _run_eval(
     start = time.time()
     with contextlib.closing(data.eval_stream()) as items:
         for i, item in enumerate(items):
-            m = steps.block(*item) if data.mode == "device" else steps.batch(item)
+            m = steps.block(*item) if data.mode != "host" else steps.batch(item)
             _accumulate(acc, m)
             if cfg.print_freq > 0 and (i + 1) % cfg.print_freq == 0:
                 _log_progress(logger, acc, m["loss"], epoch, i, N, start)
@@ -539,12 +599,14 @@ def run_training(
 ) -> Tuple[ReGAT, float]:
     """Train `model` (moved to `device`) for cfg.epochs epochs, evaluating
     after each, or from the newest checkpoint under --resume. Returns
-    (model, best eval score %); raises `Preempted` after a preemption save."""
-    check_grad_accum(cfg)
+    (model, best eval score %); raises `Preempted` after a preemption save.
+    Under a process group every rank calls it with its own device."""
+    mesh = make_mesh(cfg.dp_size, cfg.tp_size)
+    check_grad_accum(cfg, mesh.dp)
     model.to(device)
     logger = Logger(os.path.join(cfg.output, "log.txt"))
     try:
-        data = _DataPath(cfg, train_ds, val_ds, device, logger)
+        data = _DataPath(cfg, train_ds, val_ds, device, logger, mesh)
     except BaseException:
         logger.close()
         raise
@@ -556,13 +618,15 @@ def run_training(
     if cfg.resume:
         try:
             start_epoch, skip_steps, acc_resume, best_score = _resume_point(
-                cfg, N, data.mode, model, opt)
+                cfg, N, data.mode, model, opt, mesh.dp)
         except BaseException:
             logger.close()
             raise
-    run_sig = _run_signature(cfg, N, data.mode)
+    # every rank starts from rank 0's parameters and moments
+    distributed.broadcast_([*opt.params, *opt.mu, *opt.nu, opt.count_t])
+    run_sig = _run_signature(cfg, N, data.mode, mesh.dp)
     # the graphs capture the restored tensors: no step runs before the resume
-    train = TrainSteps(model, opt, cfg, device, data.train_store)
+    train = TrainSteps(model, opt, cfg, device, data.train_store, mesh=mesh)
     evaluate = data.eval_steps_of(model, pool=train.graphs.pool)
 
     metrics_writer = MetricsWriter(os.path.join(cfg.output, "metrics.jsonl"))
@@ -606,7 +670,7 @@ def run_training(
                 done = skip  # optimizer steps of this epoch taken
                 with contextlib.closing(data.train_stream(epoch, skip)) as stream:
                     for nsteps, item in stream:
-                        m = (train.block(*item, nsteps) if data.mode == "device"
+                        m = (train.block(*item, nsteps) if data.mode != "host"
                              else train.batch(item))
                         # the block's loss_sum, not loss * n (the last step's
                         # loss weighted by the block's count)
@@ -697,7 +761,7 @@ def run_evaluation(
 ) -> Tuple[float, float, float]:
     """`--mode eval`: one eval pass over the split -> (score %, mean loss, s)."""
     model.to(device)
-    data = _DataPath(cfg, None, val_ds, device, logger)
+    data = _DataPath(cfg, None, val_ds, device, logger, make_mesh(cfg.dp_size, cfg.tp_size))
     return _run_eval(data.eval_steps_of(model), data, cfg, 0, logger, device)
 
 
@@ -711,48 +775,62 @@ def run_prediction(
     `{output}/{relation_type}-{fusion}-{split}-predictions.json`. The device
     path reads no soft targets (the host path's are zero on an answerless
     split), so an answerless split works; raises if an entry is missed.
-    The device path runs blocked_eval_stream's blocks; each forward pass is
-    a replay of its R's graph on CUDA (`graphed`, train/graphs.py)."""
+    The device and sharded paths run blocked_eval_stream's blocks; each
+    forward pass is a replay of its R's graph on CUDA (`graphed`,
+    train/graphs.py). Under a process group each rank answers its rows of
+    every batch (a sharded rank's local entry ids mapped to the split's), the
+    answers are summed over the ranks and rank 0 writes the file."""
     model.to(device).eval()
+    mesh = make_mesh(cfg.dp_size, cfg.tp_size)
     include_adj = cfg.relation_type != "implicit"
-    mode = resolve_data_mode(cfg, ds, None, include_adj)
+    mode = resolve_data_mode(cfg, ds, None, include_adj, dp=mesh.dp)
     check_roi_buckets_mode(cfg, mode)
-    logger.write(data_mode_line(cfg, mode, ds, None, include_adj))
+    logger.write(data_mode_line(cfg, mode, ds, None, include_adj, dp=mesh.dp))
     qids = ds.entries.question_ids
     # -1-filled: a coverage gap fails the label2ans lookup, never writes garbage
     answers = np.full(len(qids), -1, dtype=np.int64)
     seen = np.zeros(len(qids), bool)
     pending = []  # (host entry indices, device labels), fetched once at the end
-    eval_batch = cfg.resolved_eval_batch()
-    store = build_store(cfg, ds, device, targets=False) if mode == "device" else None
+    eval_batch = cfg.resolved_eval_batch(mesh.dp)
+    store = (build_store(cfg, ds, device, targets=False, mode=mode, mesh=mesh)
+             if mode != "host" else None)
 
     def predict(R, inputs, generators):
         batch = inputs if store is None else gather_batch(store, inputs["idx"], R)
         with torch.no_grad():
             return model(batch).argmax(dim=-1)
 
+    def mine(a: np.ndarray) -> np.ndarray:
+        return batch_slice(a, mesh.rank, mesh.dp)
+
     steps = StepGraphs(predict, device, graphed)
-    if mode == "device":
+    if store is not None:
         for R, blk in blocked_eval_stream(cfg, store, eval_batch)[2]:
             nreal = real_batches(blk)
-            idx = to_device(blk[:nreal], device)
+            entries = mine(store.to_global(blk) if mode == "sharded" else blk)
+            idx = to_device(mine(blk)[:nreal], device)
             for j in range(nreal):
                 # the graph's output is overwritten by the next replay
-                pending.append((blk[j], steps(R, {"idx": idx[j]}).clone()))
+                pending.append((entries[j], steps(R, {"idx": idx[j]}).clone()))
     else:
-        loader = host_loader(cfg, ds, eval_batch, False)
+        loader = host_loader(cfg, ds, eval_batch, False, mesh=mesh)
         with contextlib.closing(prefetch_to_device(loader, device, depth=cfg.prefetch)) \
                 as batches:
             for pos, batch in zip(range(0, len(qids), eval_batch), batches):
-                idx = np.full(eval_batch, -1, np.int64)
-                n_real = min(eval_batch, len(qids) - pos)
-                idx[:n_real] = np.arange(pos, pos + n_real)
-                pending.append((idx, steps(batch["features"].shape[1], batch).clone()))
+                idx = mine(np.arange(pos, pos + eval_batch))
+                pending.append((np.where(idx < len(qids), idx, -1),
+                                steps(batch["features"].shape[1], batch).clone()))
     for idx, labels in pending:
         lab = labels.cpu().numpy()
         ok = idx >= 0
         answers[idx[ok]] = lab[ok]
         seen[idx[ok]] = True
+    if mesh.group:
+        # each entry is answered on one rank: the sum of (answer + 1, else 0)
+        got = torch.from_numpy(np.where(seen, answers + 1, 0)).to(device)
+        distributed.all_reduce_([got])
+        got = got.cpu().numpy()
+        answers, seen = got - 1, got > 0
     if not seen.all():
         raise RuntimeError(
             f"prediction pass missed {int((~seen).sum())} entries — store/stream "
@@ -761,6 +839,9 @@ def run_prediction(
     out_path = os.path.join(
         cfg.output, f"{cfg.relation_type}-{cfg.fusion}-{ds.name}-predictions.json"
     )
+    if not distributed.is_primary():
+        logger.write(f"{len(qids)} predictions computed; rank 0 writes {out_path}")
+        return out_path
     os.makedirs(cfg.output, exist_ok=True)
     with open(out_path, "w") as fh:
         json.dump(

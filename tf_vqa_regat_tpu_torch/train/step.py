@@ -18,6 +18,20 @@ times its valid count) adds into f32 buffers and its activations are freed
 before the next. The sum over the batch's valid count, max 1, takes one
 clip and one Adamax update. The metrics are the loss sum over that count,
 the score sum and the count.
+
+Data parallelism (a process group, parallel/): each rank computes the
+gradient of its own rows' loss sum (`grad_sums`, its microbatches strided
+over its local rows, which with B/dp divisible by k are its part of JAX's
+global microbatches) and writes it, with its loss sum, score sum and valid
+count, into one flat buffer (`FlatSums`); one all-reduce sums the buffer
+over the ranks, and `apply_sums` divides the gradients by the global count
+(max 1) before the per-tensor clip and Adamax, so the update is the one
+JAX's SPMD step takes over the global batch (train/step.py:44-106 there).
+No rank averages its own gradient first: the sharded store's padded tails
+give the ranks different counts. On CUDA the step is two graphs with the
+all-reduce between them (gloo collectives cannot be captured). A rank's
+dropout generators are seeded by (seed + 1, step, microbatch, rank).
+Eval sums the loss, score and count of a block over the ranks.
 """
 
 from __future__ import annotations
@@ -31,6 +45,8 @@ from tf_vqa_regat_tpu_torch.config import Config
 from tf_vqa_regat_tpu_torch.data.store import DeviceStore, gather_batch
 from tf_vqa_regat_tpu_torch.models.regat import ReGAT
 from tf_vqa_regat_tpu_torch.nn import step_generator, step_seed
+from tf_vqa_regat_tpu_torch.parallel import distributed
+from tf_vqa_regat_tpu_torch.parallel.mesh import Mesh, batch_slice
 from tf_vqa_regat_tpu_torch.train.graphs import StepGraphs, to_device
 from tf_vqa_regat_tpu_torch.train.loss import bce_with_logits_sum, vqa_score_sum
 from tf_vqa_regat_tpu_torch.train.optim import Adamax
@@ -80,12 +96,32 @@ def train_step(
         grads = torch.autograd.grad(loss, opt.params)
         opt.step(grads)
         return _metrics(logits, loss, batch)
+    grads, loss_sum, score, n_sum = grad_sums(model, opt.params, batch, step, seed,
+                                              grad_accum, gens)
+    n = torch.clamp(n_sum, min=1.0)
+    torch._foreach_div_(grads, n)
+    opt.step(grads)
+    return {"loss": loss_sum / n, "score": score, "n": n_sum}
+
+
+def grad_sums(
+    model: ReGAT, params, batch: Batch, step: int, seed: int, grad_accum: int = 1,
+    generators=None, rank: int = 0,
+):
+    """(the gradients of the batch's loss sum w.r.t. `params`, the loss sum,
+    the score sum, the valid count), over `grad_accum` strided microbatches
+    run one after another, each with its generator (default:
+    step_generator(seed + 1, step, device, microbatch, rank))."""
+    gens = generators or [None] * grad_accum
     grads, loss_sum, score, n_sum = None, 0.0, 0.0, 0.0
     for a in range(grad_accum):
-        mb = microbatch(batch, a, grad_accum)
-        loss, logits = train_forward(model, mb, step, seed, a, gens[a])
+        mb = batch if grad_accum == 1 else microbatch(batch, a, grad_accum)
+        gen = gens[a]
+        if gen is None and rank:
+            gen = step_generator(seed + 1, step, mb["features"].device, a, rank)
+        loss, logits = train_forward(model, mb, step, seed, a, gen)
         m = _metrics(logits, loss, mb)
-        g = torch.autograd.grad(loss * m["n"], opt.params)
+        g = torch.autograd.grad(loss * m["n"], params)
         del loss, logits  # this microbatch's activations go before the next
         if grads is None:
             grads = list(g)
@@ -94,10 +130,37 @@ def train_step(
         loss_sum = loss_sum + m["loss"] * m["n"]
         score = score + m["score"]
         n_sum = n_sum + m["n"]
-    n = torch.clamp(n_sum, min=1.0)
-    torch._foreach_div_(grads, n)
-    opt.step(grads)
-    return {"loss": loss_sum / n, "score": score, "n": n_sum}
+    return grads, loss_sum, score, n_sum
+
+
+class FlatSums:
+    """One f32 buffer on the parameters' device holding a step's gradient
+    of every parameter (`grads`, views shaped as the parameters) and its
+    loss sum, score sum and valid count (`sums`, the last 3 elements): what
+    one all-reduce sums over the ranks."""
+
+    def __init__(self, params, device: torch.device):
+        sizes = [p.numel() for p in params]
+        self.flat = torch.zeros(sum(sizes) + 3, dtype=torch.float32, device=device)
+        self.grads = [v.view_as(p) for v, p in zip(self.flat[:-3].split(sizes), params)]
+        self.sums = self.flat[-3:]
+
+    @torch.no_grad()
+    def write(self, grads, loss_sum, score, n) -> None:
+        torch._foreach_copy_(self.grads, list(grads))
+        self.sums.copy_(torch.stack([torch.as_tensor(x, dtype=torch.float32,
+                                                     device=self.flat.device)
+                                     for x in (loss_sum, score, n)]))
+
+
+def apply_sums(opt: Adamax, sums: FlatSums) -> Dict[str, torch.Tensor]:
+    """The update from summed gradients: divided by the summed count (max 1),
+    then the per-tensor clip and Adamax -> the metrics of the global batch.
+    The buffer is read, not changed."""
+    n = torch.clamp(sums.sums[2], min=1.0)
+    opt.step(torch._foreach_div(sums.grads, n))
+    return {"loss": sums.sums[0] / n, "score": sums.sums[1].clone(),
+            "n": sums.sums[2].clone()}
 
 
 def add_step(block: Dict[str, torch.Tensor], m: Dict[str, torch.Tensor]) -> None:
@@ -134,37 +197,68 @@ class TrainSteps:
     gathers the batch from `store` by a static index vector (the device
     path) or reads a static copy of a host batch (`store` None), runs the
     step and updates the parameters. Each step's generators are re-seeded
-    from (seed + 1, count, microbatch), as step_generator seeds them."""
+    from (seed + 1, count, microbatch, rank), as step_generator seeds them.
+
+    Under a process group (`mesh.group`) a step is the graph of this rank's
+    gradient sums (`grad_sums` into `sums`, a FlatSums), the all-reduce of
+    `sums`, and the graph of the update (`apply_sums`); a global index block
+    is cut to this rank's rows (batch_slice) before it reaches the card."""
 
     def __init__(self, model: ReGAT, opt: Adamax, cfg: Config, device: torch.device,
                  store: Optional[DeviceStore] = None, graphed: Optional[bool] = None,
-                 pool: Any = None):
+                 pool: Any = None, mesh: Optional[Mesh] = None):
         self.opt, self.store = opt, store
         self.seed, self.k, self.dtype = cfg.seed, cfg.grad_accum, cfg.compute_dtype
         self.device = torch.device(device)
-        seed, k = self.seed, self.k
+        self.mesh = mesh if mesh is not None else Mesh(dp=1)
+        seed, k, rank = self.seed, self.k, self.mesh.rank
 
-        def step(key, inputs, generators) -> Dict[str, torch.Tensor]:
-            batch = inputs if store is None else gather_batch(store, inputs["idx"], key[0])
-            return train_step(model, opt, batch, opt.count, seed, k, generators)
+        def gather(key, inputs) -> Batch:
+            return inputs if store is None else gather_batch(store, inputs["idx"], key[0])
 
-        self.graphs = StepGraphs(step, self.device, graphed, generators=k,
-                                 keep=opt.snapshot, pool=pool)
+        if not self.mesh.group:
+            def step(key, inputs, generators) -> Dict[str, torch.Tensor]:
+                return train_step(model, opt, gather(key, inputs), opt.count, seed, k,
+                                  generators)
+
+            self.sums = self.update = None
+            self.graphs = StepGraphs(step, self.device, graphed, generators=k,
+                                     keep=opt.snapshot, pool=pool)
+            return
+        sums = self.sums = FlatSums(opt.params, self.device)
+
+        def local(key, inputs, generators) -> Dict[str, torch.Tensor]:
+            sums.write(*grad_sums(model, opt.params, gather(key, inputs), opt.count, seed, k,
+                                  generators, rank))
+            return {}
+
+        def update(key, inputs, generators) -> Dict[str, torch.Tensor]:
+            return apply_sums(opt, sums)
+
+        self.graphs = StepGraphs(local, self.device, graphed, generators=k, pool=pool)
+        self.update = StepGraphs(update, self.device, graphed, keep=opt.snapshot,
+                                 pool=self.graphs.pool)
 
     def step(self, R: int, inputs: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """One optimizer step at roi count R -> its metrics (a graph's
         outputs: consume them before the next step)."""
         count = self.opt.count
-        seeds = [step_seed(self.seed + 1, count, a) for a in range(self.k)]
-        m = self.graphs((R, self.k, self.dtype), inputs, seeds)
+        seeds = [step_seed(self.seed + 1, count, a, self.mesh.rank) for a in range(self.k)]
+        if self.sums is None:
+            m = self.graphs((R, self.k, self.dtype), inputs, seeds)
+        else:
+            self.graphs((R, self.k, self.dtype), inputs, seeds)
+            distributed.all_reduce_([self.sums.flat])
+            m = self.update("update", {})
         self.opt.count = count + 1
         return m
 
     def block(self, R: int, blk: np.ndarray, nreal: int) -> Dict[str, torch.Tensor]:
-        """The first `nreal` batches of the index block `blk` [K, B], one
-        step each, with one copy of the block to the card -> the block's
-        metrics (add_step): JAX's scanned block, whose padded steps leave
-        the state as it is."""
+        """The first `nreal` batches of the global index block `blk` [K, B],
+        one step each, with one copy of this rank's rows to the card -> the
+        block's metrics (add_step): JAX's scanned block, whose padded steps
+        leave the state as it is."""
+        blk = batch_slice(blk, self.mesh.rank, self.mesh.dp)
         idx = to_device(blk[:nreal], self.device)
         acc = block_zeros(self.device)
         for j in range(nreal):
@@ -180,11 +274,15 @@ class TrainSteps:
 
 class EvalSteps:
     """The eval steps of one model, through train/graphs.py: one graph per
-    R, fed an index vector into `store` or a host batch."""
+    R, fed an index vector into `store` or a host batch. Under a process
+    group each rank runs its rows of a block and the block's loss sum,
+    score and count are summed over the ranks."""
 
     def __init__(self, model: ReGAT, device: torch.device, store: Optional[DeviceStore] = None,
-                 graphed: Optional[bool] = None, pool: Any = None):
+                 graphed: Optional[bool] = None, pool: Any = None,
+                 mesh: Optional[Mesh] = None):
         self.device = torch.device(device)
+        self.mesh = mesh if mesh is not None else Mesh(dp=1)
 
         def step(R, inputs, generators) -> Dict[str, torch.Tensor]:
             batch = inputs if store is None else gather_batch(store, inputs["idx"], R)
@@ -198,14 +296,25 @@ class EvalSteps:
         block of one is the step's own metrics. Padded batches do not run:
         they add nothing."""
         nreal = real_batches(blk)
-        idx = to_device(blk[:nreal], self.device)
-        if blk.shape[0] == 1:
+        idx = to_device(batch_slice(blk, self.mesh.rank, self.mesh.dp)[:nreal], self.device)
+        if blk.shape[0] == 1 and not self.mesh.group:
             return self.graphs(R, {"idx": idx[0]})
         acc = block_zeros(self.device)
         for j in range(nreal):
             add_step(acc, self.graphs(R, {"idx": idx[j]}))
-        return {"loss": acc["loss_sum"] / torch.clamp(acc["n"], min=1.0),
-                "score": acc["score"], "n": acc["n"]}
+        return self._summed(acc)
 
     def batch(self, batch: Batch) -> Dict[str, torch.Tensor]:
-        return self.graphs(batch["features"].shape[1], batch)
+        m = self.graphs(batch["features"].shape[1], batch)
+        if not self.mesh.group:
+            return m
+        acc = block_zeros(self.device)
+        add_step(acc, m)
+        return self._summed(acc)
+
+    def _summed(self, acc: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """A block's metrics from its sums, summed over the ranks."""
+        sums = torch.stack([acc["loss_sum"], acc["score"], acc["n"]])
+        distributed.all_reduce_([sums])
+        return {"loss": sums[0] / torch.clamp(sums[2], min=1.0), "score": sums[1],
+                "n": sums[2]}
