@@ -218,8 +218,37 @@ Phases, each of which fails the run (non-zero exit, no result line):
      resumed, equal to the uninterrupted one at RESUME_RTOL / RESUME_ATOL;
      every run 2 launches of its kernel per forward pass on each rank; the
      step time and the gloo all-reduce's own time (staged through the host).
-Counts of launches are set to 0 just before each path of 8-13, 17-21 and 23
-(in each rank's process in 23 (b)) runs and read just after it; the comparison launches of 3-7, 14-16 and 22
+ 24. tensor parallelism, serve over the sharded store and the sharded
+     ensemble (parallel/tensor.py, serve.py, train/ensemble.py): (b) at one
+     NCCL rank, 8's butd .npz served by the engine over the sharded store
+     (the store policy replaced: at one rank the sharded estimate is the
+     replicated one's) and over
+     the replicated one, both graphed per batch size: equal answers, logits
+     within SERVE_SHARDED_ATOL, 2 B1 launches per forward pass, engine-call
+     latency at b = 1 and 32 of both; then two gloo ranks sharing the card
+     (child processes, as in 23 (b)): (a) butd and semantic at --tp_size 2
+     with 23 (b)'s flags (full widths, b=256, 6 steps in blocks of 2,
+     dropout off), then `--mode eval` and `predict` of the written .npz at
+     tp = 2, against tp = 1 (23 (b)'s (a') for butd, a run here for
+     semantic; eval and predict of the same .npz at tp = 1 here): the train
+     loss within TP_METRIC_RTOL and the eval loss of the same weights too
+     (the end-of-epoch eval, of weights that 6 Adamax steps moved apart, is
+     printed, not held), the replicated leaves bit-identical on the ranks, the
+     .npz the ranks' parts put together, the parameters beyond JAX's
+     tolerance counted (not held), answers equal outside ties, every B1 and
+     B2 launch on all 16 heads, 2 per forward pass per rank, the eager TP
+     step's time; butd at tp = 2 preempted at step 4 and resumed at tp = 1,
+     its train loss against tp = 1 uninterrupted within TP_METRIC_RTOL; (b) the same engine
+     at dp = 2 under a budget only a shard fits: the sharded store on both
+     ranks, rank 0 answering what the replicated engine answered, logits
+     within SERVE_SHARDED_ATOL on both; (c) 13's ensemble (or, run alone,
+     the seed's members) at dp = 2 over the sharded store: every entry
+     scored once, averaged probabilities within ENSEMBLE_PROB_ATOL of the
+     replicated store's, answers equal outside ties, the score equal; the
+     gloo collectives of the b=256 TP step alone (all-gather of Q, the
+     all-reduce of the attention input's gradient), host clock.
+Counts of launches are set to 0 just before each path of 8-13, 17-21, 23
+and 24 (in each rank's process in 23 (b) and 24) runs and read just after it; the comparison launches of 3-7, 14-16 and 22
 and of the plain-path comparisons do not count. Every step of 8-21 is a
 CUDA graph replay, whose wrapper counts are added per replay (a capture's
 are taken back), so a count is the launches the card ran. Each phase prints its wall
@@ -3386,15 +3415,16 @@ def dp_child(spec_path, rank):
                    "allreduce_bytes": flat_numel[0] * 4}, fh)
 
 
-def run_dp_children(tmp, commands, timeout=600):
-    """Both ranks of (b) as child processes of this script (stopped on any
-    failure) -> each rank's report."""
+def run_dp_children(tmp, commands, timeout=600, child="--dp_child", label="dp (b)"):
+    """Both ranks of 23 (b) (or of 24, `child` --tp_child) as child
+    processes of this script (stopped on any failure) -> each rank's
+    report."""
     os.makedirs(tmp, exist_ok=True)
-    spec = os.path.join(tmp, "dp_spec.json")
+    spec = os.path.join(tmp, "child_spec.json")
     with open(spec, "w") as fh:
         json.dump({"port": free_port(), "out": tmp, "commands": commands}, fh)
     env = {k: v for k, v in os.environ.items() if not k.startswith(("REGAT_", "MASTER_"))}
-    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dp_child", spec,
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), child, spec,
                                str(r)], cwd=REPO, env=env, stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True) for r in (0, 1)]
     try:
@@ -3408,7 +3438,7 @@ def run_dp_children(tmp, commands, timeout=600):
         with open(os.path.join(tmp, f"child-rank{r}.log"), "w") as fh:
             fh.write(log)
         if p.returncode != 0:
-            fail(f"dp (b) rank {r} exited {p.returncode}:\n{log[-4000:]}")
+            fail(f"{label} rank {r} exited {p.returncode}:\n{log[-4000:]}")
     reports = []
     for r in (0, 1):
         with open(os.path.join(tmp, f"child-rank{r}.json")) as fh:
@@ -3465,7 +3495,7 @@ def check_dp_gloo(tmp, smi):
     reports = run_dp_children(tmp, commands)
     wall = time.perf_counter() - t0
     # (a'): (b)'s butd flags at world 1, no group, in this process
-    solo_out = os.path.join(tmp, "solo")
+    solo_out = DP_SOLO["implicit"] = os.path.join(tmp, "solo")
     reset_counts()
     port_main.main(entry_argv("implicit", solo_out, *DP_FLAGS, "--data_mode", "device"))
     solo_launches = read_path_counts()
@@ -3550,6 +3580,570 @@ def run_phase_23(tmp_root, smi, device):
     return launches
 
 
+# phase 24: tensor parallelism, serve over the sharded store, the sharded
+# ensemble. (a) runs 23 (b)'s flags (butd's and semantic's full widths,
+# b = 256, 6 steps in blocks of 2, dropout off) at --tp_size 2 on two gloo
+# ranks sharing the card; the tp = 1 runs it is held to are 23 (b)'s (a')
+# for butd (DP_SOLO) and one in this process for semantic.
+TP_FLAGS = DP_FLAGS
+# 24 (a): the same run at tp = 2 against tp = 1: the same gradients summed
+# in another order (the split matmuls, the norms of the split kernels), as
+# phase 7 holds one step's loss summed in another order (LOSS_RTOL): the
+# train loss, and --mode eval of one .npz at both tp. The end-of-epoch eval
+# loss of the two runs is printed, not held: it reads weights that Adamax
+# moved apart (its first steps move an element by about lr times the sign
+# of its gradient, which the order of the sums sets for tiny gradients; on
+# an H100 the eval loss read 1.13e-4 apart after 6 steps, with 12,108 of
+# 22.7 M parameters beyond JAX's tolerance); so is JAX's tensor-parallel
+# parameter tolerance (tests/test_parallel.py), as in 23 (b)
+TP_METRIC_RTOL = LOSS_RTOL
+# 24 (b): served logits on the sharded store against the replicated store
+# (the same rows, gathered and summed over the ranks, then the same graph)
+SERVE_SHARDED_ATOL = 1e-5
+# the run's directories: 23 (b)'s (a') at one rank, by family
+DP_SOLO = {}
+
+
+def tp_commands(tmp, serve_npz, serve_budget, ensemble_spec):
+    """24's child commands, each run by both ranks: per family (butd,
+    semantic) train at tp = 2, then eval and predict of the written .npz at
+    tp = 2; butd at tp = 2 preempted at step 4; the serve engine over the
+    sharded store at dp = 2; the sharded ensemble at dp = 2; the gloo
+    collectives of the TP step alone."""
+    outs = {k: os.path.join(tmp, k) for k in
+            ("implicit", "semantic", "preempted", "ensemble")}
+    cmds = []
+    for family in ("implicit", "semantic"):
+        final = os.path.join(outs[family], f"{family}-butd-pretrained_model.npz")
+        infer = entry_argv(family, outs[family], "--synthetic_val_size", "256", "--tp_size", "2",
+                           "--checkpoint", final)
+        cmds += [{"kind": "main", "family": family, "run": "train",
+                  "argv": entry_argv(family, outs[family], *TP_FLAGS, "--tp_size", "2",
+                                     "--data_mode", "device")},
+                 {"kind": "main", "family": family, "run": "eval",
+                  "argv": infer + ["--mode", "eval"]},
+                 {"kind": "main", "family": family, "run": "predict", "passes": -(-256 // 64),
+                  "argv": infer + ["--mode", "predict", "--predict_split", "val"]}]
+    cmds.append({"kind": "main", "family": "implicit", "run": "preempted",
+                 "argv": entry_argv("implicit", outs["preempted"], *TP_FLAGS, "--tp_size", "2",
+                                    "--data_mode", "device"),
+                 "env": {"REGAT_FAULT_PREEMPT_STEP": "4"}})
+    cmds.append({"kind": "serve", "family": "implicit", "run": "serve",
+                 "argv": entry_argv("implicit", tmp, "--mode", "serve", "--checkpoint",
+                                    serve_npz, "--device_store_budget_gb", repr(serve_budget))})
+    cmds.append({"kind": "ensemble", "family": "ensemble", "run": "ensemble",
+                 "argv": entry_argv("semantic", outs["ensemble"], "--mode", "ensemble_eval",
+                                    "--ensemble_checkpoints", ensemble_spec,
+                                    "--data_mode", "sharded")})
+    cmds.append({"kind": "collectives", "family": None, "run": "collectives"})
+    return outs, cmds
+
+
+SERVE_QUESTIONS = ["what color is the car ?", "how many people are on the left ?",
+                   "is the man on the dog ?", "what is the woman in ?"]
+
+
+def serve_requests(engine, n=40):
+    """n (question, image id) requests over the engine's images."""
+    ids = sorted(engine.img_index)
+    return ([SERVE_QUESTIONS[i % 4] for i in range(n)], [ids[(7 * i) % len(ids)]
+                                                        for i in range(n)])
+
+
+def serve_batch(engine, B=8):
+    """One request batch as tensors on the engine's card: token ids, image
+    indices and validity (the last slot invalid)."""
+    import torch
+
+    qs, ids = serve_requests(engine, B)
+    dev = engine.device
+    toks = torch.tensor([engine._encode(q) for q in qs], device=dev)
+    img = torch.tensor([engine.img_index[i] for i in ids], device=dev)
+    valid = torch.ones(B, dtype=torch.bool, device=dev)
+    valid[-1] = False
+    return toks, img, valid
+
+
+def tp_child(spec_path, rank):
+    """One rank of 24: open the gloo group, then run each command (a
+    barrier before each), recording its launches (counts set to 0 just
+    before it), the heads of every B1 and B2 launch, forward passes, step
+    times and final parameters; last the gloo collectives of the TP step
+    alone."""
+    sys.path.insert(0, REPO)
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from tf_vqa_regat_tpu_torch import main as port_main
+    from tf_vqa_regat_tpu_torch.ops.kernels import graph_attention as ga
+    from tf_vqa_regat_tpu_torch.ops.kernels import implicit_attention as ia
+    from tf_vqa_regat_tpu_torch.parallel import distributed
+    from tf_vqa_regat_tpu_torch.serve import InferenceEngine
+    from tf_vqa_regat_tpu_torch.train import ensemble
+    from tf_vqa_regat_tpu_torch.train.step import EvalSteps, TrainSteps, real_batches
+
+    with open(spec_path) as fh:
+        spec = json.load(fh)
+    out = spec["out"]
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{spec['port']}",
+                            world_size=2, rank=rank)
+    device = torch.device("cuda", 0)
+    heads = set()
+    for kernel in (ia._Kernel, ga._Kernel):
+        def spy(self, q, *a, real=kernel.__call__, **k):
+            heads.add(int(q.shape[2]))
+            return real(self, q, *a, **k)
+        kernel.__call__ = spy
+    real_step, real_block, real_batch = TrainSteps.step, EvalSteps.block, EvalSteps.batch
+    real_run, real_passes = port_main.run_training, ensemble._sharded_passes
+    records, coll = [], {}
+    for i, cmd in enumerate(spec["commands"]):
+        os.environ.pop("REGAT_FAULT_PREEMPT_STEP", None)
+        os.environ.update(cmd.get("env", {}))
+        rec = {"steps": [], "eval_passes": 0, "run": cmd["run"]}
+
+        def step(self, R, inputs):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            m = real_step(self, R, inputs)
+            ev[1].record()
+            rec["steps"].append(ev)
+            return m
+
+        def block(self, R, blk):
+            rec["eval_passes"] += real_batches(blk)
+            return real_block(self, R, blk)
+
+        def batch(self, b):
+            rec["eval_passes"] += 1
+            return real_batch(self, b)
+
+        def run(*a, **k):
+            model, best = real_run(*a, **k)
+            np.savez(os.path.join(out, f"params-{i}-rank{rank}.npz"),
+                     **{n: p.detach().cpu().numpy() for n, p in model.named_parameters()})
+            return model, best
+
+        probs, entries = [], []
+
+        def passes(*a, **k):
+            for p, b in real_passes(*a, **k):
+                probs.append(p.cpu().numpy().copy())
+                entries.append(np.asarray(b["entry"]))
+                yield p, b
+
+        TrainSteps.step, EvalSteps.block, EvalSteps.batch = step, block, batch
+        port_main.run_training, ensemble._sharded_passes = run, passes
+        distributed.barrier()
+        heads.clear()
+        reset_counts()
+        t0 = time.perf_counter()
+        if cmd["kind"] == "main":
+            result = port_main.main(cmd["argv"])
+            rec["result"] = result if isinstance(result, (str, float, type(None))) \
+                else list(result)
+        elif cmd["kind"] == "ensemble":
+            rec["result"] = port_main.main(cmd["argv"])
+            rec["eval_passes"] = len(probs)
+            np.savez(os.path.join(out, f"ensemble-rank{rank}.npz"), probs=np.concatenate(probs),
+                     entries=np.concatenate(entries))
+        elif cmd["kind"] == "serve":
+            cfg = port_main.parse(cmd["argv"])[0]
+            ds = port_main.build_dataset(cfg)
+            runs = [0]
+            real_engine_run = InferenceEngine._run
+
+            def counted(self, *a):
+                runs[0] += 1
+                return real_engine_run(self, *a)
+
+            InferenceEngine._run = counted
+            try:
+                engine = InferenceEngine(cfg, ds, port_main.load_model(cfg, ds), device,
+                                         batch_sizes=(1, 8, 32))
+                logits = engine.logits(*serve_batch(engine))
+                np.save(os.path.join(out, f"serve-logits-rank{rank}.npy"), logits.cpu().numpy())
+                if rank == 0:
+                    rec["result"] = engine.infer(*serve_requests(engine))
+                    engine.stop()
+                else:
+                    engine.follow()
+            finally:
+                InferenceEngine._run = real_engine_run
+            rec["store_mode"], rec["eval_passes"] = engine.store_mode, runs[0] + 1
+        else:  # the TP step's gloo collectives alone, at butd's b = 256 sizes
+            half = torch.randn(256, 100, 8, 64, device=device)
+            roi = torch.randn(256, 100, 1024, device=device)
+            for name, fn in (("all_gather_q_ms", lambda: distributed.all_gather(half, 2)),
+                             ("all_reduce_roi_ms", lambda: distributed.all_reduce_([roi]))):
+                times = []
+                for _ in range(8):
+                    torch.cuda.synchronize()
+                    t1 = time.perf_counter()
+                    fn()
+                    torch.cuda.synchronize()
+                    times.append((time.perf_counter() - t1) * 1e3)
+                coll[name] = statistics.median(times[2:])
+            coll["bytes_q_part"], coll["bytes_roi"] = half.numel() * 4, roi.numel() * 4
+        torch.cuda.synchronize()
+        steps = rec.pop("steps")
+        rec.update(wall_s=time.perf_counter() - t0, launches=counts(), heads=sorted(heads),
+                   train_steps=len(steps), step_ms=[a.elapsed_time(b) for a, b in steps])
+        records.append(rec)
+    distributed.barrier()
+    dist.destroy_process_group()
+    with open(os.path.join(out, f"child-rank{rank}.json"), "w") as fh:
+        json.dump({"records": records, "collectives": coll}, fh)
+
+
+def same_answers(a, b):
+    """Two engines' answers: the same answers (or errors), confidences
+    within SERVE_SHARDED_ATOL."""
+    return len(a) == len(b) and all(
+        x.keys() == y.keys() and x.get("answer") == y.get("answer") and x.get("error") ==
+        y.get("error") and abs(x.get("confidence", 0.0) - y.get("confidence", 0.0))
+        <= SERVE_SHARDED_ATOL for x, y in zip(a, b))
+
+
+def assembled(ranks):
+    """Full parameters from the two ranks' parts (model index = rank at
+    dp = 1); the replicated leaves must be bit-identical across the ranks."""
+    import numpy as np
+
+    from tf_vqa_regat_tpu_torch.parallel.mesh import shard_axis
+
+    full = {}
+    for k in ranks[0]:
+        axis = shard_axis(k)
+        if axis is None:
+            if not np.array_equal(ranks[0][k], ranks[1][k]):
+                fail(f"tp (a): replicated leaf {k} differs between the ranks")
+            full[k.replace(".", "/")] = ranks[0][k]
+        else:
+            full[k.replace(".", "/")] = np.concatenate([ranks[0][k], ranks[1][k]], axis=axis)
+    return full
+
+
+def answer_gaps(cfg_argv, npz_path, entries, device):
+    """The top-two logit gap, relative to the largest |logit|, of each entry
+    of the val split under the model of `npz_path` at tp = 1."""
+    import torch
+
+    from tf_vqa_regat_tpu_torch import main as port_main
+    from tf_vqa_regat_tpu_torch.data.store import gather_batch
+    from tf_vqa_regat_tpu_torch.models.regat import ReGAT
+    from tf_vqa_regat_tpu_torch.params import load_jax_arrays, load_npz
+    from tf_vqa_regat_tpu_torch.train.loop import build_store
+
+    if not len(entries):
+        return []
+    cfg = port_main.parse(cfg_argv)[0]
+    ds = port_main.build_dataset(cfg)
+    model = ReGAT(cfg, ds.ntoken, ds.v_dim, ds.num_ans).to(device).eval()
+    load_jax_arrays(model, load_npz(npz_path))
+    batch = gather_batch(build_store(cfg, ds, device, warn=False),
+                         torch.tensor(entries, device=device), cfg.resolved_num_rois())
+    with torch.no_grad():
+        logits = model(batch)
+    top2 = logits.topk(2, dim=-1).values
+    return ((top2[:, 0] - top2[:, 1]) / logits.abs().max()).tolist()
+
+
+def check_tp(tmp, smi, device, npz):
+    """24 (a)-(c) over the two gloo ranks, and (b) at one NCCL rank. Returns
+    the launches of every path, each rank's apart."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from tf_vqa_regat_tpu_torch import main as port_main
+    from tf_vqa_regat_tpu_torch.data.sharded_store import estimate_sharded_nbytes
+    from tf_vqa_regat_tpu_torch.data.store import DeviceStore, estimate_nbytes
+    from tf_vqa_regat_tpu_torch.models.regat import ReGAT
+    from tf_vqa_regat_tpu_torch.params import save_npz
+    from tf_vqa_regat_tpu_torch.parallel.mesh import make_mesh
+    from tf_vqa_regat_tpu_torch.serve import InferenceEngine
+    from tf_vqa_regat_tpu_torch.train.ensemble import (
+        averaged_probs,
+        load_members,
+        member_adj_tables,
+    )
+    from tf_vqa_regat_tpu_torch.train.logging import Logger
+    from tf_vqa_regat_tpu_torch.train.loss import vqa_score_sum
+
+    os.makedirs(tmp, exist_ok=True)
+    launches = []
+    # what 8 and 13 trained, or (run alone) the seed's models
+    serve_npz = npz.get("implicit")
+    if serve_npz is None:
+        cfg = full_width_config("implicit", ["--mode", "serve"])
+        ds = port_main.build_dataset(cfg)
+        serve_npz = os.path.join(tmp, "serve.npz")
+        save_npz(serve_npz, ReGAT(cfg, ds.ntoken, ds.v_dim, ds.num_ans))
+    spec = LAST_ENSEMBLE.get("spec")
+    if spec is None:
+        parts = []
+        for rt in ("implicit", "spatial", "semantic"):
+            cfg = full_width_config("semantic", ["--relation_type", rt, "--mode", "ensemble_eval",
+                                                 "--ensemble_checkpoints", "semantic:x"])
+            ds = port_main.build_dataset(cfg)
+            path = os.path.join(tmp, f"member-{rt}.npz")
+            save_npz(path, ReGAT(cfg, ds.ntoken, ds.v_dim, ds.num_ans))
+            parts.append(f"{rt}:{path}")
+        spec = ",".join(parts)
+    serve_argv = entry_argv("implicit", tmp, "--mode", "serve", "--checkpoint", serve_npz)
+    cfg = port_main.parse(serve_argv)[0]
+    ds = port_main.build_dataset(cfg)
+    need, shard = estimate_nbytes(ds, False, "float32"), estimate_sharded_nbytes(
+        ds, False, "float32", 2)
+    budget = (need + shard) / 2 / 1e9  # only a shard of 2 fits
+
+    # (b) at one NCCL rank: the sharded store (at one rank its estimate is
+    # the replicated one's, so no budget chooses it: the policy is replaced
+    # here), graphed, against the replicated engine
+    from tf_vqa_regat_tpu_torch import serve
+
+    model = port_main.load_model(cfg, ds)
+    real_policy = serve.serve_store_mode
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}",
+                            world_size=1, rank=0)
+    try:
+        engines, served, logits, lat = {}, {}, {}, {}
+        for mode in ("replicated", "sharded"):
+            reset_counts()  # the serve path starts here
+            runs = [0]
+            real_run = InferenceEngine._run
+
+            def counted(self, *a):
+                runs[0] += 1
+                return real_run(self, *a)
+
+            InferenceEngine._run = counted
+            serve.serve_store_mode = lambda *a, mode=mode: mode
+            try:
+                engines[mode] = engine = InferenceEngine(cfg, ds, model, device, (1, 8, 32),
+                                                         mesh=make_mesh(0, 1))
+                logits[mode] = engine.logits(*serve_batch(engine))
+                served[mode] = engine.infer(*serve_requests(engine))
+                passes = runs[0] + 1
+            finally:
+                InferenceEngine._run = real_run
+                serve.serve_store_mode = real_policy
+            path_launches = read_path_counts()
+            launches.append(path_launches)
+            if path_launches != expected_launches("implicit", passes):
+                fail(f"serve (b) {mode}: launches {path_launches} for {passes} passes")
+            if not engine.graphs.graphed or len(engine.graphs.capture_seconds()) != 3:
+                fail(f"serve (b) {mode}: not graphed per batch size")
+            for B in (1, 32):
+                qs, ids = serve_requests(engine, B)
+                times = []
+                for _ in range(23):
+                    t0 = time.perf_counter()
+                    engine.infer(qs, ids)
+                    times.append((time.perf_counter() - t0) * 1e3)
+                lat[(mode, B)] = statistics.median(times[3:])
+        gap = (logits["sharded"] - logits["replicated"]).abs().max().item()
+    finally:
+        dist.destroy_process_group()
+    same = same_answers(served["sharded"], served["replicated"])
+    print(f"serve (b) one NCCL rank, butd_vqa.json at full width, {json.dumps(served['sharded'][:3])}"
+          f"...: sharded vs replicated store answers equal {same}, logits max abs diff {gap} "
+          f"(bound {SERVE_SHARDED_ATOL}); engine.infer median (host clock, 20 calls) on {smi}: "
+          f"b=1 {lat[('sharded', 1)]:.3f} ms sharded, {lat[('replicated', 1)]:.3f} ms replicated; "
+          f"b=32 {lat[('sharded', 32)]:.3f} ms sharded ({32e3 / lat[('sharded', 32)]:.1f} "
+          f"questions/s), {lat[('replicated', 32)]:.3f} ms replicated "
+          f"({32e3 / lat[('replicated', 32)]:.1f} questions/s); graph captures "
+          f"{json.dumps({str(k): v for k, v in engines['sharded'].graphs.capture_seconds().items()})} s",
+          flush=True)
+    if not same or not gap <= SERVE_SHARDED_ATOL:
+        fail("serve (b): the sharded store's answers differ from the replicated store's")
+    replicated_answers, replicated_logits = served["replicated"], logits["replicated"].cpu().numpy()
+    del engines, model
+    torch.cuda.empty_cache()
+
+    # (a)-(c) on two gloo ranks
+    outs, commands = tp_commands(tmp, serve_npz, budget, spec)
+    t0 = time.perf_counter()
+    reports = run_dp_children(tmp, commands, child="--tp_child", label="tp")
+    wall = time.perf_counter() - t0
+    by_run = {cmd["run"]: i for i, cmd in enumerate(commands)}
+    eval_passes = -(-256 // 64)
+    for i, cmd in enumerate(commands):
+        if cmd["kind"] == "collectives":
+            continue
+        for r, rep in enumerate(reports):
+            rec = rep["records"][i]
+            steps = rec["train_steps"]
+            # predict's passes are not eval steps: 256 questions at 64
+            rec["eval_passes"] = cmd.get("passes", rec["eval_passes"])
+            family = cmd["family"]
+            if family == "ensemble":
+                want = {"B1 eval": 2 * rec["eval_passes"], "B1 train": 0,
+                        "B2": 4 * rec["eval_passes"], "B2 per-head": 0}
+            else:
+                want = expected_launches(family, rec["eval_passes"], steps)
+            print(f"tp run {cmd['run']} {family} rank {r}: {steps} steps, {rec['eval_passes']} "
+                  f"forward passes, launches {json.dumps(rec['launches'])} on heads "
+                  f"{rec['heads']}, {rec['wall_s']:.1f} s wall", flush=True)
+            if rec["launches"] != want or rec["heads"] != [16] \
+                    or not any(rec["launches"].values()):
+                fail(f"tp run {cmd['run']} rank {r}: launches {rec['launches']} on heads "
+                     f"{rec['heads']}, want {want} on all 16")
+            launches.append(rec["launches"])
+
+    # (a): tp = 2 against tp = 1 per family
+    if "implicit" not in DP_SOLO:
+        DP_SOLO["implicit"] = os.path.join(tmp, "solo-implicit")
+        port_main.main(entry_argv("implicit", DP_SOLO["implicit"], *TP_FLAGS,
+                                  "--data_mode", "device"))
+    reset_counts()
+    DP_SOLO["semantic"] = os.path.join(tmp, "solo-semantic")
+    port_main.main(entry_argv("semantic", DP_SOLO["semantic"], *TP_FLAGS, "--data_mode", "device"))
+    launches.append(read_path_counts())
+    for family in ("implicit", "semantic"):
+        name = f"{family}-butd"
+        two, one = read_run(outs[family], name), read_run(DP_SOLO[family], name)
+        i = [j for j, c in enumerate(commands) if c["run"] == "train" and c["family"] == family][0]
+        ranks = []
+        for r in (0, 1):
+            with np.load(os.path.join(tmp, f"params-{i}-rank{r}.npz")) as z:
+                ranks.append({k: z[k] for k in z.files})
+        full = assembled(ranks)
+        if any(not np.array_equal(full[k], two[0][k]) for k in two[0]):
+            fail(f"tp (a) {family}: the written .npz is not the ranks' parts put together")
+        gaps = {f"{k}@{e}": abs(two[1][e][k] - one[1][e][k]) / max(abs(one[1][e][k]), 1e-30)
+                for e in one[1] for k in ("train_loss", "train_score", "eval_score", "eval_loss")}
+        # held: the steps' own loss; the end-of-epoch eval reads weights that
+        # 6 Adamax steps moved apart (printed, as the parameters are)
+        metric = max(v for k, v in gaps.items() if k.startswith("train_loss"))
+        beyond = sum(int((np.abs(two[0][k] - one[0][k]) > DP_PARAM_ATOL
+                          + DP_PARAM_RTOL * np.abs(one[0][k])).sum()) for k in one[0])
+        total = sum(v.size for v in one[0].values())
+        diff = max(float(np.abs(two[0][k] - one[0][k]).max()) for k in one[0])
+        step_ms = statistics.median(reports[0]["records"][i]["step_ms"])
+        # eval and predict of the tp = 2 .npz at tp = 1, in this process
+        final = os.path.join(outs[family], f"{name}-pretrained_model.npz")
+        infer = entry_argv(family, os.path.join(tmp, f"infer1-{family}"), "--synthetic_val_size",
+                           "256", "--checkpoint", final)
+        score1, loss1 = port_main.main(infer + ["--mode", "eval"])
+        pred1 = port_main.main(infer + ["--mode", "predict", "--predict_split", "val"])
+        score2, loss2 = reports[0]["records"][i + 1]["result"]
+        pred2 = reports[0]["records"][i + 2]["result"]
+        with open(pred1) as fh, open(pred2) as gh:
+            a1, a2 = json.load(fh), json.load(gh)
+        qids = [a["question_id"] for a in a1]
+        differ = [j for j, (x, y) in enumerate(zip(a1, a2)) if x != y]
+        gaps_at = answer_gaps(infer + ["--mode", "eval"], final, differ, device)
+        eval_rel = abs(loss2 - loss1) / abs(loss1)
+        print(f"tp (a) {family} at tp=2 (two gloo ranks on one card) vs tp=1 (one process): "
+              f"train loss max rel diff {metric} (bound {TP_METRIC_RTOL}; each metric, the "
+              f"end-of-epoch eval of weights 6 steps apart not held: {json.dumps(gaps)}); "
+              f"params max abs diff {diff}, {beyond} of {total} elements beyond JAX's tp "
+              f"tolerance (rtol {DP_PARAM_RTOL}, atol {DP_PARAM_ATOL}; not held); replicated "
+              f"leaves bit-identical on the two ranks; --mode eval of the tp=2 .npz: score "
+              f"{score2} vs {score1}, loss {loss2} vs {loss1} (rel {eval_rel}); --mode predict: "
+              f"{len(differ)} of {len(qids)} answers differ (top-two gaps {gaps_at}); the eager "
+              f"TP train step median {step_ms:.3f} ms (CUDA events, 6 steps, the gloo "
+              f"collectives staged through the host, two ranks sharing one card) on {smi}",
+              flush=True)
+        if not metric <= TP_METRIC_RTOL or not eval_rel <= TP_METRIC_RTOL:
+            fail(f"tp (a) {family}: tp=2 differs from tp=1 by rel {metric} / {eval_rel}")
+        if a1 and [a["question_id"] for a in a2] != qids or any(g > LOGITS_RTOL for g in gaps_at):
+            fail(f"tp (a) {family}: answers differ outside ties: {differ} {gaps_at}")
+    # a tp = 2 checkpoint resumed at tp = 1
+    reset_counts()
+    port_main.main(entry_argv("implicit", outs["preempted"], *TP_FLAGS, "--data_mode", "device",
+                              "--resume"))
+    launches.append(read_path_counts())
+    got, want = read_run(outs["preempted"]), read_run(DP_SOLO["implicit"])
+    resumed = run_distance(got, want)
+    train_rel = max(abs(got[1][e]["train_loss"] - m["train_loss"]) / abs(m["train_loss"])
+                    for e, m in want[1].items())
+    coll = reports[0]["collectives"]
+    print(f"tp (a) butd preempted at step 4 at tp=2, resumed at tp=1 vs tp=1 uninterrupted: "
+          f"params max abs diff {resumed[0]}, train loss rel diff {train_rel} (bound "
+          f"{TP_METRIC_RTOL}), every metric's largest {resumed[2]} (not held); gloo collectives of the b=256 TP step alone (host clock, staged "
+          f"through the host, two ranks on one card, median of 6; not an NVLink or NCCL "
+          f"number): all-gather of q ({coll['bytes_q_part']} bytes a rank) "
+          f"{coll['all_gather_q_ms']:.3f} ms, all-reduce of the attention input's gradient "
+          f"({coll['bytes_roi']} bytes) {coll['all_reduce_roi_ms']:.3f} ms; children "
+          f"{wall:.1f} s wall", flush=True)
+    if not train_rel <= TP_METRIC_RTOL:
+        fail(f"tp (a): the tp=2 checkpoint resumed at tp=1 differs by rel {train_rel}")
+
+    # (b) on two gloo ranks: the budget takes the sharded store
+    i = by_run["serve"]
+    rec = reports[0]["records"][i]
+    two_logits = [np.load(os.path.join(tmp, f"serve-logits-rank{r}.npy")) for r in (0, 1)]
+    gap = max(float(np.abs(x - replicated_logits).max()) for x in two_logits)
+    same = same_answers(rec["result"], replicated_answers)
+    print(f"serve (b) two gloo ranks at dp=2 (budget {budget:.6f} GB: {need} bytes "
+          f"replicated, {shard} a shard): store {rec['store_mode']} on both "
+          f"{[r['records'][i]['store_mode'] for r in reports]}; answers equal to the "
+          f"replicated engine's {same}; logits max abs diff {gap}", flush=True)
+    if {r["records"][i]["store_mode"] for r in reports} != {"sharded"} or not same \
+            or not gap <= SERVE_SHARDED_ATOL:
+        fail("serve (b) over two ranks: not sharded, or answers differ")
+
+    # (c) the sharded ensemble against the replicated one, kernel path
+    i = by_run["ensemble"]
+    ecfg = port_main.parse(commands[i]["argv"])[0].replace(data_mode="device")
+    eds = port_main.build_dataset(ecfg)
+    members = load_members(ecfg, eds, device, Logger(os.path.join(tmp, "ensemble_log.txt")))
+    store, tables = DeviceStore(eds, device), member_adj_tables(members, eds, device)
+    want = np.zeros((len(eds.entries.question_ids), eds.num_ans), np.float32)
+    # per entry: its targets' gap at the replicated top two (a tie's slack)
+    tgap = np.zeros(len(want), np.float32)
+    score_r, n = torch.zeros((), device=device), 0.0
+    for idx in store.epoch_indices(0, ecfg.resolved_eval_batch(), False, ecfg.seed):
+        p, batch = averaged_probs(members, store, torch.from_numpy(idx).to(device),
+                                  ecfg.resolved_num_rois(), tables)
+        ok = idx >= 0
+        want[idx[ok]] = p.cpu().numpy()[ok]
+        t = batch["target"].gather(1, p.topk(2, dim=-1).indices)
+        tgap[idx[ok]] = (t[:, 0] - t[:, 1]).abs().cpu().numpy()[ok]
+        score_r = score_r + vqa_score_sum(p, batch["target"], batch["valid"])
+        n += float(batch["valid"].sum())
+    score_r = 100.0 * float(score_r) / n
+    del members, store, tables
+    seen, diff, moved, slack = np.zeros(len(want), int), 0.0, 0, 0.0
+    for r in (0, 1):
+        with np.load(os.path.join(tmp, f"ensemble-rank{r}.npz")) as z:
+            probs, entries = z["probs"], z["entries"]
+        ok = entries >= 0
+        seen[entries[ok]] += 1
+        got, ref = probs[ok], want[entries[ok]]
+        diff = max(diff, float(np.abs(got - ref).max()))
+        top2 = np.sort(ref, axis=-1)[:, -2:]
+        tied = (top2[:, 1] - top2[:, 0]) <= ENSEMBLE_PROB_ATOL
+        moved += int(((got.argmax(-1) != ref.argmax(-1)) & ~tied).sum())
+        slack += float(tgap[entries[ok]][tied].sum())
+    scores = [rep["records"][i]["result"] for rep in reports]
+    print(f"ensemble (c) {spec.split(',')} over the sharded store on two gloo ranks: scores "
+          f"{scores} vs the replicated store's {score_r} (tie slack {100.0 * slack / n}); "
+          f"averaged probabilities max abs diff "
+          f"{diff} (bound {ENSEMBLE_PROB_ATOL}), {moved} answers differ outside ties; every "
+          f"entry scored once {bool((seen == 1).all())}", flush=True)
+    if not (seen == 1).all() or not diff <= ENSEMBLE_PROB_ATOL or moved \
+            or any(abs(s - score_r) > 100.0 * slack / n + 1e-6 * score_r for s in scores):
+        fail(f"ensemble (c): sharded {scores} vs replicated {score_r}, probs {diff}, "
+             f"{moved} moved")
+    for k in outs.values():
+        shutil.rmtree(os.path.join(k, "checkpoints"), ignore_errors=True)
+    torch.cuda.empty_cache()
+    return launches
+
+
+def run_phase_24(tmp_root, smi, device, npz):
+    """Phase 24; returns the launches of its paths."""
+    with phase("24, tensor parallelism, sharded serve and ensemble"):
+        return check_tp(os.path.join(tmp_root, "tp"), smi, device, npz)
+
+
 def build_kernels():
     """Build every CUDA source of the port, one nvcc each, all at once."""
     from tf_vqa_regat_tpu_torch.ops.kernels import build
@@ -3573,13 +4167,18 @@ def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--baseline", help="another checkout whose B1 and B2 phases 3-5 "
                         "time in turns with this one")
-    parser.add_argument("--only", choices=("23",),
+    parser.add_argument("--only", choices=("23", "24"),
                         help="build the kernels and run this phase alone (no result line)")
     parser.add_argument("--dp_child", nargs=2, metavar=("SPEC", "RANK"),
                         help=argparse.SUPPRESS)  # one rank of phase 23 (b)
+    parser.add_argument("--tp_child", nargs=2, metavar=("SPEC", "RANK"),
+                        help=argparse.SUPPRESS)  # one rank of phase 24
     args = parser.parse_args()
     if args.dp_child:
         dp_child(args.dp_child[0], int(args.dp_child[1]))
+        return
+    if args.tp_child:
+        tp_child(args.tp_child[0], int(args.tp_child[1]))
         return
     start = time.perf_counter()
     if not os.path.isdir(os.path.join(REPO, "tf_vqa_regat_tpu_torch")):
@@ -3606,11 +4205,12 @@ def main() -> None:
 
     device = torch.device("cuda", 0)
     smi_line = smi.stdout.strip().splitlines()[0]
-    if args.only == "23":
+    if args.only:
         with tempfile.TemporaryDirectory() as tmp_root:
-            run_phase_23(tmp_root, smi_line, device)
-        print(f"phase 23 alone: {time.perf_counter() - start:.1f} s wall; no result line",
-              flush=True)
+            (run_phase_23 if args.only == "23" else
+             lambda *a: run_phase_24(*a, {}))(tmp_root, smi_line, device)
+        print(f"phase {args.only} alone: {time.perf_counter() - start:.1f} s wall; no result "
+              f"line", flush=True)
         return
     from tf_vqa_regat_tpu_torch.ops.kernels import graph_attention as ga
     from tf_vqa_regat_tpu_torch.ops.kernels import implicit_attention as ia
@@ -3708,6 +4308,7 @@ def main() -> None:
             check_graphs_eval_serve(os.path.join(tmp_root, "graphs"), smi_line, device, npz)
         torch.cuda.empty_cache()
         launches += run_phase_23(tmp_root, smi_line, device)
+        launches += run_phase_24(tmp_root, smi_line, device, npz)
 
     if any(m.split(".")[0] in ("jax", "jaxlib", "tf_vqa_regat_tpu") for m in sys.modules):
         fail("JAX or the JAX package was imported")

@@ -89,8 +89,11 @@ def test_config_fields_and_the_sharded_refusal():
                              "--prefetch", "0"])
     assert (cfg.data_mode, cfg.device_store_budget_gb, cfg.prefetch) == ("host", 70.0, 0)
     assert parse_with_config(["--data_mode", "sharded"]).data_mode == "sharded"
-    with pytest.raises(ValueError, match="ROADMAP Queue A item 4, multi-device: tensor"):
-        parse_with_config(["--tp_size", "2"])
+    # tensor parallelism: a tp that divides the heads and the classifier's
+    # hidden width is taken; one that does not is refused by name
+    assert parse_with_config(["--tp_size", "2", "--num_heads", "16"]).tp_size == 2
+    with pytest.raises(ValueError, match="--tp_size 3 does not divide --num_heads = 16"):
+        parse_with_config(["--tp_size", "3", "--num_heads", "16"])
     with pytest.raises(ValueError, match="auto|device|host|sharded"):
         parse_with_config(["--data_mode", "disk"])
 

@@ -50,6 +50,7 @@ from tf_vqa_regat_tpu_torch.data.synthetic import synthetic_dataset
 from tf_vqa_regat_tpu_torch.models.regat import ReGAT, trainable_mask
 from tf_vqa_regat_tpu_torch.parallel import distributed
 from tf_vqa_regat_tpu_torch.parallel.mesh import Mesh, batch_slice, make_mesh
+from tf_vqa_regat_tpu_torch.parallel.tensor import TensorParallel
 from tf_vqa_regat_tpu_torch.params import flatten_tree, load_jax_arrays
 from tf_vqa_regat_tpu_torch.train import step as tstep
 from tf_vqa_regat_tpu_torch.train.loop import check_grad_accum
@@ -224,6 +225,14 @@ def test_mesh_and_batch_slice():
         make_mesh(3, 1, world=4)
     with pytest.raises(ValueError, match="3 devices not divisible by tp=2"):
         make_mesh(0, 2, world=3)
+    # rank r at (r // tp, r % tp), JAX's reshape(dp_size, tp_size)
+    jax_grid = np.asarray(jax_make_mesh(2, 2, devices=jax.devices()[:4]).devices)
+    for r in range(4):
+        mesh = make_mesh(0, 2, world=4, rank=r)
+        assert (mesh.dp, mesh.tp, mesh.data, mesh.model) == (2, 2, r // 2, r % 2)
+        assert jax_grid[mesh.data, mesh.model] == jax.devices()[r]
+        assert mesh.tensor_parallel() == TensorParallel(2, r % 2)
+    assert make_mesh(0, 1, world=4, rank=3).tensor_parallel() is None
     idx = np.arange(16).reshape(2, 8)
     assert batch_slice(idx, 1, 4).tolist() == [[2, 3], [10, 11]]
     assert batch_slice(idx[0], 0, 1).tolist() == list(range(8))

@@ -217,6 +217,7 @@ def test_port_imports_no_jax_and_no_h5py():
         "import tf_vqa_regat_tpu_torch.data.loader, tf_vqa_regat_tpu_torch.data.native\n"
         "import tf_vqa_regat_tpu_torch.preflight, tf_vqa_regat_tpu_torch.profile_step\n"
         "import tf_vqa_regat_tpu_torch.parallel.distributed, tf_vqa_regat_tpu_torch.parallel.mesh\n"
+        "import tf_vqa_regat_tpu_torch.parallel.tensor\n"
         "import tf_vqa_regat_tpu_torch.data.sharded_store\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "          ('jax', 'jaxlib', 'orbax', 'h5py', 'tf_vqa_regat_tpu'))\n"

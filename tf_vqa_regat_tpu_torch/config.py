@@ -73,7 +73,8 @@ class Config:
     num_rois: int = 0
     # Data-parallel size (0 = every process of the group) and tensor-parallel
     # size; dp x tp must equal the process group's size (parallel/mesh.py).
-    # Tensor parallelism is not ported: --tp_size > 1 is refused.
+    # At tp > 1 the model axis splits the attention heads and the
+    # classifier; it must divide both (no uneven shards).
     dp_size: int = 0
     tp_size: int = 1
     # bf16 matmuls and bf16 activation storage; the parameters, the Adamax
@@ -183,18 +184,22 @@ class Config:
         if self.data_mode not in ("auto", "device", "host", "sharded"):
             raise ValueError(
                 f"--data_mode {self.data_mode!r} is not one of auto|device|host|sharded")
-        if self.tp_size > 1:
-            raise ValueError(
-                f"--tp_size {self.tp_size}: tensor parallelism (head-sharded attention "
-                f"projections and the classifier's column and row split) is not ported "
-                f"yet (ROADMAP Queue A item 4, multi-device: tensor parallelism); run "
-                f"data parallel with --tp_size 1"
-            )
         if self.tp_size < 1 or self.dp_size < 0:
             raise ValueError(
                 f"--dp_size must be >= 0 (0 = every process) and --tp_size >= 1, got "
                 f"{self.dp_size}/{self.tp_size}"
             )
+        # the model axis splits the heads and the classifier's hidden width
+        # in equal parts (GSPMD would pad an uneven split; the port does not)
+        split = [("--num_heads", self.num_heads)]
+        if self.fusion != "mutan":  # MuTAN has no classifier
+            split.append(("the classifier's hidden width (2 * --num_hid)", 2 * self.num_hid))
+        for name, n in split:
+            if n % self.tp_size:
+                raise ValueError(
+                    f"--tp_size {self.tp_size} does not divide {name} = {n}: tensor "
+                    f"parallelism splits it in equal parts"
+                )
         sizes = [x for x in self.serve_batch_sizes.split(",") if x.strip()]
         if not sizes or any(int(x) <= 0 for x in sizes):
             raise ValueError(

@@ -24,6 +24,14 @@ Edge labels: with `include_adj` (JAX's build_store passes it for semantic
 only; spatial labels are built in the step from the boxes) the shard's
 [max_local_imgs, 100, 100] int8 table by local image slot.
 
+Lookup by global image id (serving, JAX `image_meta_arrays` and
+`build_sharded_image_gather`): every rank holds the [n_img] owner, local
+slot and box count of every image; `gather_images` takes the requested
+images this rank owns from its own rows, zeros elsewhere, and one SUM
+all-reduce over the data group gives every rank the full [B, R, ...] batch.
+Each image has exactly one owner, so the sum is the owner's rows bit for
+bit; int8 rows are dequantised before it, as in JAX.
+
 The feature table is held at --feature_dtype through data/store.py's
 conversion (bf16 bits, int8 with `quantize_rows`). With --packed_cache the
 whole [dp, max_rows, v] sharded table is read from, or on a miss written to,
@@ -36,7 +44,7 @@ from __future__ import annotations
 
 import hashlib
 import os
-from typing import Iterator, List, Optional, Tuple
+from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -54,12 +62,15 @@ from tf_vqa_regat_tpu_torch.data.store import (
     _put,
     adjacency_table,
     bf16_bits,
+    gather_adj,
+    gather_image_features,
     image_rows,
     pack_soft_targets,
     quantize_rows,
     stored_chunks,
     upload_table,
 )
+from tf_vqa_regat_tpu_torch.parallel import distributed
 
 
 def _padded_step_batches(per_shard: List[np.ndarray], per: int) -> Iterator[np.ndarray]:
@@ -190,6 +201,7 @@ class ShardedDeviceStore:
             img_local[bucket] = np.arange(len(bucket))
         self.max_rows = max_rows
         self._max_local_imgs = max((len(b) for b in buckets), default=1) or 1
+        self.img_shard, self.img_local, self.img_len_global = img_shard, img_local, img_len
 
         entry_shard = img_shard[ent.image_index]
         shard_entry_ids = [np.where(entry_shard == s)[0] for s in range(dp)]
@@ -339,6 +351,34 @@ class ShardedDeviceStore:
         """Another edge-label table partitioned with this store's image
         assignment, this rank's part on its device."""
         return _put(self._adj_local(adj_src), torch.int8, self.device)
+
+    # ---- lookup by global image id ----------------------------------------
+
+    def image_meta_arrays(self) -> Dict[str, torch.Tensor]:
+        """[n_img] int64 tables on this rank's device, the same on every
+        rank: each image's owning shard, its local slot there and its box
+        count."""
+        return {"img_shard": _put(self.img_shard, torch.int64, self.device),
+                "img_local": _put(self.img_local, torch.int64, self.device),
+                "img_len": _put(self.img_len_global, torch.int64, self.device)}
+
+    def gather_images(self, meta: Dict[str, torch.Tensor], img: torch.Tensor,
+                      n_box: torch.Tensor, num_rois: int, group: Any = None
+                      ) -> Tuple[torch.Tensor, ...]:
+        """(features, norm_bb, bb, adj_label or None) of the global image ids
+        `img` [B], each [B, num_rois, ...] f32 (int32 labels), on every rank
+        of the data `group` (None: the world), which every rank of it calls
+        alike; `n_box` is 0 on invalid slots (module docstring)."""
+        owned = meta["img_shard"][img] == self.rank
+        li = meta["img_local"][img]
+        n_eff = torch.where(owned, n_box, torch.zeros_like(n_box))
+        out = list(gather_image_features(self.images, li, n_eff, num_rois))
+        if self.images.adj is not None:
+            # padded or foreign slots read some local image's labels: zeroed
+            li = torch.clamp(li, 0, self.images.adj.shape[0] - 1)
+            out.append(gather_adj(self.images.adj, li, num_rois, owned & (n_eff > 0)))
+        distributed.all_reduce_(out, group=group)
+        return (*out[:3], out[3] if len(out) > 3 else None)
 
     # ---- the epoch streams ------------------------------------------------
 

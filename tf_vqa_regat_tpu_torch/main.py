@@ -38,13 +38,16 @@ to resume and exits 0 without the final file. `--checkpoint` takes an .npz
 or a checkpoint directory. `--mode export_h5` raises NotImplementedError
 naming the ROADMAP item that ports it.
 
-Data parallelism (parallel/): one process per rank, the group opened from
-the environment before anything else (parallel/distributed.py::
+Data and tensor parallelism (parallel/): one process per rank, the group
+opened from the environment before anything else (parallel/distributed.py::
 maybe_initialize, the JAX package's REGAT_* contract, or torchrun's under
 REGAT_AUTO_DISTRIBUTED=1), NCCL for `--device cuda` (each rank on
 cuda:LOCAL_RANK) and gloo for `--device cpu`, and closed on the way out
-when this entry point opened it. `--dp_size` and `--data_mode sharded`
-(train, eval, predict) as in the JAX package; rank 0 writes the files.
+when this entry point opened it. `--dp_size`, `--tp_size` (the model is
+built for the rank's place on the mesh) and `--data_mode sharded` as in the
+JAX package, in every mode; rank 0 writes the files. Serve on more than one
+rank: rank 0 runs the HTTP server and the others follow its engine calls
+(serve.py).
 """
 
 from __future__ import annotations
@@ -66,8 +69,9 @@ from tf_vqa_regat_tpu_torch.data.synthetic import synthetic_dataset
 from tf_vqa_regat_tpu_torch.models.language import word_embedding_load_glove
 from tf_vqa_regat_tpu_torch.models.regat import ReGAT, check_supported
 from tf_vqa_regat_tpu_torch.parallel import distributed
-from tf_vqa_regat_tpu_torch.params import load_jax_arrays, save_npz
-from tf_vqa_regat_tpu_torch.serve import make_server
+from tf_vqa_regat_tpu_torch.parallel.mesh import make_mesh
+from tf_vqa_regat_tpu_torch.params import full_state, load_jax_arrays, save_npz
+from tf_vqa_regat_tpu_torch.serve import make_engine, make_server
 from tf_vqa_regat_tpu_torch.train.checkpoint import load_params
 from tf_vqa_regat_tpu_torch.train.ensemble import parse_members, run_ensemble_eval
 from tf_vqa_regat_tpu_torch.train.logging import Logger
@@ -81,10 +85,6 @@ from tf_vqa_regat_tpu_torch.train.loop import (
 PORTED_MODES = ("train", "eval", "serve", "predict", "ensemble_eval")
 _NOT_PORTED = {
     "export_h5": "ROADMAP Queue A, persistence and the other modes: export_h5 and .h5 import",
-}
-_NOT_SHARDED = {
-    "serve": "ROADMAP Queue A item 4, multi-device: serve over the sharded store",
-    "ensemble_eval": "ROADMAP Queue A item 4, multi-device: the sharded ensemble",
 }
 
 
@@ -211,6 +211,13 @@ def append_visual_genome(cfg: Config, train: VQADataset, dictionary: Dictionary)
     return compose.append_entries(train, vg, train.name + "+vg")
 
 
+def new_model(cfg: Config, ds: VQADataset) -> ReGAT:
+    """The seed's model for this rank's place on the --dp_size x --tp_size
+    mesh (its part of each split leaf at tp > 1)."""
+    tp = make_mesh(cfg.dp_size, cfg.tp_size).tensor_parallel()
+    return ReGAT(cfg, ds.ntoken, ds.v_dim, ds.num_ans, tp=tp)
+
+
 def load_model(cfg: Config, ds: VQADataset) -> ReGAT:
     """The model of --checkpoint: an .npz of params.py or a checkpoint
     directory of train/checkpoint.py, full state or params only."""
@@ -218,14 +225,13 @@ def load_model(cfg: Config, ds: VQADataset) -> ReGAT:
         raise ValueError(
             f"--mode {cfg.mode} needs --checkpoint (an .npz or a checkpoint directory)"
         )
-    model = ReGAT(cfg, ds.ntoken, ds.v_dim, ds.num_ans)
+    model = new_model(cfg, ds)
     load_jax_arrays(model, load_params(cfg.checkpoint))
     return model
 
 
 def parse(argv: Optional[List[str]] = None) -> Tuple[Config, str]:
-    """(config, --device value) of a ported mode; raises for any other, and
-    for a mode that does not run over the sharded store."""
+    """(config, --device value) of a ported mode; raises for any other."""
     device_name, rest = split_device_flag(sys.argv[1:] if argv is None else argv)
     cfg = parse_with_config(rest)
     if cfg.mode not in PORTED_MODES:
@@ -233,10 +239,6 @@ def parse(argv: Optional[List[str]] = None) -> Tuple[Config, str]:
         if item is None:
             raise ValueError(f"unknown mode {cfg.mode!r}")
         raise NotImplementedError(f"--mode {cfg.mode} is not ported yet ({item})")
-    if cfg.data_mode == "sharded" and cfg.mode in _NOT_SHARDED:
-        raise NotImplementedError(
-            f"--mode {cfg.mode} over --data_mode sharded is not ported yet "
-            f"({_NOT_SHARDED[cfg.mode]}); use --data_mode device or host")
     check_supported(cfg)
     return cfg, device_name
 
@@ -254,7 +256,7 @@ def train(cfg: Config, device: torch.device) -> Optional[str]:
     of the written parameters, or None when the run was preempted."""
     train_ds, val_ds, tfidf, tfidf_weights = build_datasets(cfg)
     # sized by the snapshotted ntoken, not the TF-IDF-extended dictionary's
-    model = ReGAT(cfg, train_ds.ntoken, train_ds.v_dim, train_ds.num_ans)
+    model = new_model(cfg, train_ds)
     emb2_trainable = False
     if not cfg.synthetic:
         glove = np.load(os.path.join(cfg.data_folder, "glove", "glove6b_init_300d.npy")).squeeze()
@@ -272,8 +274,10 @@ def train(cfg: Config, device: torch.device) -> Optional[str]:
         )
         return None
     path = final_model_path(cfg)
+    # full leaves at any tp: the split ones are gathered on every rank first
+    final = model if model.tp is None else full_state(model)
     if distributed.is_primary():
-        save_npz(path, model)
+        save_npz(path, final)
         print(f"saved final model to {path} (best eval score {best:.4f})", flush=True)
     return path
 
@@ -319,30 +323,37 @@ def ensemble_eval(cfg: Config, device: torch.device) -> float:
 
 
 def build_server(argv: Optional[List[str]] = None):
-    """(server, batcher, engine) exactly as `--mode serve` runs them; the
-    server is bound but not started."""
+    """(server, batcher, engine) exactly as `--mode serve` runs them on rank
+    0; the server is bound but not started. On another rank of a process
+    group: (None, None, engine), the engine to `follow`."""
     cfg, device_name = parse(argv)
     device = resolve_device(device_name)
     if cfg.mode != "serve":
         raise ValueError(f"build_server builds --mode serve, not --mode {cfg.mode}")
     ds = build_datasets(cfg)[1]
     model = load_model(cfg, ds)
+    if not distributed.is_primary():
+        return None, None, make_engine(cfg, ds, model, device)
     server, batcher = make_server(cfg, ds, model, device, cfg.serve_port)
     return server, batcher, batcher.engine
 
 
 def serve(argv: Optional[List[str]] = None) -> None:
     server, batcher, engine = build_server(argv)
+    if server is None:  # a rank other than 0 runs rank 0's engine calls
+        engine.follow()
+        return
     print(
         f"serving on http://127.0.0.1:{server.server_address[1]} "
         f"(device {engine.device}, batch sizes {list(engine.batch_sizes)}, "
-        f"split {engine.ds.name})",
+        f"split {engine.ds.name}, store {engine.store_mode})",
         flush=True,
     )
     try:
         server.serve_forever()
     finally:
         batcher.close()
+        engine.stop()
         server.server_close()
 
 
@@ -352,10 +363,10 @@ def main(argv: Optional[List[str]] = None):
     process group is opened from the environment first (a group the caller
     opened is used as it is) and closed on the way out if opened here."""
     cfg, device_name = parse(argv)
-    if cfg.mode == "serve":
-        return serve(argv)
     opened = distributed.maybe_initialize(torch.device(device_name).type)
     try:
+        if cfg.mode == "serve":
+            return serve(argv)
         device = resolve_device(device_name)
         if cfg.mode == "train":
             return train(cfg, device)

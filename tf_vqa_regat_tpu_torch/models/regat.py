@@ -30,6 +30,12 @@ The batch is a dict of tensors on the model's device:
   norm_bb   [b, R, 6]     float32   normalised boxes (spatial, without adj_label)
   adj_label [b, R, R]     int       edge labels (semantic; spatial builds its
                                     own from the boxes when it is absent)
+
+Tensor parallelism: a model built with `tp` (parallel/mesh.py's
+`Mesh.tensor_parallel`, tp > 1) is the one-device model of the same seed
+with each split leaf cut to this rank's part (parallel/mesh.py::shard_axis;
+ops/graph_attention.py, models/classifier.py); without it, it is the
+one-device model exactly. params.py carries full arrays in and out.
 """
 
 from __future__ import annotations
@@ -59,6 +65,7 @@ from tf_vqa_regat_tpu_torch.ops.spatial_graph import (
     broadcast_adj_labels,
     build_spatial_graph,
 )
+from tf_vqa_regat_tpu_torch.parallel.tensor import TensorParallel
 
 RELATION_TYPES = ("implicit", "spatial", "semantic")
 FUSIONS = ("butd", "ban", "mutan")
@@ -77,6 +84,7 @@ class ReGAT(nn.Module):
     def __init__(
         self, cfg: Config, ntoken: int, v_dim: int, num_ans: int,
         generator: Optional[torch.Generator] = None,
+        tp: Optional[TensorParallel] = None,
     ):
         super().__init__()
         check_supported(cfg)
@@ -119,6 +127,12 @@ class ReGAT(nn.Module):
             None if cfg.fusion == "mutan"
             else Classifier(cfg.num_hid, cfg.num_hid * 2, num_ans, g, drop, cd)
         )
+        self.tp = tp
+        if tp is not None:
+            for direction in self.v_relation.gatt.neighbor:
+                direction.shard_(tp)
+            if self.classifier is not None:
+                self.classifier.shard_(tp)
 
     def forward(
         self, batch: Dict[str, torch.Tensor], generator: Optional[torch.Generator] = None

@@ -14,7 +14,7 @@ check masks by placement and keep rate.
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -115,19 +115,27 @@ def dropout(
     rate: float,
     train: bool,
     generator: Optional[torch.Generator] = None,
+    part: Optional[Tuple[int, int]] = None,
 ) -> torch.Tensor:
     """Inverted dropout with the JAX package's 8-bit scheme (nn.py:52-77):
     the drop probability quantises to t/256 and the scale uses the quantised
     value, so E[dropout(x)] == x exactly; the scale is rounded to x's dtype
     first (1.25 for rate 0.2 in bf16), as JAX's is. Identity unless
-    `train`."""
+    `train`. With `part` (i, n), x is part i of n of a tensor split on its
+    last axis: the mask is drawn for the whole tensor and its part i taken,
+    so the parts draw what the whole draws."""
     if not train or rate <= 0.0:
         return x
     if generator is None:
         raise ValueError("dropout in train mode needs a torch.Generator")
     if rate >= 1.0:
         return torch.zeros_like(x)
-    keep = keep_mask(x.shape, rate, generator, x.device)
+    if part is None:
+        keep = keep_mask(x.shape, rate, generator, x.device)
+    else:
+        i, n = part
+        w = x.shape[-1]
+        keep = keep_mask(x.shape[:-1] + (w * n,), rate, generator, x.device)[..., i * w:(i + 1) * w]
     scale = 256.0 / (256 - drop_threshold(rate))
     if x.dtype != torch.float32:
         scale = float(torch.tensor(scale, dtype=x.dtype))

@@ -26,6 +26,18 @@ both kernels take f32 only. B2's bias is f32 (a bf16 label bias meets f32
 zeros first), B1's pos-FC weight is materialised in f32, and the output
 and `+ b` stay f32 (graph_attention.py:171-176, :254-255). This is the JAX
 `--use_pallas` path, where the sinusoid and the pos-FC stay f32 inside B1.
+
+Tensor parallelism (`shard_`, JAX `param_shardings` at tp > 1): a rank holds
+its H/tp heads of the Q and K kernels (their head-major output columns) and
+of the grouped `v` [H/tp, D, o], so its Q, K and V·W are those heads only.
+They are gathered over the model group to all H heads, and every rank
+launches B1 or B2 on all H heads: both kernels normalise each head's
+softmax by the row max over all heads (+1e-30), so a launch on H/tp heads
+would change the weights wherever a head's segment underflows or a row is
+fully masked. The dropout masks (FCNet's input dropout, B1's keep-mask)
+come from the step's generator, seeded by the data index, and are drawn at
+the full shapes: the tp ranks of a data group draw the same masks, and the
+masks of tp = 1.
 """
 
 from __future__ import annotations
@@ -42,6 +54,7 @@ from tf_vqa_regat_tpu_torch.ops.kernels.implicit_attention import (
     fused_implicit_graph_attention,
 )
 from tf_vqa_regat_tpu_torch.ops.weight_norm import FCNet, wn_scale
+from tf_vqa_regat_tpu_torch.parallel.tensor import TensorParallel, copy_to, gather
 
 
 class GroupedProjection(nn.Module):
@@ -56,9 +69,10 @@ class GroupedProjection(nn.Module):
         self.v = nn.Parameter(v)
         self.g = nn.Parameter(torch.linalg.vector_norm(v))
         self.b = nn.Parameter(torch.zeros(num_heads * o))
+        self.tp: Optional[TensorParallel] = None
 
     def kernel(self) -> torch.Tensor:
-        return self.v * wn_scale(self.v, self.g)
+        return self.v * wn_scale(self.v, self.g, self.tp)
 
 
 class GraphSelfAttention(nn.Module):
@@ -87,6 +101,18 @@ class GraphSelfAttention(nn.Module):
             FCNet([pos_emb_dim, num_heads], generator, activation=None)
             if pos_emb_dim > 0 else None
         )
+        self.tp: Optional[TensorParallel] = None
+
+    @torch.no_grad()
+    def shard_(self, tp: TensorParallel) -> None:
+        """Keep this rank's heads of `query`, `key` and `out` (module
+        docstring); the biases, the scalars `g` and `pair_pos_fc` stay
+        whole."""
+        self.tp = tp
+        self.query.layers[0].shard_(tp, "cols")
+        self.key.layers[0].shard_(tp, "cols")
+        self.out.tp = tp
+        self.out.v = nn.Parameter(tp.shard(self.out.v.data, 0))
 
     def forward(
         self,
@@ -99,14 +125,20 @@ class GraphSelfAttention(nn.Module):
     ) -> torch.Tensor:  # [b, R, D]
         b, R, D = roi.shape
         n = key_mask.shape[1]
-        H = self.num_heads
+        H, tp = self.num_heads, self.tp
+        h = H if tp is None else H // tp.size  # this rank's heads
+        if tp is not None:
+            roi = copy_to(roi, tp)
         trunc = roi[:, :n]
         cd = self.dtype
-        q = self.query(roi, generator).view(b, R, H, D // H)
-        k = self.key(trunc, generator).view(b, n, H, D // H)
+        q = self.query(roi, generator).view(b, R, h, D // H)
+        k = self.key(trunc, generator).view(b, n, h, D // H)
         vw = torch.einsum("bnd,hdo->bnho", trunc.to(cd), self.out.kernel().to(cd))
         # the kernels' edge: f32 in (the kernels take f32 only), f32 out
-        q, k, vw = q.float(), k.float(), vw.float().contiguous()
+        q, k, vw = q.float(), k.float(), vw.float()
+        if tp is not None:  # every rank attends over all H heads
+            q, k, vw = gather(q, tp, 2), gather(k, tp, 2), gather(vw, tp, 2)
+        vw = vw.contiguous()
         if pos_mat is None:
             out = fused_graph_attention(q, k, vw, explicit_bias(adj_mask, label_bias, key_mask))
             return out.reshape(b, R, D) + self.out.b

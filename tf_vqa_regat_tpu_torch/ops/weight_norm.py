@@ -13,6 +13,16 @@ is materialised in f32 and rounded, the input is cast, the product and the
 bias are stored in bf16, or with `out_dtype=torch.float32` (the answer
 logits) the product of the rounded operands comes out unrounded in f32
 (`nn.dot_f32`). The parameters stay f32.
+
+Tensor parallelism (`shard_`, parallel/tensor.py): a layer split on its
+output columns holds `v` [in, out/tp] and, when its bias is split too (the
+classifier's hidden layer), `b` [out/tp]; a replicated bias (the attention
+Q and K layers, as JAX's `spec_for` leaves it) is sliced to the rank's
+columns in the forward pass. A layer split on its input rows holds `v`
+[in/tp, out]: its partial products are summed over the model group before
+the bias is added once. The caller hands a column-split layer its input
+through `copy_to`. The norm of a split `v` is its partial sum of squares
+summed over the model group; `g` stays replicated.
 """
 
 from __future__ import annotations
@@ -23,13 +33,20 @@ import torch
 from torch import nn
 
 from tf_vqa_regat_tpu_torch.nn import dot_f32, dropout, glorot_uniform
+from tf_vqa_regat_tpu_torch.parallel.tensor import TensorParallel, copy_to, reduce_from
 
 _ACTS = {"relu": torch.relu, None: lambda x: x}
 
 
-def wn_scale(v: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
-    """g / ||v||_F, with the JAX package's +1e-12 under the root."""
-    return g * torch.rsqrt(torch.sum(v * v) + 1e-12)
+def wn_scale(v: torch.Tensor, g: torch.Tensor,
+             tp: Optional[TensorParallel] = None) -> torch.Tensor:
+    """g / ||v||_F, with the JAX package's +1e-12 under the root; for a
+    split `v` (`tp`) the norm of the whole kernel, its sum of squares summed
+    over the model group."""
+    if tp is None:
+        return g * torch.rsqrt(torch.sum(v * v) + 1e-12)
+    ss = reduce_from(torch.sum(v * v), tp)
+    return copy_to(g * torch.rsqrt(ss + 1e-12), tp)
 
 
 class WNLinear(nn.Module):
@@ -46,9 +63,22 @@ class WNLinear(nn.Module):
         self.g = nn.Parameter(torch.linalg.vector_norm(v))
         self.b = nn.Parameter(torch.zeros(out_dim)) if use_bias else None
         self.dtype = dtype
+        self.tp: Optional[TensorParallel] = None
+        self.split: Optional[str] = None
+        self.split_bias = False
+
+    @torch.no_grad()
+    def shard_(self, tp: TensorParallel, split: str, split_bias: bool = False) -> None:
+        """Keep this rank's part: `split` "cols" (v on its output columns,
+        and b with `split_bias`) or "rows" (v on its input rows)."""
+        self.tp, self.split = tp, split
+        self.v = nn.Parameter(tp.shard(self.v.data, 1 if split == "cols" else 0))
+        self.split_bias = split_bias
+        if split_bias:
+            self.b = nn.Parameter(tp.shard(self.b.data, 0))
 
     def kernel(self, dtype: torch.dtype = torch.float32) -> torch.Tensor:
-        return (self.v * wn_scale(self.v, self.g)).to(dtype)
+        return (self.v * wn_scale(self.v, self.g, self.tp)).to(dtype)
 
     def forward(self, x: torch.Tensor, out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
         cd = self.dtype
@@ -56,7 +86,14 @@ class WNLinear(nn.Module):
             y = torch.matmul(x.to(cd), self.kernel(cd))
         else:
             y = dot_f32(x, self.kernel(cd), cd).to(out_dtype)
-        return y if self.b is None else y + self.b.to(y.dtype)
+        if self.split == "rows":
+            y = reduce_from(y, self.tp)
+        if self.b is None:
+            return y
+        b = self.b
+        if self.split == "cols" and not self.split_bias:
+            b = copy_to(b, self.tp)[self.tp.part(b.shape[0])]
+        return y + b.to(y.dtype)
 
 
 class FCNet(nn.Module):

@@ -15,15 +15,20 @@ two ranks may share one card that way; NCCL refuses that).
 Each rank runs on `rank_device`: the CPU when asked, else
 cuda:(LOCAL_RANK % device count). The collectives here flatten a list of
 tensors into one buffer per call: `all_reduce_` (sum or max) and
-`broadcast_` (from rank 0). Every helper is a no-op without a group.
-JAX's `put_global` has no counterpart: each rank places its own tensors on
-its own device.
+`broadcast_` (from rank 0, or from a group's first rank), and `all_gather`
+concatenates the ranks' tensors along an axis. Each takes a `group`: None
+is the world; `mesh_groups` gives a dp x tp mesh its data groups (the ranks
+with the same model index) and model groups (the ranks with the same data
+index). Only all-reduce, all-gather and broadcast are used: NCCL and gloo
+both take them on CUDA tensors. Every helper is a no-op without a group,
+and on a group of one rank. JAX's `put_global` has no counterpart: each
+rank places its own tensors on its own device.
 """
 
 from __future__ import annotations
 
 import os
-from typing import List, Sequence
+from typing import Any, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -118,7 +123,46 @@ def rank_device(name: str) -> torch.device:
 
 def destroy() -> None:
     if initialized():
+        _MESH_GROUPS.clear()
         dist.destroy_process_group()
+
+
+# (the world group the groups were made under, dp, tp) -> (data, model)
+_MESH_GROUPS: dict = {}
+
+
+def mesh_groups(dp: int, tp: int) -> Tuple[Any, Any]:
+    """(this rank's data group, its model group) of a dp x tp mesh over the
+    world, rank r at (r // tp, r % tp): the data group holds the ranks of
+    r's model index, the model group those of r's data index. At tp = 1 the
+    data group is the world and the model group None (one rank). Every rank
+    creates every group once, in the same order (new_group's contract), on
+    its first call for (dp, tp) under the open world group."""
+    if tp == 1:
+        return None, None
+    key = (dp, tp)
+    cached = _MESH_GROUPS.get(key)
+    if cached is not None and cached[0] is dist.group.WORLD:
+        return cached[1]
+    r = rank()
+    data = model = None
+    for m in range(tp):  # data groups: one per model index
+        g = dist.new_group([d * tp + m for d in range(dp)])
+        if r % tp == m:
+            data = g
+    for d in range(dp):  # model groups: one per data index
+        g = dist.new_group([d * tp + m for m in range(tp)])
+        if r // tp == d:
+            model = g
+    _MESH_GROUPS[key] = (dist.group.WORLD, (data, model))
+    return data, model
+
+
+def group_size(group: Optional[Any] = None) -> int:
+    """Ranks in `group` (None: the world); 1 without a process group."""
+    if not initialized():
+        return 1
+    return dist.get_world_size(group) if group is not None else dist.get_world_size()
 
 
 def barrier() -> None:
@@ -137,32 +181,48 @@ def _flat_groups(tensors: Sequence[torch.Tensor]) -> List[List[int]]:
     return list(groups.values())
 
 
-def all_reduce_(tensors: Sequence[torch.Tensor], op: str = "sum") -> None:
-    """Reduce `tensors` over the group in place (sum or max), one flat buffer
-    per dtype; a lone contiguous tensor is reduced as it is."""
-    if not initialized():
+def all_reduce_(tensors: Sequence[torch.Tensor], op: str = "sum",
+                group: Optional[Any] = None) -> None:
+    """Reduce `tensors` over `group` (None: the world) in place (sum or
+    max), one flat buffer per dtype; a lone contiguous tensor is reduced as
+    it is."""
+    if not initialized() or (group is not None and group_size(group) == 1):
         return
     red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
     for idx in _flat_groups(tensors):
         ts = [tensors[i] for i in idx]
         if len(ts) == 1 and ts[0].is_contiguous():
-            dist.all_reduce(ts[0], op=red)
+            dist.all_reduce(ts[0], op=red, group=group)
             continue
         flat = torch.cat([t.reshape(-1) for t in ts])
-        dist.all_reduce(flat, op=red)
+        dist.all_reduce(flat, op=red, group=group)
         _unflatten_into(flat, ts)
 
 
-def broadcast_(tensors: Sequence[torch.Tensor], src: int = 0) -> None:
-    """Overwrite `tensors` with rank `src`'s, in place, one flat buffer per
-    dtype."""
-    if world_size() <= 1:
+def broadcast_(tensors: Sequence[torch.Tensor], src: int = 0,
+               group: Optional[Any] = None) -> None:
+    """Overwrite `tensors` with those of global rank `src` (a member of
+    `group`, None: the world), in place, one flat buffer per dtype."""
+    if group_size(group) <= 1:
         return
     for idx in _flat_groups(tensors):
         ts = [tensors[i] for i in idx]
         flat = torch.cat([t.detach().reshape(-1) for t in ts])
-        dist.broadcast(flat, src=src)
+        dist.broadcast(flat, src=src, group=group)
         _unflatten_into(flat, ts)
+
+
+def all_gather(t: torch.Tensor, dim: int, group: Optional[Any] = None) -> torch.Tensor:
+    """The ranks' `t` of `group` (None: the world), each of the same shape,
+    concatenated along `dim` in rank order (a new tensor; `t` itself
+    without a group of more than one rank)."""
+    n = group_size(group)
+    if n <= 1:
+        return t
+    t = t.contiguous()
+    parts = [torch.empty_like(t) for _ in range(n)]
+    dist.all_gather(parts, t, group=group)
+    return torch.cat(parts, dim=dim)
 
 
 @torch.no_grad()

@@ -12,15 +12,26 @@ Adamax state of train/optim.py under ``opt/mu/<path>``, ``opt/nu/<path>``
 and ``opt/count``. A JAX train state ``{"params", "opt_state", "step"}``,
 taken to numpy, maps to that form through `train_state_arrays`; a
 params-only file is the form without the ``opt/`` keys.
+
+Every file holds full leaves, whatever the mesh. A model built for tensor
+parallelism (`model.tp`, models/regat.py) holds this rank's part of each
+split leaf (parallel/mesh.py::shard_axis): `load_jax_arrays` and
+`load_state_arrays` cut the full arrays to it (`shard_arrays`), and
+`full_state` gathers the parts back over the model group (a collective:
+every rank of the group calls it), so a state saved at one tp loads at any
+other.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Optional, Tuple
+from typing import Any, Dict, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
 from torch import nn
+
+from tf_vqa_regat_tpu_torch.parallel import distributed
+from tf_vqa_regat_tpu_torch.parallel.mesh import shard_axis
 
 
 def flatten_tree(tree: Any, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -49,10 +60,24 @@ def to_jax_arrays(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarra
     }
 
 
+def shard_arrays(flat: Mapping[str, np.ndarray], tp: Any) -> Dict[str, np.ndarray]:
+    """Full arrays -> this rank's parts under `tp` (a TensorParallel, or
+    None: the arrays as they are), keyed alike; a key may carry the `opt/`
+    prefix of a moment."""
+    if tp is None:
+        return dict(flat)
+    out = {}
+    for k, v in flat.items():
+        axis = shard_axis(k)
+        out[k] = v if axis is None else tp.shard(np.asarray(v), axis)
+    return out
+
+
 def load_jax_arrays(model: nn.Module, flat: Mapping[str, np.ndarray]) -> None:
-    """Load flat JAX arrays into `model`; raises on a missing or unexpected
+    """Load flat JAX arrays (full leaves) into `model`, each split leaf cut
+    to the rank's part under `model.tp`; raises on a missing or unexpected
     key, or a shape or dtype that differs."""
-    state = from_jax_arrays(flat)
+    state = from_jax_arrays(shard_arrays(flat, getattr(model, "tp", None)))
     own = model.state_dict()
     missing = sorted(set(own) - set(state))
     unexpected = sorted(set(state) - set(own))
@@ -70,8 +95,27 @@ def load_jax_arrays(model: nn.Module, flat: Mapping[str, np.ndarray]) -> None:
     model.load_state_dict(state, strict=True)
 
 
-def save_npz(path: str, model: nn.Module) -> None:
-    np.savez(path, **to_jax_arrays(model.state_dict()))
+def full_state(model: nn.Module, opt: Optional[Any] = None) -> Dict[str, torch.Tensor]:
+    """state_tensors with every split leaf gathered over the model group to
+    its full shape (the live tensors at tp = 1). Every rank of the model
+    group calls it."""
+    flat = state_tensors(model, opt)
+    tp = getattr(model, "tp", None)
+    if tp is None:
+        return flat
+    for k, v in flat.items():
+        axis = shard_axis(k)
+        if axis is not None:
+            flat[k] = distributed.all_gather(v, axis, tp.group)
+    return flat
+
+
+def save_npz(path: str, source: Union[nn.Module, Mapping[str, torch.Tensor]]) -> None:
+    """np.savez of a model's parameters, or of a flat state (`full_state`)."""
+    if isinstance(source, nn.Module):
+        np.savez(path, **to_jax_arrays(source.state_dict()))
+    else:
+        np.savez(path, **{k: v.detach().cpu().numpy() for k, v in source.items()})
 
 
 def load_npz(path: str) -> Dict[str, np.ndarray]:
@@ -106,20 +150,22 @@ def split_state(
 
 
 def load_state_arrays(model: nn.Module, opt: Any, flat: Mapping[str, np.ndarray]) -> None:
-    """Load a flat full state into `model` and its `Adamax`; raises when a
-    key is missing or unexpected, a shape or dtype differs, or the state
-    holds no optimizer."""
+    """Load a flat full state (full leaves) into `model` and its `Adamax`,
+    split leaves and their moments cut to the rank's part under `model.tp`;
+    raises when a key is missing or unexpected, a shape or dtype differs, or
+    the state holds no optimizer."""
     params, opt_flat = split_state(flat)
     if opt_flat is None:
         raise ValueError("the state holds parameters only, no optimizer state")
     load_jax_arrays(model, params)
     moments = {}
+    tp = getattr(model, "tp", None)
     for m in ("mu", "nu"):
         pre = m + "/"
-        moments[m] = {
-            k[len(pre):].replace("/", "."): torch.from_numpy(np.array(v))
-            for k, v in opt_flat.items() if k.startswith(pre)
-        }
+        part = shard_arrays({k[len(pre):]: v for k, v in opt_flat.items() if k.startswith(pre)},
+                            tp)
+        moments[m] = {k.replace("/", "."): torch.from_numpy(np.array(v))
+                      for k, v in part.items()}
     unknown = sorted(k for k in opt_flat if k != "count" and not k.startswith(("mu/", "nu/")))
     if "count" not in opt_flat or unknown:
         raise ValueError(f"optimizer state: count missing or unexpected keys {unknown}")

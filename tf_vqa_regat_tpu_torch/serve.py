@@ -1,20 +1,32 @@
 """`--mode serve`: HTTP answer service over a checkpoint (counterpart of
-tf_vqa_regat_tpu/serve.py, replicated store only).
+tf_vqa_regat_tpu/serve.py).
 
 - Requests are micro-batched to a small set of fixed batch sizes
   (`--serve_batch_sizes`, default 1,8,32); each size runs once at startup,
   which builds the CUDA kernels and, on CUDA, captures the size's forward
   pass as a CUDA graph (train/graphs.py) that every later call replays, so
   the first request pays neither (JAX's pre-compiled batch sizes).
-- The split's feature tables live on the device (data/store.py), at
-  --feature_dtype; a request ships its 14 token ids and an image index, and
-  its rows are gathered at `resolved_num_rois()` (36 under fixed-36). A
-  split whose tables (estimate_nbytes) exceed --device_store_budget_gb is
-  refused before any upload, with JAX's message and remedy at one process
-  (JAX's fallback there, serving over the sharded store, is ROADMAP Queue A
-  item 4; the entry point refuses `--data_mode sharded` for serve).
+- The split's tables live on the device, at --feature_dtype, under JAX's
+  capacity policy (`serve_store_mode`): replicated (data/store.py) when the
+  split's tables (estimate_nbytes) fit --device_store_budget_gb, else
+  sharded over the data axis (data/sharded_store.py) when one shard's
+  (estimate_sharded_nbytes) fits, else refused before any upload with both
+  numbers. A request ships its 14 token ids and an image index; its rows
+  are gathered at `resolved_num_rois()` (36 under fixed-36). On the sharded
+  store each rank takes the requested images it owns and one all-reduce
+  over the data group assembles the batch (`ShardedDeviceStore.gather_images`);
+  that runs before the forward graph, which takes the assembled batch as
+  its static input, so no collective sits in a graph.
 - Concurrent requests are coalesced for up to `--serve_max_delay_ms` into
   one forward pass at the smallest fixed size that fits.
+- Under a process group (dp x tp ranks) JAX drives every device from one
+  process; the port has one process per rank, so rank 0 runs the HTTP
+  server and the MicroBatcher, and each engine call broadcasts (B,
+  questions, images, validity) from it. Every rank then gathers the batch
+  and runs the forward pass (the tp ranks take part in it), and rank 0
+  answers; the other ranks wait in `InferenceEngine.follow` until rank 0's
+  `stop`. At tp > 1 the forward pass runs eagerly (train/step.py::
+  eager_reason).
 
 API (JSON over HTTP, stdlib ThreadingHTTPServer), as the JAX package's:
   GET  /healthz   -> {"status": "ok", "batch_sizes": [...], ...}
@@ -41,39 +53,54 @@ import torch
 
 from tf_vqa_regat_tpu_torch.config import Config
 from tf_vqa_regat_tpu_torch.data.dictionary import encode_question
+from tf_vqa_regat_tpu_torch.data.features import VQADataset
+from tf_vqa_regat_tpu_torch.data.sharded_store import (
+    ShardedDeviceStore,
+    estimate_sharded_nbytes,
+)
 from tf_vqa_regat_tpu_torch.data.store import (
     ImageStore,
     estimate_nbytes,
     gather_adj,
     gather_image_features,
 )
-from tf_vqa_regat_tpu_torch.data.features import VQADataset
 from tf_vqa_regat_tpu_torch.models.regat import ReGAT
+from tf_vqa_regat_tpu_torch.parallel import distributed
+from tf_vqa_regat_tpu_torch.parallel.mesh import Mesh, make_mesh
 from tf_vqa_regat_tpu_torch.train.graphs import StepGraphs
+from tf_vqa_regat_tpu_torch.train.step import resolve_graphed
 
 # Largest client batch one POST may carry (see do_POST).
 MAX_CLIENT_BATCH = 512
 
 
-def check_budget(cfg: Config, ds: VQADataset, include_adj: bool) -> None:
-    """Refuse a split whose device tables (estimate_nbytes) exceed
-    --device_store_budget_gb, with the JAX engine's message and remedy at
-    one process (JAX serve.py:97-125)."""
+def serve_store_mode(cfg: Config, ds: VQADataset, include_adj: bool, dp: int = 1) -> str:
+    """JAX's capacity policy (serve.py:80-140): "replicated" when the
+    split's tables (estimate_nbytes) fit --device_store_budget_gb, else
+    "sharded" when one of dp shards' (estimate_sharded_nbytes, with the
+    semantic labels only: spatial labels are built from the boxes) fits,
+    else a refusal naming both numbers and the remedy."""
     need = estimate_nbytes(ds, include_adj, cfg.feature_dtype)
-    if need <= int(cfg.device_store_budget_gb * 1e9):
-        return
+    budget = int(cfg.device_store_budget_gb * 1e9)
+    if need <= budget:
+        return "replicated"
+    sharded_adj = cfg.relation_type == "semantic"
+    need_sharded = estimate_sharded_nbytes(ds, sharded_adj, cfg.feature_dtype, dp)
+    if need_sharded <= budget:
+        return "sharded"
     if cfg.feature_dtype != "int8":
-        remedy = (f"Use --feature_dtype int8 "
-                  f"(~{estimate_nbytes(ds, include_adj, 'int8') / 1e9:.2f} GB), "
+        remedy = (f"Use --feature_dtype int8 (replicated "
+                  f"~{estimate_nbytes(ds, include_adj, 'int8') / 1e9:.2f} GB, sharded "
+                  f"~{estimate_sharded_nbytes(ds, sharded_adj, 'int8', dp) / 1e9:.2f} GB/shard), "
                   f"raise --device_store_budget_gb,")
     else:  # already the smallest dtype: only the budget helps
-        remedy = "Raise --device_store_budget_gb,"
+        remedy = "Raise --device_store_budget_gb"
     raise ValueError(
         f"serve: split {ds.name!r} at --feature_dtype {cfg.feature_dtype} needs "
-        f"~{need / 1e9:.2f} GB on the device, but the device budget is "
-        f"{cfg.device_store_budget_gb:.2f} GB (--device_store_budget_gb). {remedy} "
-        f"or serve a smaller split (serving over the sharded store is ROADMAP Queue A "
-        f"item 4, multi-device)."
+        f"~{need / 1e9:.2f} GB replicated and ~{need_sharded / 1e9:.2f} GB/shard sharded "
+        f"over dp={dp}, but the device budget is {cfg.device_store_budget_gb:.2f} GB "
+        f"(--device_store_budget_gb). {remedy} serve on more chips, or serve a smaller "
+        f"split."
     )
 
 
@@ -92,14 +119,18 @@ def answer_logits(model: ReGAT, store: ImageStore, num_rois: int, question, img,
     return model(batch)
 
 
-def _answer_step(model: ReGAT, store: ImageStore, num_rois: int):
+def _answer_step(model: ReGAT, store: Optional[ImageStore], num_rois: int):
     """The engine's step for StepGraphs: (argmax label [B], its sigmoid
-    confidence [B])."""
+    confidence [B]), from the request on the replicated store, or from the
+    assembled batch (`store` None: the sharded store's gather ran before)."""
 
     @torch.inference_mode()
     def step(B, inputs, generators) -> Tuple[torch.Tensor, torch.Tensor]:
-        logits = answer_logits(model, store, num_rois, inputs["question"], inputs["img"],
-                               inputs["valid"])
+        if store is None:
+            logits = model(inputs)
+        else:
+            logits = answer_logits(model, store, num_rois, inputs["question"],
+                                   inputs["img"], inputs["valid"])
         best = torch.argmax(logits, dim=-1)
         return best, torch.sigmoid(torch.gather(logits, 1, best[:, None])[:, 0])
 
@@ -108,7 +139,9 @@ def _answer_step(model: ReGAT, store: ImageStore, num_rois: int):
 
 class InferenceEngine:
     """Fixed-batch-size inference over device-resident features: the eval
-    forward pass, then (argmax label, sigmoid confidence) per example."""
+    forward pass, then (argmax label, sigmoid confidence) per example, over
+    the store serve_store_mode chooses. Under a process group every rank
+    builds it alike (module docstring)."""
 
     def __init__(
         self,
@@ -118,15 +151,27 @@ class InferenceEngine:
         device: torch.device,
         batch_sizes: Tuple[int, ...] = (1, 8, 32),
         graphed: Optional[bool] = None,
+        mesh: Optional[Mesh] = None,
     ):
         self.ds = ds
         self.device = torch.device(device)
+        self.mesh = mesh if mesh is not None else make_mesh(cfg.dp_size, cfg.tp_size)
         include_adj = cfg.relation_type != "implicit"
-        check_budget(cfg, ds, include_adj)
+        self.store_mode = serve_store_mode(cfg, ds, include_adj, self.mesh.dp)
         self.model = model.to(self.device).eval()
-        self.store = ImageStore(ds, self.device, cfg.feature_dtype, include_adj=include_adj,
-                                cache_dir=cfg.packed_cache)
         self.num_rois = cfg.resolved_num_rois()
+        if self.store_mode == "sharded":
+            self.store = ShardedDeviceStore(
+                ds, self.device, self.mesh.data, self.mesh.dp, targets=False,
+                feature_dtype=cfg.feature_dtype, include_adj=cfg.relation_type == "semantic",
+                cache_dir=cfg.packed_cache)
+            self.meta = self.store.image_meta_arrays()
+            step_store = None
+        else:
+            self.store = ImageStore(ds, self.device, cfg.feature_dtype,
+                                    include_adj=include_adj, cache_dir=cfg.packed_cache)
+            self.meta = None
+            step_store = self.store
         self.img_index = {
             int(i): int(x)
             for i, x in zip(ds.entries.image_ids, ds.entries.image_index)
@@ -135,11 +180,12 @@ class InferenceEngine:
         self.batch_sizes = tuple(sorted(set(batch_sizes)))
         # one graph per batch size; a replay's outputs live until the next,
         # so a call reads them under the lock
-        self.graphs = StepGraphs(_answer_step(self.model, self.store, self.num_rois),
-                                 self.device, graphed)
+        self.graphs = StepGraphs(_answer_step(self.model, step_store, self.num_rois),
+                                 self.device, resolve_graphed(self.mesh, graphed))
         self._lock = threading.Lock()
-        for B in self.batch_sizes:  # warm every size: builds the kernels, captures
-            self.step(
+        # every rank warms every size alike: builds the kernels, captures
+        for B in self.batch_sizes:
+            self._run(
                 torch.zeros((B, self.max_q_len), dtype=torch.int64, device=self.device),
                 torch.zeros((B,), dtype=torch.int64, device=self.device),
                 torch.zeros((B,), dtype=torch.bool, device=self.device),
@@ -147,18 +193,67 @@ class InferenceEngine:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    def _inputs(self, question, img, valid) -> Dict[str, torch.Tensor]:
+        """The forward graph's inputs: the request on the replicated store;
+        the batch assembled over the data group on the sharded store."""
+        if self.meta is None:
+            return {"question": question, "img": img, "valid": valid}
+        n_box = torch.where(valid, torch.clamp(self.meta["img_len"][img], max=self.num_rois),
+                            torch.zeros_like(img))
+        features, norm_bb, bb, adj = self.store.gather_images(
+            self.meta, img, n_box, self.num_rois, self.mesh.data_group())
+        batch = {"features": features, "norm_bb": norm_bb, "bb": bb, "question": question,
+                 "num_boxes": n_box}
+        if adj is not None:
+            batch["adj_label"] = adj
+        return batch
+
     def logits(self, question, img, valid) -> torch.Tensor:
         """[B, num_answers] for token ids [B, T], image indices [B] and
         validity [B]; invalid (padded) slots get zero boxes and no edges."""
-        return answer_logits(self.model, self.store, self.num_rois, question, img, valid)
+        if self.meta is None:
+            return answer_logits(self.model, self.store, self.num_rois, question, img, valid)
+        with torch.inference_mode():
+            return self.model(self._inputs(question, img, valid))
+
+    def _run(self, question, img, valid) -> Tuple[torch.Tensor, torch.Tensor]:
+        return self.graphs(question.shape[0], self._inputs(question, img, valid))
 
     def step(self, question, img, valid) -> Tuple[np.ndarray, np.ndarray]:
         """(argmax label [B], sigmoid confidence of that label [B]) on the
-        host, for token ids [B, T], image indices [B] and validity [B]."""
+        host, for token ids [B, T], image indices [B] and validity [B]; on
+        rank 0 of a process group, broadcast to every rank first."""
         with self._lock:
-            best, conf = self.graphs(
-                question.shape[0], {"question": question, "img": img, "valid": valid})
+            if distributed.world_size() > 1:
+                B = question.shape[0]
+                distributed.broadcast_([torch.tensor([B, 0], dtype=torch.int64,
+                                                     device=self.device)])
+                distributed.broadcast_([question.to(torch.int64), img.to(torch.int64),
+                                        valid.to(torch.int64)])
+            best, conf = self._run(question, img, valid)
             return best.cpu().numpy(), conf.cpu().numpy()
+
+    def follow(self) -> None:
+        """A rank other than 0: run each call rank 0 broadcasts, until its
+        `stop`."""
+        while True:
+            head = torch.zeros(2, dtype=torch.int64, device=self.device)
+            distributed.broadcast_([head])
+            B, stop = (int(x) for x in head.tolist())
+            if stop:
+                return
+            question = torch.zeros((B, self.max_q_len), dtype=torch.int64, device=self.device)
+            img = torch.zeros((B,), dtype=torch.int64, device=self.device)
+            valid = torch.zeros((B,), dtype=torch.int64, device=self.device)
+            distributed.broadcast_([question, img, valid])
+            self._run(question, img, valid.bool())
+
+    def stop(self) -> None:
+        """Rank 0: end the other ranks' `follow` (a no-op without them)."""
+        if distributed.world_size() > 1 and distributed.is_primary():
+            with self._lock:
+                distributed.broadcast_([torch.tensor([0, 1], dtype=torch.int64,
+                                                     device=self.device)])
 
     def _encode(self, text: str) -> List[int]:
         """Tokenize against the model's vocabulary: ids past it map to the
@@ -282,15 +377,22 @@ class MicroBatcher:
                         fut.set_exception(e)
 
 
+def make_engine(cfg: Config, ds: VQADataset, model: ReGAT,
+                device: torch.device) -> InferenceEngine:
+    """The engine at --serve_batch_sizes, as `--mode serve` builds it on
+    every rank."""
+    return InferenceEngine(
+        cfg, ds, model, device,
+        batch_sizes=tuple(int(x) for x in cfg.serve_batch_sizes.split(",") if x.strip()),
+    )
+
+
 def make_server(
     cfg: Config, ds: VQADataset, model: ReGAT, device: torch.device,
     port: int = 0,
 ) -> Tuple[ThreadingHTTPServer, MicroBatcher]:
     """Build (not start) the HTTP server; port 0 = ephemeral."""
-    engine = InferenceEngine(
-        cfg, ds, model, device,
-        batch_sizes=tuple(int(x) for x in cfg.serve_batch_sizes.split(",") if x.strip()),
-    )
+    engine = make_engine(cfg, ds, model, device)
     batcher = MicroBatcher(engine, cfg.serve_max_delay_ms)
 
     class Handler(BaseHTTPRequestHandler):
@@ -313,7 +415,7 @@ def make_server(
                         "status": "ok",
                         "model": f"{cfg.relation_type}-{cfg.fusion}",
                         "split": ds.name,
-                        "store": "replicated",
+                        "store": engine.store_mode,
                         "device": str(engine.device),
                         "batch_sizes": list(engine.batch_sizes),
                         "num_answers": ds.num_ans,

@@ -28,7 +28,10 @@ one write is in flight, so at most one copy of the state is alive:
 `wait_pending` joins it and raises its error again.
 
 Under a process group every rank reaches each save with the same state (the
-ranks' parameters are bit-identical); rank 0 alone writes `state.npz`,
+ranks' parameters are bit-identical; at tp > 1 the caller gathers the split
+leaves over the model group first, params.py::full_state, so `state.npz`
+holds full leaves at any mesh and a run saved at one tp resumes at any
+other, JAX's process-count-portable contract); rank 0 alone writes `state.npz`,
 `best/` and meta.json, a barrier follows (JAX's `_sync`), and rank 0 prunes
 after it, so no rank leaves a save while the files are being written. The
 asynchronous save applies at one rank only; with more, every save blocks.

@@ -1,6 +1,6 @@
 """Three-branch ReGAT ensemble evaluation (counterpart of
-tf_vqa_regat_tpu/train/ensemble.py at one process: its device-resident and
-host paths).
+tf_vqa_regat_tpu/train/ensemble.py: its device-resident, sharded and host
+paths).
 
 Members are separate checkpoints, each trained with its own
 --relation_type and otherwise the flags of this run: member `rt` is built
@@ -23,6 +23,16 @@ loader streams the batches for all members, and each member's edge labels
 are packed on the host from the file's table per batch and copied (JAX
 ensemble.py:391-).
 
+Over the sharded store (`--data_mode sharded`, or `auto` at dp > 1 when
+only a shard fits; JAX `_member_sharded_arrays`, ensemble.py:187-216) the
+members share one sharded base store without edge labels, and each
+member's labels are partitioned with the base store's image assignment
+(`ShardedDeviceStore.sharded_adj_table`); each data group scores its
+segment of every global batch, and the score and count are summed over the
+data group. Under a process group every member is built for the rank's
+place on the mesh (its part of each split leaf at tp > 1), and the members
+run eagerly at tp > 1 (train/step.py::eager_reason).
+
 CLI: --mode ensemble_eval
      --ensemble_checkpoints implicit:PATH,spatial:PATH,semantic:PATH
 (any non-empty subset of branches).
@@ -39,10 +49,13 @@ import numpy as np
 import torch
 
 from tf_vqa_regat_tpu_torch.config import Config
-from tf_vqa_regat_tpu_torch.data.store import DeviceStore, gather_adj, gather_batch
 from tf_vqa_regat_tpu_torch.data.features import VQADataset
 from tf_vqa_regat_tpu_torch.data.loader import prefetch_to_device
+from tf_vqa_regat_tpu_torch.data.sharded_store import sharded_layout
+from tf_vqa_regat_tpu_torch.data.store import DeviceStore, gather_adj, gather_batch
 from tf_vqa_regat_tpu_torch.models.regat import ReGAT
+from tf_vqa_regat_tpu_torch.parallel import distributed
+from tf_vqa_regat_tpu_torch.parallel.mesh import Mesh, batch_slice, make_mesh
 from tf_vqa_regat_tpu_torch.params import load_jax_arrays
 from tf_vqa_regat_tpu_torch.train.checkpoint import load_params
 from tf_vqa_regat_tpu_torch.train.graphs import StepGraphs, to_device
@@ -56,7 +69,7 @@ from tf_vqa_regat_tpu_torch.train.loop import (
     resolve_data_mode,
 )
 from tf_vqa_regat_tpu_torch.train.loss import vqa_score_sum
-from tf_vqa_regat_tpu_torch.train.step import real_batches
+from tf_vqa_regat_tpu_torch.train.step import eager_reason, real_batches, resolve_graphed
 
 Member = Tuple[str, ReGAT]
 # the host path's per-member edge labels among a graph's inputs
@@ -80,14 +93,17 @@ def parse_members(spec: str) -> List[Tuple[str, str]]:
 
 
 def load_members(
-    cfg: Config, ds: VQADataset, device: torch.device, logger: Logger
+    cfg: Config, ds: VQADataset, device: torch.device, logger: Logger,
+    mesh: Optional[Mesh] = None,
 ) -> List[Member]:
     """Each member of --ensemble_checkpoints, built under this run's flags
-    with its relation type, loaded and in eval mode on `device`. Raises,
-    naming the member, when its parameters do not fit those flags."""
+    with its relation type for this rank's place on `mesh`, loaded and in
+    eval mode on `device`. Raises, naming the member, when its parameters
+    do not fit those flags."""
     members = []
+    tp = None if mesh is None else mesh.tensor_parallel()
     for rt, path in parse_members(cfg.ensemble_checkpoints):
-        model = ReGAT(cfg.replace(relation_type=rt), ds.ntoken, ds.v_dim, ds.num_ans)
+        model = ReGAT(cfg.replace(relation_type=rt), ds.ntoken, ds.v_dim, ds.num_ans, tp=tp)
         try:
             load_jax_arrays(model, load_params(path))
         except ValueError as e:
@@ -157,26 +173,38 @@ def run_ensemble_eval(
     """The ensemble's VQA score (%) over the split, in entry order. On CUDA
     (`graphed`, train/graphs.py) each batch is a replay of one graph that
     runs every member, as JAX's `one_batch` runs them in one program."""
-    members = load_members(cfg, val_ds, device, logger)
+    mesh = make_mesh(cfg.dp_size, cfg.tp_size)
+    members = load_members(cfg, val_ds, device, logger, mesh)
     # the members' edge-label tables sit on the card beside the store in
-    # device mode, so the budget counts them (int8, one byte each)
+    # device mode, so the budget counts them (int8, one byte each); a
+    # shard's tables pad to the largest shard's image count (JAX
+    # ensemble.py:300-330)
     sources = member_adj_sources(members, val_ds)
     extra = sum(int(src.size) for src in sources.values())
-    mode = resolve_data_mode(cfg, val_ds, None, False, extra)
-    if mode == "sharded":
-        raise NotImplementedError(
-            "--mode ensemble_eval over --data_mode sharded is not ported yet (ROADMAP "
-            "Queue A item 4, multi-device: the sharded ensemble); use --data_mode device "
-            "or host")
+    if sources and mesh.dp > 1:
+        local_imgs = sharded_layout(val_ds, mesh.dp)[3]
+        extra_sharded = sum(local_imgs * src.shape[1] * src.shape[2]
+                            for src in sources.values())
+    else:
+        extra_sharded = 0
+    mode = resolve_data_mode(cfg, val_ds, None, False, extra, dp=mesh.dp,
+                             extra_sharded=extra_sharded)
     check_roi_buckets_mode(cfg, mode)
-    logger.write(data_mode_line(cfg, mode, val_ds, None, False, extra))
+    logger.write(data_mode_line(cfg, mode, val_ds, None, False, extra, dp=mesh.dp))
+    if eager_reason(mesh):
+        logger.write(f"[tp] {eager_reason(mesh)}")
+    passes = {"device": _resident_passes, "sharded": _sharded_passes}.get(mode, _host_passes)
     score = torch.zeros((), device=device)
     n = torch.zeros((), device=device)
     start = time.time()
-    for probs, batch in (_resident_passes if mode == "device" else _host_passes)(
-            cfg, val_ds, device, members, sources, graphed):
+    for probs, batch in passes(cfg, val_ds, device, members, sources,
+                               resolve_graphed(mesh, graphed), mesh):
         score += vqa_score_sum(probs, batch["target"], batch["valid"])
         n += batch["valid"].to(torch.float32).sum()
+    if mode == "sharded":  # each data group scored its own segments
+        sums = torch.stack([score, n])
+        distributed.all_reduce_([sums], group=mesh.data_group())
+        score, n = sums[0], sums[1]
     score_pct = 100.0 * float(score) / max(float(n), 1.0)
     logger.write(
         f"[ensemble] members={[rt for rt, _ in members]} data={mode} "
@@ -185,10 +213,11 @@ def run_ensemble_eval(
     return score_pct
 
 
-def _resident_passes(cfg, val_ds, device, members, sources, graphed=None):
+def _resident_passes(cfg, val_ds, device, members, sources, graphed=None, mesh=None):
     """(averaged probabilities, batch) per eval batch from the device store,
     walking blocked_eval_stream's blocks (JAX's ensemble block); on CUDA
-    each batch is one replay, its outputs valid until the next."""
+    each batch is one replay, its outputs valid until the next. Every rank
+    scores every batch."""
     store = build_store(cfg.replace(relation_type="implicit"), val_ds, device)
     tables = member_adj_tables(members, val_ds, device)
 
@@ -203,10 +232,36 @@ def _resident_passes(cfg, val_ds, device, members, sources, graphed=None):
             yield steps(R, {"idx": idx[j]})
 
 
-def _host_passes(cfg, val_ds, device, members, sources, graphed=None):
+def _sharded_passes(cfg, val_ds, device, members, sources, graphed=None, mesh=None):
+    """(averaged probabilities, batch) of this data group's segment of
+    every global eval batch, from the sharded base store and the members'
+    labels partitioned alike, with the batch's entry indices (-1 on padded
+    rows) under "entry"; on CUDA each batch is one replay, its outputs
+    valid until the next."""
+    mesh = mesh if mesh is not None else Mesh(dp=1)
+    store = build_store(cfg.replace(relation_type="implicit"), val_ds, device,
+                        mode="sharded", mesh=mesh)
+    tables = {rt: store.sharded_adj_table(src) for rt, src in sources.items()}
+
+    def one_batch(R, inputs, generators):
+        return averaged_probs(members, store, inputs["idx"], R, tables)
+
+    steps = StepGraphs(one_batch, device, graphed)
+    eval_batch = cfg.resolved_eval_batch(mesh.dp)
+    for R, blk in blocked_eval_stream(cfg, store, eval_batch)[2]:
+        nreal = real_batches(blk)
+        entries = batch_slice(store.to_global(blk), mesh.data, mesh.dp)
+        idx = to_device(batch_slice(blk, mesh.data, mesh.dp)[:nreal], device)
+        for j in range(nreal):
+            probs, batch = steps(R, {"idx": idx[j]})
+            yield probs, dict(batch, entry=entries[j])
+
+
+def _host_passes(cfg, val_ds, device, members, sources, graphed=None, mesh=None):
     """(averaged probabilities, batch) per eval batch of one shared host
     stream; each member's edge labels packed from its table per batch. On
-    CUDA each batch is one replay, its outputs valid until the next."""
+    CUDA each batch is one replay, its outputs valid until the next. Every
+    rank scores every batch."""
     eval_batch, R = cfg.resolved_eval_batch(), cfg.resolved_num_rois()
     shared = dataclasses.replace(val_ds, relation_type="implicit")
     loader = host_loader(cfg, shared, eval_batch, False, include_adj=False)

@@ -63,8 +63,13 @@ the caller asks for it, the same steps run eagerly.
 update (train/step.py); under --roi_buckets they run at their batch's
 bucket R.
 
-Not ported (ROADMAP Queue A item 4): tensor parallelism, and the
-ensemble over the sharded store.
+Tensor parallelism (--tp_size > 1, parallel/mesh.py): the tp ranks of a
+data group take the same rows; the model's split leaves are each rank's
+part (models/regat.py), the steps run eagerly (train/step.py::eager_reason,
+logged once), the sums over the data group. After the init and after a
+resume the parameters are broadcast over each data group from its first
+rank, and every checkpoint gathers the split leaves first, so `state.npz`
+holds full leaves at any tp.
 """
 
 from __future__ import annotations
@@ -92,7 +97,7 @@ from tf_vqa_regat_tpu_torch.data.store import DeviceStore, estimate_nbytes, gath
 from tf_vqa_regat_tpu_torch.models.regat import ReGAT, trainable_mask
 from tf_vqa_regat_tpu_torch.parallel import distributed
 from tf_vqa_regat_tpu_torch.parallel.mesh import Mesh, batch_slice, make_mesh
-from tf_vqa_regat_tpu_torch.params import load_state_arrays, state_tensors
+from tf_vqa_regat_tpu_torch.params import full_state, load_state_arrays
 from tf_vqa_regat_tpu_torch.train import checkpoint as ckpt
 from tf_vqa_regat_tpu_torch.train.logging import Logger, MetricsWriter, time_since
 from tf_vqa_regat_tpu_torch.train.optim import (
@@ -102,7 +107,13 @@ from tf_vqa_regat_tpu_torch.train.optim import (
     make_lr_schedule,
 )
 from tf_vqa_regat_tpu_torch.train.graphs import StepGraphs, to_device
-from tf_vqa_regat_tpu_torch.train.step import EvalSteps, TrainSteps, real_batches
+from tf_vqa_regat_tpu_torch.train.step import (
+    EvalSteps,
+    TrainSteps,
+    eager_reason,
+    real_batches,
+    resolve_graphed,
+)
 
 Metrics = Dict[str, torch.Tensor]
 
@@ -289,7 +300,7 @@ def build_store(
     warning when an image has more boxes than the largest bucket."""
     if mode == "sharded":
         mesh = mesh if mesh is not None else Mesh(dp=1)
-        store = ShardedDeviceStore(ds, device, mesh.rank, mesh.dp, targets, cfg.feature_dtype,
+        store = ShardedDeviceStore(ds, device, mesh.data, mesh.dp, targets, cfg.feature_dtype,
                                    include_adj=cfg.relation_type == "semantic",
                                    cache_dir=cfg.packed_cache)
     else:
@@ -386,7 +397,7 @@ def blocked_eval_stream(
 
 def resolve_data_mode(
     cfg: Config, val_ds: VQADataset, train_ds: Optional[VQADataset], include_adj: bool,
-    extra_bytes: int = 0, dp: int = 1,
+    extra_bytes: int = 0, dp: int = 1, extra_sharded: Optional[int] = None,
 ) -> str:
     """The one data-path policy (JAX loop.py::resolve_data_mode): a forced
     --data_mode as given; under 'auto', 'device' when every split's tables
@@ -396,7 +407,8 @@ def resolve_data_mode(
     (`train_ds` None) and half of it per split with a train split; else
     'sharded' when dp > 1 and every split's per-shard tables
     (estimate_sharded_nbytes, with the semantic table only, as build_store
-    builds it) plus extra_bytes // dp fit; else 'host'. One mode for every
+    builds it) plus `extra_sharded` (those arrays' share on one shard,
+    default extra_bytes // dp) fit; else 'host'. One mode for every
     split."""
     if cfg.data_mode != "auto":
         return cfg.data_mode
@@ -408,7 +420,8 @@ def resolve_data_mode(
     adj_sharded = include_adj and cfg.relation_type == "semantic"
     if dp > 1 and all(
             estimate_sharded_nbytes(ds, adj_sharded, cfg.feature_dtype, dp)
-            + extra_bytes // dp <= per_store for ds in splits):
+            + (extra_bytes // dp if extra_sharded is None else extra_sharded) <= per_store
+            for ds in splits):
         return "sharded"
     return "host"
 
@@ -461,7 +474,7 @@ def host_loader(cfg: Config, ds: VQADataset, batch_size: int, shuffle: bool,
     mesh = mesh if mesh is not None else Mesh(dp=1)
     return BatchLoader(ds, batch_size, cfg.resolved_num_rois(), shuffle, seed=cfg.seed,
                        include_adj=include_adj and cfg.relation_type != "implicit",
-                       feature_dtype=cfg.feature_dtype, shard=(mesh.rank, mesh.dp))
+                       feature_dtype=cfg.feature_dtype, shard=(mesh.data, mesh.dp))
 
 
 class _DataPath:
@@ -561,7 +574,7 @@ class _DataPath:
 
     def eval_steps_of(self, model: ReGAT, graphed: Optional[bool] = None,
                       pool: Any = None) -> EvalSteps:
-        """`model`'s eval steps on this path (graphed on CUDA)."""
+        """`model`'s eval steps on this path (graphed on CUDA at tp = 1)."""
         return EvalSteps(model, self.device, self.eval_store, graphed, pool, self.mesh)
 
 
@@ -622,9 +635,13 @@ def run_training(
         except BaseException:
             logger.close()
             raise
-    # every rank starts from rank 0's parameters and moments
-    distributed.broadcast_([*opt.params, *opt.mu, *opt.nu, opt.count_t])
+    # every rank starts from its data group's first rank's parameters and
+    # moments (the same part of each split leaf)
+    distributed.broadcast_([*opt.params, *opt.mu, *opt.nu, opt.count_t], src=mesh.model,
+                           group=mesh.data_group())
     run_sig = _run_signature(cfg, N, data.mode, mesh.dp)
+    if eager_reason(mesh):
+        logger.write(f"[tp] {eager_reason(mesh)}")
     # the graphs capture the restored tensors: no step runs before the resume
     train = TrainSteps(model, opt, cfg, device, data.train_store, mesh=mesh)
     evaluate = data.eval_steps_of(model, pool=train.graphs.pool)
@@ -692,7 +709,7 @@ def run_training(
                             and done < N  # the epoch save supersedes it
                         ):
                             waited = ckpt.save_checkpoint(
-                                cfg.output, state_tensors(model, opt), epoch, best_score, False,
+                                cfg.output, full_state(model, opt), epoch, best_score, False,
                                 step_in_epoch=done,
                                 acc={k: float(v) for k, v in acc.items()},
                                 # a preemption save must be on disk before exit
@@ -738,7 +755,7 @@ def run_training(
                 best_score = max(best_score, eval_score)
                 if cfg.save_every_epoch:
                     waited = ckpt.save_checkpoint(
-                        cfg.output, state_tensors(model, opt), epoch, best_score, is_best,
+                        cfg.output, full_state(model, opt), epoch, best_score, is_best,
                         block=not cfg.async_checkpoint, run_sig=run_sig,
                         retain=cfg.keep_ckpts,
                     )
@@ -761,7 +778,10 @@ def run_evaluation(
 ) -> Tuple[float, float, float]:
     """`--mode eval`: one eval pass over the split -> (score %, mean loss, s)."""
     model.to(device)
-    data = _DataPath(cfg, None, val_ds, device, logger, make_mesh(cfg.dp_size, cfg.tp_size))
+    mesh = make_mesh(cfg.dp_size, cfg.tp_size)
+    data = _DataPath(cfg, None, val_ds, device, logger, mesh)
+    if eager_reason(mesh):
+        logger.write(f"[tp] {eager_reason(mesh)}")
     return _run_eval(data.eval_steps_of(model), data, cfg, 0, logger, device)
 
 
@@ -779,13 +799,15 @@ def run_prediction(
     forward pass is a replay of its R's graph on CUDA (`graphed`,
     train/graphs.py). Under a process group each rank answers its rows of
     every batch (a sharded rank's local entry ids mapped to the split's), the
-    answers are summed over the ranks and rank 0 writes the file."""
+    answers are summed over the data group and rank 0 writes the file."""
     model.to(device).eval()
     mesh = make_mesh(cfg.dp_size, cfg.tp_size)
     include_adj = cfg.relation_type != "implicit"
     mode = resolve_data_mode(cfg, ds, None, include_adj, dp=mesh.dp)
     check_roi_buckets_mode(cfg, mode)
     logger.write(data_mode_line(cfg, mode, ds, None, include_adj, dp=mesh.dp))
+    if eager_reason(mesh):
+        logger.write(f"[tp] {eager_reason(mesh)}")
     qids = ds.entries.question_ids
     # -1-filled: a coverage gap fails the label2ans lookup, never writes garbage
     answers = np.full(len(qids), -1, dtype=np.int64)
@@ -801,9 +823,9 @@ def run_prediction(
             return model(batch).argmax(dim=-1)
 
     def mine(a: np.ndarray) -> np.ndarray:
-        return batch_slice(a, mesh.rank, mesh.dp)
+        return batch_slice(a, mesh.data, mesh.dp)
 
-    steps = StepGraphs(predict, device, graphed)
+    steps = StepGraphs(predict, device, resolve_graphed(mesh, graphed))
     if store is not None:
         for R, blk in blocked_eval_stream(cfg, store, eval_batch)[2]:
             nreal = real_batches(blk)
@@ -826,9 +848,10 @@ def run_prediction(
         answers[idx[ok]] = lab[ok]
         seen[idx[ok]] = True
     if mesh.group:
-        # each entry is answered on one rank: the sum of (answer + 1, else 0)
+        # each entry is answered in one data group: the sum of (answer + 1,
+        # else 0) over the data group
         got = torch.from_numpy(np.where(seen, answers + 1, 0)).to(device)
-        distributed.all_reduce_([got])
+        distributed.all_reduce_([got], group=mesh.data_group())
         got = got.cpu().numpy()
         answers, seen = got - 1, got > 0
     if not seen.all():

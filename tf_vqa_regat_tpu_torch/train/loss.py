@@ -14,9 +14,16 @@ import torch
 def bce_with_logits_sum(
     logits: torch.Tensor, targets: torch.Tensor, valid: torch.Tensor
 ) -> torch.Tensor:
-    """Sum over answers, mean over valid examples. [b, A], [b, A], [b] -> []."""
+    """Sum over answers, mean over valid examples. [b, A], [b, A], [b] -> [].
+    The gradient is sigmoid(x) - target everywhere, at a logit of exactly 0
+    too (the TF reference's `sigmoid_cross_entropy_with_logits` gradient):
+    `maximum` splits the tie in half and |x| has gradient 0 there. JAX's
+    formula gives -target at 0 (its |x| takes gradient 1), `clamp` gave
+    1 - target: a jump at 0 turns a logit rounded to exactly 0 by another
+    order of sums into a gradient that differs by half an example's
+    weight (README, known deviations)."""
     per_elem = (
-        torch.clamp(logits, min=0.0) - logits * targets
+        torch.maximum(logits, torch.zeros_like(logits)) - logits * targets
         + torch.log1p(torch.exp(-torch.abs(logits)))
     )
     per_example = per_elem.sum(dim=-1)

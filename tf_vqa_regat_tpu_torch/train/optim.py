@@ -4,7 +4,9 @@ clip_per_tensor -> adamax(schedule) -> freeze).
 
 What the chain does, and this class does in the same order:
   - clip each gradient tensor to L2 norm `grad_clip`: g * min(1, c / max(|g|, 1e-12))
-    (per tensor, not the global norm);
+    (per tensor, not the global norm); under tensor parallelism the norm of
+    a split leaf is that of the whole leaf, its squares summed over the
+    model group;
   - Adamax, b1 0.9, b2 0.999, eps 1e-8: mu = b1 mu + (1 - b1) g,
     nu = max(b2 nu, |g| + eps), update = -lr * mu / (1 - b1^t) / nu, with
     the learning rate read at the step count BEFORE the increment; both the
@@ -23,6 +25,9 @@ from typing import Any, Callable, Dict, Mapping, Sequence
 
 import torch
 from torch import nn
+
+from tf_vqa_regat_tpu_torch.parallel import distributed
+from tf_vqa_regat_tpu_torch.parallel.mesh import shard_axis
 
 WARMUP_FACTORS = (1.0, 1.0, 1.2, 1.3, 1.4)
 DECAY_START_EPOCH = 5  # hardcoded range(5, epochs, step) in reference train.py:61
@@ -94,6 +99,10 @@ class Adamax:
         self.names = [n for n, _ in named]
         self.params = [p for _, p in named]
         self.trainable = [trainable[n] for n in self.names]
+        # the leaves split over the model axis, whose norms take a sum there
+        self.tp = getattr(model, "tp", None)
+        self.split = ([i for i, n in enumerate(self.names) if shard_axis(n) is not None]
+                      if self.tp is not None else [])
         self.schedule, self.grad_clip = schedule, grad_clip
         self.b1, self.b2, self.eps = b1, b2, eps
         self.mu = [torch.zeros_like(p) for p in self.params]
@@ -106,7 +115,12 @@ class Adamax:
     @torch.no_grad()
     def step(self, grads: Sequence[torch.Tensor]) -> None:
         """Apply one update from `grads`, one per parameter, in order."""
-        scale = torch._foreach_norm(grads)
+        scale = list(torch._foreach_norm(grads))
+        if self.split:
+            ss = torch.stack([scale[i] for i in self.split]) ** 2
+            distributed.all_reduce_([ss], group=self.tp.group)
+            for j, i in enumerate(self.split):
+                scale[i] = torch.sqrt(ss[j])
         torch._foreach_clamp_min_(scale, 1e-12)
         torch._foreach_reciprocal_(scale)
         torch._foreach_mul_(scale, self.grad_clip)

@@ -30,8 +30,16 @@ JAX's SPMD step takes over the global batch (train/step.py:44-106 there).
 No rank averages its own gradient first: the sharded store's padded tails
 give the ranks different counts. On CUDA the step is two graphs with the
 all-reduce between them (gloo collectives cannot be captured). A rank's
-dropout generators are seeded by (seed + 1, step, microbatch, rank).
+dropout generators are seeded by (seed + 1, step, microbatch, data index).
 Eval sums the loss, score and count of a block over the ranks.
+
+Tensor parallelism (dp x tp ranks, parallel/mesh.py): the sums are
+all-reduced over the data group (the ranks of one model index), since the
+tp ranks of a data group hold the same rows; a split leaf keeps its part in
+the flat buffer, which the ranks of one data group lay out alike. At
+tp > 1 the forward and backward passes hold collectives over the model
+group, which a CUDA graph cannot capture here (gloo's cannot be captured at
+all), so the steps run eagerly (`eager_reason`).
 """
 
 from __future__ import annotations
@@ -184,6 +192,25 @@ def eval_step(model: ReGAT, batch: Batch) -> Dict[str, torch.Tensor]:
     return _metrics(logits, bce_with_logits_sum(logits, batch["target"], batch["valid"]), batch)
 
 
+def eager_reason(mesh: Mesh) -> Optional[str]:
+    """Why a step of `mesh` runs eagerly on the card, or None (graphed)."""
+    if mesh.tp > 1:
+        return (f"tp={mesh.tp}: each step runs eagerly (its forward and backward passes "
+                f"hold collectives over the model group, which a CUDA graph does not "
+                f"capture here)")
+    return None
+
+
+def resolve_graphed(mesh: Mesh, graphed: Optional[bool]) -> Optional[bool]:
+    """`graphed` for a step of `mesh`: False at tp > 1, where an explicit
+    True raises."""
+    if eager_reason(mesh) is None:
+        return graphed
+    if graphed:
+        raise ValueError(f"graphed steps are refused at {eager_reason(mesh)}")
+    return False
+
+
 def real_batches(blk: np.ndarray) -> int:
     """The real batches of an index block [K, B]: its leading rows with an
     entry, the rest being the tail's all -1 padding (JAX runs a batch when
@@ -211,7 +238,8 @@ class TrainSteps:
         self.seed, self.k, self.dtype = cfg.seed, cfg.grad_accum, cfg.compute_dtype
         self.device = torch.device(device)
         self.mesh = mesh if mesh is not None else Mesh(dp=1)
-        seed, k, rank = self.seed, self.k, self.mesh.rank
+        graphed = resolve_graphed(self.mesh, graphed)
+        seed, k, rank = self.seed, self.k, self.mesh.data
 
         def gather(key, inputs) -> Batch:
             return inputs if store is None else gather_batch(store, inputs["idx"], key[0])
@@ -243,12 +271,12 @@ class TrainSteps:
         """One optimizer step at roi count R -> its metrics (a graph's
         outputs: consume them before the next step)."""
         count = self.opt.count
-        seeds = [step_seed(self.seed + 1, count, a, self.mesh.rank) for a in range(self.k)]
+        seeds = [step_seed(self.seed + 1, count, a, self.mesh.data) for a in range(self.k)]
         if self.sums is None:
             m = self.graphs((R, self.k, self.dtype), inputs, seeds)
         else:
             self.graphs((R, self.k, self.dtype), inputs, seeds)
-            distributed.all_reduce_([self.sums.flat])
+            distributed.all_reduce_([self.sums.flat], group=self.mesh.data_group())
             m = self.update("update", {})
         self.opt.count = count + 1
         return m
@@ -258,7 +286,7 @@ class TrainSteps:
         one step each, with one copy of this rank's rows to the card -> the
         block's metrics (add_step): JAX's scanned block, whose padded steps
         leave the state as it is."""
-        blk = batch_slice(blk, self.mesh.rank, self.mesh.dp)
+        blk = batch_slice(blk, self.mesh.data, self.mesh.dp)
         idx = to_device(blk[:nreal], self.device)
         acc = block_zeros(self.device)
         for j in range(nreal):
@@ -276,13 +304,14 @@ class EvalSteps:
     """The eval steps of one model, through train/graphs.py: one graph per
     R, fed an index vector into `store` or a host batch. Under a process
     group each rank runs its rows of a block and the block's loss sum,
-    score and count are summed over the ranks."""
+    score and count are summed over the data group."""
 
     def __init__(self, model: ReGAT, device: torch.device, store: Optional[DeviceStore] = None,
                  graphed: Optional[bool] = None, pool: Any = None,
                  mesh: Optional[Mesh] = None):
         self.device = torch.device(device)
         self.mesh = mesh if mesh is not None else Mesh(dp=1)
+        graphed = resolve_graphed(self.mesh, graphed)
 
         def step(R, inputs, generators) -> Dict[str, torch.Tensor]:
             batch = inputs if store is None else gather_batch(store, inputs["idx"], R)
@@ -296,7 +325,7 @@ class EvalSteps:
         block of one is the step's own metrics. Padded batches do not run:
         they add nothing."""
         nreal = real_batches(blk)
-        idx = to_device(batch_slice(blk, self.mesh.rank, self.mesh.dp)[:nreal], self.device)
+        idx = to_device(batch_slice(blk, self.mesh.data, self.mesh.dp)[:nreal], self.device)
         if blk.shape[0] == 1 and not self.mesh.group:
             return self.graphs(R, {"idx": idx[0]})
         acc = block_zeros(self.device)
@@ -315,6 +344,6 @@ class EvalSteps:
     def _summed(self, acc: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """A block's metrics from its sums, summed over the ranks."""
         sums = torch.stack([acc["loss_sum"], acc["score"], acc["n"]])
-        distributed.all_reduce_([sums])
+        distributed.all_reduce_([sums], group=self.mesh.data_group())
         return {"loss": sums[0] / torch.clamp(sums[2], min=1.0), "score": sums[1],
                 "n": sums[2]}
