@@ -246,9 +246,38 @@ Phases, each of which fails the run (non-zero exit, no result line):
      scored once, averaged probabilities within ENSEMBLE_PROB_ATOL of the
      replicated store's, answers equal outside ties, the score equal; the
      gloo collectives of the b=256 TP step alone (all-gather of Q, the
-     all-reduce of the attention input's gradient), host clock.
-Counts of launches are set to 0 just before each path of 8-13, 17-21, 23
-and 24 (in each rank's process in 23 (b) and 24) runs and read just after it; the comparison launches of 3-7, 14-16 and 22
+     all-reduce of the attention input's gradient), host clock. Then the
+     control of the tp = 2 gap: butd at tp = 1 in a child process whose
+     classifier fc2 product is the sum of its two halves over the input
+     dimension (a monkeypatch there, no flag), its end-of-epoch eval-loss
+     gap and parameters beyond JAX's tolerance against plain tp = 1
+     printed beside tp = 2's.
+ 25. the reference-quirk switches, --debug_nans and the profilers
+     (models/language.py, ops/position.py, train/debug_nans.py,
+     train/profiling.py): (a) butd_vqa.json at full width, b=256, with
+     --ref_compat_q_att --ref_compat_pos: B1's eval variant (b = 1, 32) and
+     train variant (b = 256, gradients through ImplicitAttention) on the
+     regrouped position matrix against the plain version at 3-4's bounds;
+     `--mode train --epochs 1` on 1,536 questions (falling loss, 2 B1
+     launches per forward pass, every step a graph replay), `--mode eval`
+     and `--mode predict` of its .npz (8, 9, 12's checks), HTTP serve (10's)
+     and engine calls of 3 requests padded to 8 and of 1 against the plain
+     path, and 6 steps graphed against eager bit for bit; (b)
+     --ref_compat_q_att at dp = 2 on two gloo ranks (23 (b)'s flags): the
+     train loss within DP_METRIC_RTOL of the same flags at one rank, the
+     ranks bit-identical, the eager reason logged; (c) --debug_nans, butd
+     and semantic at full width (23 (b)'s flags): per-epoch losses within
+     RESUME_RTOL of the graphed run, the eager reason logged, the eager and
+     graphed step times; a run on all-NaN features in a child process must
+     raise FloatingPointError naming a module; (d) --profile_dir on a butd
+     and a semantic epoch: the `data` and `step` spans, the graph launches
+     and the kernels the trace records (B1's and B2's symbols among them),
+     the traced epoch's time against the untraced one; (e) --profile_port:
+     one GET /capture?duration_ms=500 during a butd run answers with a
+     trace file that exists; every step of (c)-(e) but --debug_nans' stays
+     a graph replay.
+Counts of launches are set to 0 just before each path of 8-13, 17-21 and
+23-25 (in each rank's process in 23 (b), 24 and 25 (b)) runs and read just after it; the comparison launches of 3-7, 14-16 and 22
 and of the plain-path comparisons do not count. Every step of 8-21 is a
 CUDA graph replay, whose wrapper counts are added per replay (a capture's
 are taken back), so a count is the launches the card ran. Each phase prints its wall
@@ -558,12 +587,15 @@ def plain_kernels():
         graph_attention.fused_graph_attention = ga.fused_graph_attention
 
 
-def kernel_inputs(b, device, seed, R=SERVE_SHAPES["R"]):
+def kernel_inputs(b, device, seed, R=SERVE_SHAPES["R"], position=None):
     """Serve-shaped inputs for one direction of the implicit attention, at
-    R query rows (box counts 10-R)."""
+    R query rows (box counts 10-R), the position matrix by `position`
+    (default ops/position.py::position_matrix)."""
     import torch
 
     from tf_vqa_regat_tpu_torch.ops.position import position_matrix
+
+    position = position or position_matrix
 
     s = SERVE_SHAPES
     H, dh, o, n, P = s["H"], s["dh"], s["o"], s["n"], s["P"]
@@ -585,7 +617,7 @@ def kernel_inputs(b, device, seed, R=SERVE_SHAPES["R"]):
     q[0, 7, 0, :] = 8.0
     return dict(
         q=q, k=k, vw=randn(b, n, H, o),
-        pos_mat=position_matrix(torch.cat([xy, xy + wh], -1), n).contiguous(),
+        pos_mat=position(torch.cat([xy, xy + wh], -1), n).contiguous(),
         w_pos=randn(P, H, scale=0.2), b_pos=randn(H, scale=0.5),
         key_mask=torch.arange(n, device=device)[None, :] < num_boxes[:, None],
     )
@@ -3042,43 +3074,53 @@ def graph_train_steps(device, cfg, ds, store, graphed):
     return state, ms, train.graphs.capture_seconds(), peak, launches
 
 
+def check_graph_row(device, smi, family, extra, R, path, held=True):
+    """One row of phase 22 (a): GRAPH_STEPS train steps graphed against
+    eager from the same seeded init, bit for bit where `held`, and the
+    timings of both -> (graphed ms, eager ms, capture s, peak GB graphed,
+    eager)."""
+    import torch
+
+    label = f"{CONFIGS[family]} {' '.join(extra)} R={R} {path}".replace("  ", " ")
+    cfg, ds, store = graph_setup(device, family, extra, R, path)
+    g, g_ms, capture, g_peak, g_launch = graph_train_steps(device, cfg, ds, store, True)
+    e, e_ms, _, e_peak, e_launch = graph_train_steps(device, cfg, ds, store, False)
+    del store
+    torch.cuda.empty_cache()
+    equal = {k: all(torch.equal(a, b) for a, b in zip(g[k], e[k]))
+             for k in ("params", "mu", "nu")}
+    equal["metrics"] = all(torch.equal(a[k], b[k]) for a, b in zip(g["metrics"], e["metrics"])
+                           for k in a)
+    diff = max(float((a - b).abs().max()) for a, b in zip(g["params"], e["params"]))
+    kernel = "B1 train" if family in B1_FAMILIES else "B2"
+    steps = GRAPH_STEPS
+    want = {n: 0 for n in g_launch}
+    want[kernel] = 2 * cfg.grad_accum * steps
+    print(f"graphs {label}: {steps} steps graphed vs eager: bit-equal "
+          f"{json.dumps(equal)} (params max abs diff {diff}), counts {g['count']} / "
+          f"{e['count']}; launches graphed {json.dumps(g_launch)}, eager "
+          f"{json.dumps(e_launch)}; ms/step (host clock, {steps} steps after the first "
+          f"{steps}) graphed {g_ms:.3f}, eager {e_ms:.3f}; capture (warm-up + capture) "
+          f"{json.dumps({str(k): round(v, 3) for k, v in capture.items()})} s; peak "
+          f"memory graphed {g_peak:.2f} GB, eager {e_peak:.2f} GB; on {smi}", flush=True)
+    if g_launch != want or e_launch != want:
+        fail(f"graphs {label}: launches graphed {g_launch}, eager {e_launch}, want {want}")
+    if held and not all(equal.values()):
+        fail(f"graphs {label}: graphed and eager steps differ: {equal}, params {diff}")
+    if g["count"] != e["count"] or g["count"] != (steps, steps):
+        fail(f"graphs {label}: step counts {g['count']} / {e['count']}")
+    return g_ms, e_ms, capture, g_peak, e_peak
+
+
 def check_graphs_train(device, smi):
     """Phase 22 (a): graphed against eager train steps, bit for bit, and the
     timings of both. Returns {label: (graphed ms, eager ms, capture s, peak
     GB graphed, eager)}."""
-    import torch
-
     rows = {}
     for family, extra, R, path in GRAPH_CHECKS + GRAPH_TIMINGS:
         label = f"{CONFIGS[family]} {' '.join(extra)} R={R} {path}".replace("  ", " ")
-        cfg, ds, store = graph_setup(device, family, extra, R, path)
-        g, g_ms, capture, g_peak, g_launch = graph_train_steps(device, cfg, ds, store, True)
-        e, e_ms, _, e_peak, e_launch = graph_train_steps(device, cfg, ds, store, False)
-        del store
-        torch.cuda.empty_cache()
-        equal = {k: all(torch.equal(a, b) for a, b in zip(g[k], e[k]))
-                 for k in ("params", "mu", "nu")}
-        equal["metrics"] = all(torch.equal(a[k], b[k]) for a, b in zip(g["metrics"], e["metrics"])
-                               for k in a)
-        diff = max(float((a - b).abs().max()) for a, b in zip(g["params"], e["params"]))
-        kernel = "B1 train" if family in B1_FAMILIES else "B2"
-        steps = GRAPH_STEPS
-        want = {n: 0 for n in g_launch}
-        want[kernel] = 2 * cfg.grad_accum * steps
-        rows[label] = (g_ms, e_ms, capture, g_peak, e_peak)
-        print(f"graphs {label}: {steps} steps graphed vs eager: bit-equal "
-              f"{json.dumps(equal)} (params max abs diff {diff}), counts {g['count']} / "
-              f"{e['count']}; launches graphed {json.dumps(g_launch)}, eager "
-              f"{json.dumps(e_launch)}; ms/step (host clock, {steps} steps after the first "
-              f"{steps}) graphed {g_ms:.3f}, eager {e_ms:.3f}; capture (warm-up + capture) "
-              f"{json.dumps({str(k): round(v, 3) for k, v in capture.items()})} s; peak "
-              f"memory graphed {g_peak:.2f} GB, eager {e_peak:.2f} GB; on {smi}", flush=True)
-        if g_launch != want or e_launch != want:
-            fail(f"graphs {label}: launches graphed {g_launch}, eager {e_launch}, want {want}")
-        if (family, extra, R, path) in GRAPH_CHECKS and not all(equal.values()):
-            fail(f"graphs {label}: graphed and eager steps differ: {equal}, params {diff}")
-        if g["count"] != e["count"] or g["count"] != (steps, steps):
-            fail(f"graphs {label}: step counts {g['count']} / {e['count']}")
+        rows[label] = check_graph_row(device, smi, family, extra, R, path,
+                                      (family, extra, R, path) in GRAPH_CHECKS)
     return rows
 
 
@@ -3852,6 +3894,94 @@ def answer_gaps(cfg_argv, npz_path, entries, device):
     return ((top2[:, 0] - top2[:, 1]) / logits.abs().max()).tolist()
 
 
+def control_child(out, kind):
+    """Phase 24's controls: butd at tp = 1 with TP_FLAGS (as 23 (b)'s (a'))
+    where only the order of some sums changes, by a monkeypatch here. `fc2`:
+    the classifier's fc2 product as the sum of its two halves over the input
+    dimension, as tp = 2 sums it. `tp2`: every sum that tp = 2 splits, split
+    the same way in one process: the norms of the split kernels (Q, K, the
+    grouped V kernel, the classifier's two layers) as the sum of their two
+    halves' sums of squares, Q, K and V·W computed per half of the heads
+    and joined, the classifier's hidden layer per half of its columns, fc2
+    as in `fc2`."""
+    sys.path.insert(0, REPO)
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from tf_vqa_regat_tpu_torch import main as port_main
+    from tf_vqa_regat_tpu_torch.models import regat
+    from tf_vqa_regat_tpu_torch.models.classifier import Classifier
+    from tf_vqa_regat_tpu_torch.nn import dropout
+    from tf_vqa_regat_tpu_torch.ops import graph_attention, weight_norm
+
+    def fc2_halves(self, x, generator=None):
+        x = dropout(torch.relu(self.fc1(x)), self.drop_rate, self.training, generator)
+        k = self.fc2.kernel()
+        h = k.shape[0] // 2
+        return (x[:, :h] @ k[:h] + x[:, h:] @ k[h:]) + self.fc2.b
+
+    Classifier.forward = fc2_halves
+    if kind == "tp2":
+        def scale(v, g, axis):
+            a, b = v.split(v.shape[axis] // 2, dim=axis)
+            return g * torch.rsqrt((torch.sum(a * a) + torch.sum(b * b)) + 1e-12)
+
+        def cols_forward(self, x, out_dtype=None):
+            k = self.v * scale(self.v, self.g, 1)
+            h = k.shape[1] // 2
+            return torch.cat([x @ k[:, :h], x @ k[:, h:]], -1) + self.b
+
+        class Einsum:
+            """The module's torch, the grouped projection per half of the heads."""
+
+            def __getattr__(self, name):
+                return getattr(torch, name)
+
+            @staticmethod
+            def einsum(eq, x, k):
+                if eq != "bnd,hdo->bnho":
+                    return torch.einsum(eq, x, k)
+                h = k.shape[0] // 2
+                return torch.cat([torch.einsum(eq, x, k[:h]), torch.einsum(eq, x, k[h:])], 2)
+
+        real_init, real_forward = regat.ReGAT.__init__, weight_norm.WNLinear.forward
+        real_kernel = weight_norm.WNLinear.kernel
+
+        def init(self, *a, **k):
+            real_init(self, *a, **k)
+            for d in self.v_relation.gatt.neighbor:
+                d.query.layers[0].emul = d.key.layers[0].emul = "cols"
+            self.classifier.fc1.emul, self.classifier.fc2.emul = "cols", "rows"
+
+        def forward(self, x, out_dtype=None):
+            if getattr(self, "emul", None) == "cols":
+                return cols_forward(self, x, out_dtype)
+            return real_forward(self, x, out_dtype)
+
+        def kernel(self, dtype=torch.float32):
+            axis = {"cols": 1, "rows": 0}.get(getattr(self, "emul", None))
+            if axis is None:
+                return real_kernel(self, dtype)
+            return (self.v * scale(self.v, self.g, axis)).to(dtype)
+
+        regat.ReGAT.__init__ = init
+        weight_norm.WNLinear.forward, weight_norm.WNLinear.kernel = forward, kernel
+        graph_attention.GroupedProjection.kernel = lambda self: self.v * scale(self.v, self.g, 0)
+        graph_attention.torch = Einsum()
+    port_main.main(entry_argv("implicit", out, *TP_FLAGS, "--data_mode", "device"))
+
+
+def beyond_by_leaf(got, want, top=6):
+    """The leaves with the most elements beyond JAX's tp tolerance, most
+    first: [(leaf, count, its size)]."""
+    import numpy as np
+
+    counts = [(k, int((np.abs(got[k] - w) > DP_PARAM_ATOL + DP_PARAM_RTOL * np.abs(w)).sum()),
+               int(w.size)) for k, w in want.items()]
+    return sorted((c for c in counts if c[1]), key=lambda c: -c[1])[:top]
+
+
 def check_tp(tmp, smi, device, npz):
     """24 (a)-(c) over the two gloo ranks, and (b) at one NCCL rank. Returns
     the launches of every path, each rank's apart."""
@@ -4004,6 +4134,7 @@ def check_tp(tmp, smi, device, npz):
     DP_SOLO["semantic"] = os.path.join(tmp, "solo-semantic")
     port_main.main(entry_argv("semantic", DP_SOLO["semantic"], *TP_FLAGS, "--data_mode", "device"))
     launches.append(read_path_counts())
+    end_gap = {}  # per family: (end-of-epoch eval loss rel gap, parameters beyond tolerance)
     for family in ("implicit", "semantic"):
         name = f"{family}-butd"
         two, one = read_run(outs[family], name), read_run(DP_SOLO[family], name)
@@ -4024,6 +4155,7 @@ def check_tp(tmp, smi, device, npz):
                           + DP_PARAM_RTOL * np.abs(one[0][k])).sum()) for k in one[0])
         total = sum(v.size for v in one[0].values())
         diff = max(float(np.abs(two[0][k] - one[0][k]).max()) for k in one[0])
+        end_gap[family] = (max(v for k, v in gaps.items() if k.startswith("eval_loss")), beyond)
         step_ms = statistics.median(reports[0]["records"][i]["step_ms"])
         # eval and predict of the tp = 2 .npz at tp = 1, in this process
         final = os.path.join(outs[family], f"{name}-pretrained_model.npz")
@@ -4054,6 +4186,38 @@ def check_tp(tmp, smi, device, npz):
             fail(f"tp (a) {family}: tp=2 differs from tp=1 by rel {metric} / {eval_rel}")
         if a1 and [a["question_id"] for a in a2] != qids or any(g > LOGITS_RTOL for g in gaps_at):
             fail(f"tp (a) {family}: answers differ outside ties: {differ} {gaps_at}")
+    # the controls: tp = 1 runs that differ from plain tp = 1 only in the
+    # order of sums (ROADMAP Queue C's open check), each in a child process
+    one = read_run(DP_SOLO["implicit"])
+    tp2 = read_run(outs["implicit"], "implicit-butd")
+    print(f"tp (a) butd tp=2 vs tp=1: end-of-epoch eval loss rel gap "
+          f"{end_gap['implicit'][0]}, {end_gap['implicit'][1]} parameters beyond JAX's tp "
+          f"tolerance, most in {beyond_by_leaf(tp2[0], one[0])}; semantic tp=2: "
+          f"{end_gap['semantic'][0]}, {end_gap['semantic'][1]}", flush=True)
+    for kind in ("fc2", "tp2"):
+        control = os.path.join(tmp, f"control-{kind}")
+        child = subprocess.run([sys.executable, os.path.abspath(__file__), "--control_child",
+                                control, kind], cwd=REPO, capture_output=True, text=True,
+                               timeout=600)
+        if child.returncode != 0:
+            fail(f"tp control {kind} exited {child.returncode}:\n{child.stderr[-3000:]}")
+        ctl = read_run(control)
+        ctl_gap = max(abs(ctl[1][e]["eval_loss"] - m["eval_loss"]) / abs(m["eval_loss"])
+                      for e, m in one[1].items())
+        ctl_beyond = beyond_by_leaf(ctl[0], one[0], top=len(one[0]))
+        ratio = end_gap["implicit"][0] / max(ctl_gap, 1e-30)
+        to_tp2 = beyond_by_leaf(ctl[0], tp2[0], top=len(one[0]))
+        print(f"tp (a) control {kind} vs tp=2: params max abs diff "
+              f"{max(float(np.abs(ctl[0][k] - tp2[0][k]).max()) for k in one[0])}, "
+              f"{sum(c[1] for c in to_tp2)} beyond JAX's tp tolerance", flush=True)
+        print(f"tp (a) control {kind} (control_child), butd at tp=1 vs plain tp=1: "
+              f"end-of-epoch eval loss rel gap {ctl_gap}, "
+              f"{sum(c[1] for c in ctl_beyond)} parameters beyond JAX's tp tolerance, most in "
+              f"{ctl_beyond[:6]}; tp=2's gap over this control's: {ratio:.3f} (a fault above "
+              f"3, ROADMAP Queue C); train loss rel diff "
+              f"{abs(ctl[1][0]['train_loss'] - one[1][0]['train_loss']) / abs(one[1][0]['train_loss'])}",
+              flush=True)
+
     # a tp = 2 checkpoint resumed at tp = 1
     reset_counts()
     port_main.main(entry_argv("implicit", outs["preempted"], *TP_FLAGS, "--data_mode", "device",
@@ -4144,6 +4308,327 @@ def run_phase_24(tmp_root, smi, device, npz):
         return check_tp(os.path.join(tmp_root, "tp"), smi, device, npz)
 
 
+# phase 25: the reference-quirk switches, --debug_nans and the profilers
+REF_FLAGS = ("--ref_compat_q_att", "--ref_compat_pos")
+# the poisoned --debug_nans child's exit code when it meets FloatingPointError
+NAN_EXIT = 3
+KERNEL_SYMBOLS = {"B1": "implicit_attention_kernel", "B2": "graph_attention_kernel"}
+
+
+@contextlib.contextmanager
+def step_graphs():
+    """Every StepGraphs built in the block (their `graphed` says whether
+    each step is a replay)."""
+    from tf_vqa_regat_tpu_torch.train import graphs
+
+    real, built = graphs.StepGraphs.__init__, []
+
+    def init(self, *a, **k):
+        real(self, *a, **k)
+        built.append(self)
+
+    graphs.StepGraphs.__init__ = init
+    try:
+        yield built
+    finally:
+        graphs.StepGraphs.__init__ = real
+
+
+def check_b1_regrouped(device):
+    """25 (a): B1's eval variant (b = 1, 32) and train variant (b = 256,
+    keep-mask at rate 0.2, gradients through `ImplicitAttention`) on the
+    --ref_compat_pos position matrix against the plain version, at the
+    bounds of phases 3-4. Returns the largest differences."""
+    import torch
+
+    from tf_vqa_regat_tpu_torch.ops.kernels import implicit_attention as ia
+    from tf_vqa_regat_tpu_torch.ops.position import position_matrix_ref_compat
+
+    s, err = SERVE_SHAPES, {}
+    for b in (1, 32):
+        x = kernel_inputs(b, device, seed=500 + b, position=position_matrix_ref_compat)
+        args = [x[k] for k in KERNEL_ARGS]
+        got = ia.fused_implicit_graph_attention(*args)
+        err[f"eval_b{b}"] = (got - implicit_reference(*args)).abs().max().item()
+        if not torch.isfinite(got).all() or not err[f"eval_b{b}"] <= KERNEL_ATOL:
+            fail(f"B1 eval on the regrouped matrix at b={b}: {err}")
+    b = 256
+    x = kernel_inputs(b, device, seed=756, position=position_matrix_ref_compat)
+    g = torch.Generator(device=device).manual_seed(b)
+    bits = torch.randint(0, 256, (b, s["R"], s["n"], s["P"]), generator=g, device=device,
+                         dtype=torch.uint8)
+    dropmask = (bits >= 51).view(torch.uint8)
+    G = torch.randn(b, s["R"], s["H"], s["o"], generator=g, device=device)
+    args = [x[k] for k in KERNEL_ARGS] + [0.2, dropmask]
+    with torch.no_grad():
+        out_k, pwr_k = ia.KERNEL(*args, save_pwr=True)
+        out_p, pwr_p = implicit_reference(*args, save_pwr=True)
+
+    def fwd_bwd(fn):
+        leaves = {k: x[k].clone().requires_grad_() for k in GRAD_ARGS}
+        out = fn(*(leaves.get(k, x[k]) for k in KERNEL_ARGS), 0.2, dropmask)
+        return dict(zip(GRAD_ARGS, torch.autograd.grad((out * G).sum(),
+                                                       [leaves[k] for k in GRAD_ARGS])))
+
+    grads_k = fwd_bwd(ia.fused_implicit_graph_attention)  # the Function
+    grads_p = fwd_bwd(ia.implicit_attention_plain)
+    err.update(out=(out_k - out_p).abs().max().item(), pwr=(pwr_k - pwr_p).abs().max().item(),
+               **{f"d{k}": max_rel(grads_k[k], grads_p[k]) for k in GRAD_ARGS})
+    print(f"ref_compat (a) B1 on the --ref_compat_pos matrix (R=100, n=20) vs plain: "
+          f"{json.dumps(err)}", flush=True)
+    for name, tol in [("out", KERNEL_ATOL), ("pwr", PWR_ATOL), ("dq", GRAD_RTOL),
+                      ("dk", GRAD_RTOL), ("dvw", GRAD_RTOL), ("dw_pos", POS_GRAD_RTOL),
+                      ("db_pos", POS_GRAD_RTOL)]:
+        if not err[name] <= tol:
+            fail(f"B1 train on the regrouped matrix: {name} differs by {err[name]} > {tol}")
+    return err
+
+
+def check_padded_serve(npz, device):
+    """25 (a): one engine call of 3 requests, padded to the compiled size 8
+    (the padded slots enter the batch-axis softmax), and one of 1, against
+    the plain path's logits of the same padded batches."""
+    import torch
+
+    from tf_vqa_regat_tpu_torch import main as port_main
+    from tf_vqa_regat_tpu_torch.serve import InferenceEngine
+
+    argv = entry_argv("implicit", os.path.dirname(npz), "--mode", "serve", "--checkpoint",
+                      npz, *REF_FLAGS)
+    cfg = port_main.parse(argv)[0]
+    ds = port_main.build_dataset(cfg)
+    engine = InferenceEngine(cfg, ds, port_main.load_model(cfg, ds), device)
+    gaps = {}
+    for m, B in ((3, 8), (1, 1)):
+        qs, ids = serve_requests(engine, m)
+        answers = engine.infer(qs, ids)
+        toks = torch.full((B, engine.max_q_len), ds.padding_idx, device=device)
+        toks[:m] = torch.tensor([engine._encode(q) for q in qs], device=device)
+        img = torch.zeros(B, dtype=torch.int64, device=device)
+        img[:m] = torch.tensor([engine.img_index[i] for i in ids], device=device)
+        valid = torch.arange(B, device=device) < m
+        got = engine.logits(toks, img, valid)
+        with plain_kernels():
+            want = engine.logits(toks, img, valid)
+        gaps[f"{m} in {B}"] = (got - want).abs().max().item()
+        scale = want.abs().max().item()
+        labels = [ds.label2ans[int(a)] for a in want[:m].argmax(-1)]
+        if not gaps[f"{m} in {B}"] <= LOGITS_RTOL * scale \
+                or [a["answer"] for a in answers] != labels:
+            fail(f"ref_compat serve of {m} padded to {B}: {answers} vs the plain path's "
+                 f"{labels}, logits {gaps}")
+    print(f"ref_compat (a) serve padded batches, kernel vs plain logits max abs diff "
+          f"{json.dumps(gaps)}; answers equal", flush=True)
+
+
+def check_ref_compat(tmp, smi, device):
+    """25 (a) and (b). Returns the launches of their paths."""
+    import numpy as np
+
+    from tf_vqa_regat_tpu_torch import main as port_main
+
+    check_b1_regrouped(device)
+    out = os.path.join(tmp, "ref")
+    with step_graphs() as built:
+        npz, train_launches, step_ms = check_entry_point(out, smi, "implicit",
+                                                         SHORT_TRAIN + REF_FLAGS)
+    if not built or not all(g.graphed for g in built):
+        fail("ref_compat (a): a step left its CUDA graph at dp = 1")
+    launches = [train_launches,
+                check_predict(out, smi, "implicit", npz, device, REF_FLAGS)]
+    launches.append(check_serve(npz, "implicit", REF_FLAGS)[0])
+    check_padded_serve(npz, device)
+    check_graph_row(device, smi, "implicit", REF_FLAGS, 100, "device")
+
+    # (b) two gloo ranks: the softmax over the gathered global batch
+    dp_out = os.path.join(tmp, "dp")
+    argv = entry_argv("implicit", dp_out, *DP_FLAGS, "--data_mode", "device",
+                      "--ref_compat_q_att")
+    reports = run_dp_children(os.path.join(tmp, "dp_children"),
+                              [{"argv": argv, "kernel": "B1"}], label="ref_compat (b)")
+    solo = os.path.join(tmp, "dp_solo")
+    reset_counts()
+    port_main.main(entry_argv("implicit", solo, *DP_FLAGS, "--data_mode", "device",
+                              "--ref_compat_q_att"))
+    launches.append(read_path_counts())
+    for r, rep in enumerate(reports):
+        rec = rep["records"][0]
+        want = expected_launches("implicit", rec["eval_passes"], rec["train_steps"])
+        if rec["launches"] != want or rec["train_steps"] != DP_STEPS:
+            fail(f"ref_compat (b) rank {r}: {rec['train_steps']} steps, launches "
+                 f"{rec['launches']}, want {want}")
+        launches.append(rec["launches"])
+    ranks = [np.load(os.path.join(tmp, "dp_children", f"params-0-rank{r}.npz")) for r in (0, 1)]
+    if not all(np.array_equal(ranks[0][k], ranks[1][k]) for k in ranks[0].files):
+        fail("ref_compat (b): the ranks' parameters differ")
+    two, one = read_run(dp_out), read_run(solo)
+    train_rel = max(abs(two[1][e]["train_loss"] - m["train_loss"]) / abs(m["train_loss"])
+                    for e, m in one[1].items())
+    with open(os.path.join(dp_out, "log.txt")) as fh:
+        eager = [line for line in fh if line.startswith("[eager] --ref_compat_q_att at dp=2")]
+    step_ms2 = statistics.median(reports[0]["records"][0]["step_ms"])
+    print(f"ref_compat (b) --ref_compat_q_att at dp=2 (two gloo ranks on one card) vs one "
+          f"rank: train loss rel diff {train_rel} (bound {DP_METRIC_RTOL}); metrics "
+          f"{json.dumps(two[1])} vs {json.dumps(one[1])}; eager reason logged "
+          f"{bool(eager)}; step median {step_ms2:.3f} ms (CUDA events, eager, the gloo "
+          f"collectives staged through the host) on {smi}", flush=True)
+    if not train_rel <= DP_METRIC_RTOL or not eager:
+        fail(f"ref_compat (b): loss rel diff {train_rel}, eager line {eager}")
+    return launches
+
+
+def nan_child(out):
+    """25 (c)'s poisoned run: butd at full width with --debug_nans on a
+    train split whose features are all NaN; exits NAN_EXIT on the
+    FloatingPointError it must raise."""
+    sys.path.insert(0, REPO)
+    import numpy as np
+
+    from tf_vqa_regat_tpu_torch import main as port_main
+
+    real = port_main.build_dataset
+
+    def poisoned(cfg, name="val"):
+        ds = real(cfg, name)
+        if name == "train":
+            ds.store.features[:] = np.nan
+        return ds
+
+    port_main.build_dataset = poisoned
+    try:
+        port_main.main(entry_argv("implicit", out, *DP_FLAGS, "--debug_nans"))
+    except FloatingPointError as e:
+        print(f"FloatingPointError: {e}", flush=True)
+        sys.exit(NAN_EXIT)
+
+
+def trace_summary(path):
+    """What a Chrome trace of the train loop holds: the loop's spans, the
+    graph launches, the kernels recorded on the device and B1's and B2's
+    among them."""
+    with open(path) as fh:
+        events = json.load(fh)["traceEvents"]
+    names = [e.get("name", "") for e in events]
+    spans = [e.get("name", "") for e in events if e.get("cat") == "user_annotation"]
+    kernels = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    return {"data_spans": spans.count("data"), "step_spans": spans.count("step"),
+            "graph_launches": sum("cudaGraphLaunch" in n for n in names),
+            "kernels": len(kernels),
+            **{k: sum(sym in n for n in kernels) for k, sym in KERNEL_SYMBOLS.items()},
+            "bytes": os.path.getsize(path)}
+
+
+def check_debug_and_profile(tmp, smi, device):
+    """25 (c)-(e). Returns the launches of their paths."""
+    import urllib.error
+
+    from tf_vqa_regat_tpu_torch import main as port_main
+
+    launches = []
+    for family in ("implicit", "semantic"):
+        name = f"{family}-butd"
+        runs = {}
+        for label, extra in (("graphed", ()), ("debug_nans", ("--debug_nans",)),
+                             ("traced", ("--profile_dir", os.path.join(tmp, f"trace-{family}")))):
+            out = os.path.join(tmp, f"{label}-{family}")
+            reset_counts()
+            with timed_steps() as records, step_graphs() as built:
+                port_main.main(entry_argv(family, out, *DP_FLAGS, *extra))
+            launches.append(read_path_counts())
+            passes = -(-256 // 64)
+            if launches[-1] != expected_launches(family, passes, len(records)):
+                fail(f"{label} {family}: launches {launches[-1]} for {len(records)} steps")
+            graphed = all(g.graphed for g in built)
+            if graphed != (label != "debug_nans"):
+                fail(f"{label} {family}: steps graphed {graphed}")
+            with open(os.path.join(out, "log.txt")) as fh:
+                logged = any(line.startswith("[eager] --debug_nans") for line in fh)
+            if logged != (label == "debug_nans"):
+                fail(f"{label} {family}: the eager reason logged {logged}")
+            step_ms = [ev[0].elapsed_time(ev[1]) for _, ev, _, _, cap in records if not cap]
+            runs[label] = (read_run(out, name), statistics.median(step_ms))
+        (_, graphed_metrics), graphed_ms = runs["graphed"]
+        (_, debug_metrics), debug_ms = runs["debug_nans"]
+        (_, traced_metrics), traced_ms = runs["traced"]
+        rel = max(abs(debug_metrics[e][k] - m[k]) / max(abs(m[k]), 1e-30)
+                  for e, m in graphed_metrics.items() for k in ("train_loss", "eval_loss"))
+        traces = [os.path.join(d, f) for d, _, fs in os.walk(os.path.join(tmp, f"trace-{family}"))
+                  for f in fs]
+        summary = trace_summary(traces[0]) if len(traces) == 1 else {}
+        print(f"debug_nans (c) {CONFIGS[family]} at full width, b=256: clean --debug_nans run "
+              f"vs graphed, per-epoch loss max rel diff {rel} (bound {RESUME_RTOL}); train "
+              f"step median {debug_ms:.3f} ms eager under --debug_nans vs {graphed_ms:.3f} ms "
+              f"graphed (CUDA events, the steps after the capture) on {smi}", flush=True)
+        print(f"profile (d) {CONFIGS[family]} --profile_dir: {traces}, {json.dumps(summary)}; "
+              f"the traced epoch's train time {traced_metrics[0]['train_time_s']:.3f} s vs "
+              f"{graphed_metrics[0]['train_time_s']:.3f} s untraced (host clock, capture "
+              f"included), traced step median {traced_ms:.3f} ms vs {graphed_ms:.3f}",
+              flush=True)
+        if not rel <= RESUME_RTOL:
+            fail(f"debug_nans (c) {family}: the clean run differs by rel {rel}")
+        # Kineto records the kernels inside a graph replay: each replayed
+        # step's 2 launches of the family's kernel are in the trace
+        kernel = "B1" if family in B1_FAMILIES else "B2"
+        if len(traces) != 1 or summary["step_spans"] != DP_STEPS // 2 \
+                or summary["data_spans"] < DP_STEPS // 2 \
+                or summary["graph_launches"] < DP_STEPS or summary[kernel] < 2 * DP_STEPS:
+            fail(f"profile (d) {family}: traces {traces}, {summary}")
+    # the poisoned run, in a child process
+    child = subprocess.run([sys.executable, os.path.abspath(__file__), "--nan_child",
+                            os.path.join(tmp, "poisoned")], cwd=REPO, capture_output=True,
+                           text=True, timeout=600)
+    said = [line for line in child.stdout.splitlines() if line.startswith("FloatingPointError")]
+    print(f"debug_nans (c) poisoned features: exit {child.returncode}, {said}", flush=True)
+    if child.returncode != NAN_EXIT or not said or "module" not in said[0]:
+        fail(f"debug_nans (c): the poisoned run exited {child.returncode}:\n"
+             f"{child.stdout[-3000:]}{child.stderr[-3000:]}")
+    # (e) the capture endpoint during a butd run
+    port, reply = free_port(), {}
+
+    def client():
+        deadline = time.time() + 300
+        while time.time() < deadline and not reply:
+            try:
+                with urllib.request.urlopen(f"http://127.0.0.1:{port}/capture?duration_ms=500",
+                                            timeout=600) as r:
+                    reply.update(status=r.status, **json.loads(r.read()))
+            except urllib.error.HTTPError as e:
+                reply.update(status=e.code, **json.loads(e.read()))
+            except (urllib.error.URLError, ConnectionError):
+                time.sleep(0.05)
+
+    thread = threading.Thread(target=client, daemon=True)
+    thread.start()
+    reset_counts()
+    with step_graphs() as built:
+        port_main.main(entry_argv("implicit", os.path.join(tmp, "captured"), *DP_FLAGS,
+                                  "--profile_port", str(port)))
+    launches.append(read_path_counts())
+    thread.join(timeout=60)
+    trace = reply.get("trace", "")
+    summary = trace_summary(trace) if trace and os.path.exists(trace) else {}
+    print(f"profile (e) --profile_port: GET /capture?duration_ms=500 -> {json.dumps(reply)}; "
+          f"{json.dumps(summary)}", flush=True)
+    if reply.get("status") != 200 or not summary.get("bytes") \
+            or not all(g.graphed for g in built):
+        fail(f"profile (e): {reply}, {summary}")
+    return launches
+
+
+def run_phase_25(tmp_root, smi, device):
+    """Phase 25; returns the launches of its paths."""
+    import torch
+
+    tmp = os.path.join(tmp_root, "phase25")
+    with phase("25 (a)-(b), --ref_compat_q_att --ref_compat_pos"):
+        launches = check_ref_compat(tmp, smi, device)
+    torch.cuda.empty_cache()
+    with phase("25 (c)-(e), --debug_nans, --profile_dir, --profile_port"):
+        launches += check_debug_and_profile(tmp, smi, device)
+    torch.cuda.empty_cache()
+    return launches
+
+
 def build_kernels():
     """Build every CUDA source of the port, one nvcc each, all at once."""
     from tf_vqa_regat_tpu_torch.ops.kernels import build
@@ -4167,13 +4652,22 @@ def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--baseline", help="another checkout whose B1 and B2 phases 3-5 "
                         "time in turns with this one")
-    parser.add_argument("--only", choices=("23", "24"),
+    parser.add_argument("--only", choices=("23", "24", "25"),
                         help="build the kernels and run this phase alone (no result line)")
     parser.add_argument("--dp_child", nargs=2, metavar=("SPEC", "RANK"),
                         help=argparse.SUPPRESS)  # one rank of phase 23 (b)
     parser.add_argument("--tp_child", nargs=2, metavar=("SPEC", "RANK"),
                         help=argparse.SUPPRESS)  # one rank of phase 24
+    parser.add_argument("--control_child", nargs=2,
+                        help=argparse.SUPPRESS)  # phase 24's controls: OUT KIND
+    parser.add_argument("--nan_child", help=argparse.SUPPRESS)  # phase 25 (c)'s poisoned run
     args = parser.parse_args()
+    if args.control_child:
+        control_child(*args.control_child)
+        return
+    if args.nan_child:
+        nan_child(args.nan_child)
+        return
     if args.dp_child:
         dp_child(args.dp_child[0], int(args.dp_child[1]))
         return
@@ -4207,8 +4701,8 @@ def main() -> None:
     smi_line = smi.stdout.strip().splitlines()[0]
     if args.only:
         with tempfile.TemporaryDirectory() as tmp_root:
-            (run_phase_23 if args.only == "23" else
-             lambda *a: run_phase_24(*a, {}))(tmp_root, smi_line, device)
+            {"23": run_phase_23, "24": lambda *a: run_phase_24(*a, {}),
+             "25": run_phase_25}[args.only](tmp_root, smi_line, device)
         print(f"phase {args.only} alone: {time.perf_counter() - start:.1f} s wall; no result "
               f"line", flush=True)
         return
@@ -4309,6 +4803,7 @@ def main() -> None:
         torch.cuda.empty_cache()
         launches += run_phase_23(tmp_root, smi_line, device)
         launches += run_phase_24(tmp_root, smi_line, device, npz)
+        launches += run_phase_25(tmp_root, smi_line, device)
 
     if any(m.split(".")[0] in ("jax", "jaxlib", "tf_vqa_regat_tpu") for m in sys.modules):
         fail("JAX or the JAX package was imported")

@@ -394,8 +394,8 @@ def test_entry_point_train_predict_serve_against_jax_main(roots, tmp_path, monke
     monkeypatch.setattr(jax_main, "run_training", capture)
     jax_main.main(argv + ["--output", jout, "--train_block", "1", "--use_pallas"])
 
-    def from_jax_init(cfg, ntoken, v_dim, num_ans, tp=None):  # the JAX run's pre-GloVe init
-        model = ReGAT(cfg, ntoken, v_dim, num_ans, tp=tp)
+    def from_jax_init(cfg, ntoken, v_dim, num_ans, tp=None, data=None):  # the JAX run's pre-GloVe init
+        model = ReGAT(cfg, ntoken, v_dim, num_ans, tp=tp, data=data)
         jcfg = jax_main.parse_with_config(argv)
         load_jax_arrays(model, flatten_tree(jax.tree.map(
             np.array, init_regat(jax.random.PRNGKey(cfg.seed), jcfg, ntoken, v_dim, num_ans))))

@@ -83,8 +83,8 @@ def test_config_parses_as_the_jax_config(path):
         assert getattr(ours, f.name) == getattr(ref, f.name), f.name
     assert ours.resolved_num_rois() == ref.resolved_num_rois() == 36
     assert ours.word_dim == ref.word_dim
-    with pytest.raises(SystemExit):  # a flag of a feature not ported is refused
-        tconfig.parse_with_config(["--debug_nans"])
+    with pytest.raises(SystemExit):  # a "Do not port" flag is refused
+        tconfig.parse_with_config(["--use_pallas"])
 
 
 def test_tokenizer_matches_the_jax_tokenizer():

@@ -5,8 +5,11 @@ after another, each writing `{out}/{job name}-rank{RANK}.npz`:
 
 - "step": a model family's train steps from the parent's parameters and
   batches (`{data}` npz: `p/<path>` full leaves, `b<i>/<field>` batches),
-  each rank taking its data index's rows: per step the loss, score and
-  count; the rank's parameter parts after the steps; before them, at
+  each rank taking its data index's rows (the model built with the data
+  axis, which --ref_compat_q_att's softmax gathers over): per step the
+  loss, score and count; the rank's parameter parts after the steps; with
+  `grad_sums`, first the rank's gradient sums of its rows of the first
+  batch (`gsum/<name>`, `gsum_loss`, `gsum_n`); before the steps, at
   dp = 1, each leaf's gradient gathered to its full shape beside the
   gradient of the one-device model built in this process; the eval
   metrics and predicted answers of the first batch at this mesh and at one
@@ -113,12 +116,21 @@ def _step_job(job, mesh, out, rank):
     cpu = torch.device("cpu")
 
     def build(tp_):
-        model = ReGAT(cfg, dims["ntoken"], dims["v_dim"], dims["num_ans"], tp=tp_)
+        model = ReGAT(cfg, dims["ntoken"], dims["v_dim"], dims["num_ans"], tp=tp_,
+                      data=mesh.data_axis())
         load_jax_arrays(model, flat)
         return model
 
     rec = {}
     model = build(tp)
+    if job.get("grad_sums"):
+        # this rank's gradient sums of its rows of the first batch, their
+        # loss sum and count (the parent adds the ranks' and divides)
+        g, loss_sum, _, n = grad_sums(model, list(model.parameters()), _rows(batches[0], mesh),
+                                      0, cfg.seed, cfg.grad_accum)
+        for (name, _), v in zip(model.named_parameters(), g):
+            rec[f"gsum/{name}"] = v.detach().numpy()
+        rec["gsum_loss"], rec["gsum_n"] = np.float64(loss_sum), np.float64(n)
     if mesh.dp == 1:
         # every leaf's gradient at this mesh, gathered, and at one device
         one = build(None)

@@ -5,10 +5,10 @@ same way in both packages.
 
 The port carries its own copy so that it runs without the JAX package. It
 holds the reference's flags (reference main.py:14-97), every key the JSON
-configs use, and the extensions the port implements; a flag of a feature not
-ported yet is rejected by the parser instead of being accepted and ignored.
-Each field keeps the JAX package's name, type and default (a CPU test
-checks), and later slices add the fields of what they port.
+configs use, and the extensions the port implements: every field of the JAX
+Config but three that name TPU or JAX machinery (`prng_impl`, `sp_rois`,
+`use_pallas`), whose flags the parser rejects. Each field keeps the JAX
+package's name, type and default (a CPU test checks).
 """
 
 from __future__ import annotations
@@ -170,10 +170,28 @@ class Config:
     # Keep only the newest N epoch checkpoints (0 = all); best/ and step
     # checkpoints take no slot.
     keep_ckpts: int = 0
+    # --mode train: check every module's output for a non-finite value and
+    # run the backward under autograd's anomaly mode; the first module or
+    # autograd Function that yields one raises FloatingPointError (JAX's
+    # jax_debug_nans). The steps then run eagerly (train/debug_nans.py).
+    debug_nans: bool = False
+    # --mode train profiling (train/profiling.py): a capture endpoint on this
+    # port (0 = off; `GET /capture?duration_ms=N` records about N ms of
+    # steps) and a torch.profiler trace of each epoch under this directory
+    # ("" = off), written to {profile_dir}/epoch_NNNN/.
+    profile_port: int = 0
+    profile_dir: str = ""
     # Generated in-memory data with the real shapes instead of the dataset.
     synthetic: bool = False
     synthetic_train_size: int = 4096
     synthetic_val_size: int = 1024
+    # The TF reference's two transcription bugs, reproduced on request (the
+    # port, as the JAX package, fixes both by default): the question
+    # self-attention's softmax over the BATCH axis, then a flat reshape
+    # (models/language.py), and the row-sliced position matrix, flat
+    # regrouped (ops/position.py::position_matrix_ref_compat).
+    ref_compat_q_att: bool = False
+    ref_compat_pos: bool = False
 
     def __post_init__(self) -> None:
         for field, allowed in (("feature_dtype", ("float32", "bfloat16", "int8")),

@@ -213,9 +213,12 @@ def append_visual_genome(cfg: Config, train: VQADataset, dictionary: Dictionary)
 
 def new_model(cfg: Config, ds: VQADataset) -> ReGAT:
     """The seed's model for this rank's place on the --dp_size x --tp_size
-    mesh (its part of each split leaf at tp > 1)."""
-    tp = make_mesh(cfg.dp_size, cfg.tp_size).tensor_parallel()
-    return ReGAT(cfg, ds.ntoken, ds.v_dim, ds.num_ans, tp=tp)
+    mesh (its part of each split leaf at tp > 1; under --ref_compat_q_att,
+    the data axis its batch-axis softmax gathers over, except in serve,
+    where every rank runs the whole batch)."""
+    mesh = make_mesh(cfg.dp_size, cfg.tp_size)
+    data = None if cfg.mode == "serve" else mesh.data_axis()
+    return ReGAT(cfg, ds.ntoken, ds.v_dim, ds.num_ans, tp=mesh.tensor_parallel(), data=data)
 
 
 def load_model(cfg: Config, ds: VQADataset) -> ReGAT:

@@ -5,8 +5,15 @@ The GRU runs once; the sequence feeds the self-attention and the last state
 the fusion. In training, dropout at the `drop_rate` given (the config's
 `dropout`) follows the word embedding, precedes q_att's first FCNet and
 follows the pooled vector (language.py:89, :125, :146). The self-attention softmaxes over the SEQUENCE axis per example
-(the PyTorch original's semantics; the TF reference's batch-axis softmax is
-the JAX package's `ref_compat_q_att`, not ported).
+(the PyTorch original's semantics). With `ref_compat` (--ref_compat_q_att,
+JAX language.py:121-136) it reproduces the TF reference's bug exactly: the
+logits transposed to [T, b], the softmax over the BATCH axis, the result
+read flat as [b, T], so an example's weights come from its batch-mates'
+logits, and depend on their order. The softmax therefore sees the array
+JAX's program sees: the whole (micro)batch, padded rows included (a padded
+row's question is all padding tokens, as JAX pads it); at dp > 1 the
+global one, its rows gathered over the data group in rank order
+(`batch_axis_softmax`, `data` the data axis).
 
 `word_embedding_load_glove` puts the GloVe rows (and, under --tfidf, the
 TF-IDF-mixed rows of the second table, which then trains) into the tables
@@ -30,6 +37,7 @@ from tf_vqa_regat_tpu_torch.nn import dropout
 from tf_vqa_regat_tpu_torch.ops.embedding import Embedding
 from tf_vqa_regat_tpu_torch.ops.gru import GRU
 from tf_vqa_regat_tpu_torch.ops.weight_norm import FCNet
+from tf_vqa_regat_tpu_torch.parallel.tensor import TensorParallel, gather
 
 
 class WordEmbedding(nn.Module):
@@ -95,10 +103,26 @@ class QuestionEmbedding(nn.Module):
         return seq, seq[:, -1]
 
 
+def batch_axis_softmax(
+    logits: torch.Tensor, data: Optional[TensorParallel] = None
+) -> torch.Tensor:
+    """The reference's q_att weights for f32 logits [b, T]: softmax(logits.T,
+    axis=1) read flat as [b, T]. With `data` (dp > 1) the softmax runs over
+    the global batch, the ranks' rows gathered in rank order, and this
+    rank's rows of the result are returned; the gradient of the gathered
+    logits is summed over the data group before each rank takes its rows."""
+    b, T = logits.shape
+    if data is not None:
+        logits = gather(logits, data, 0, sum_grad=True)
+    B = logits.shape[0]
+    weights = torch.softmax(logits.t(), dim=1).reshape(B, T)
+    return weights if data is None else weights[data.part(B)]
+
+
 class QuestionSelfAttention(nn.Module):
     def __init__(
         self, num_hid: int, generator: torch.Generator, drop_rate: float = 0.0,
-        dtype: torch.dtype = torch.float32,
+        dtype: torch.dtype = torch.float32, ref_compat: bool = False,
     ):
         super().__init__()
         self.linear1 = FCNet(
@@ -107,13 +131,18 @@ class QuestionSelfAttention(nn.Module):
         self.linear2 = FCNet([num_hid, 1], generator, activation=None, dtype=dtype)
         self.drop_rate = drop_rate
         self.dtype = dtype
+        self.ref_compat = ref_compat
+        self.data: Optional[TensorParallel] = None  # the data axis, set by ReGAT
 
     def forward(
         self, q_seq: torch.Tensor, generator: Optional[torch.Generator] = None
     ) -> torch.Tensor:
         """[b, T, h] -> pooled [b, h]."""
         logits = self.linear2(torch.tanh(self.linear1(q_seq, generator)))[..., 0].float()
-        weights = torch.softmax(logits, dim=-1)  # [b, T], f32 statistics
+        if self.ref_compat:
+            weights = batch_axis_softmax(logits, self.data)
+        else:
+            weights = torch.softmax(logits, dim=-1)  # [b, T], f32 statistics
         cd = self.dtype
         pooled = torch.einsum(
             "bt,bth->bh", weights.to(cd).float(), q_seq.to(cd).float()

@@ -36,6 +36,13 @@ Tensor parallelism: a model built with `tp` (parallel/mesh.py's
 with each split leaf cut to this rank's part (parallel/mesh.py::shard_axis;
 ops/graph_attention.py, models/classifier.py); without it, it is the
 one-device model exactly. params.py carries full arrays in and out.
+
+The reference-quirk switches (JAX regat.py:172-197): `--ref_compat_q_att`
+gives q_att the batch-axis softmax (models/language.py), over the global
+batch when the model is built with `data`, the data axis of a dp > 1 mesh
+(`Mesh.data_axis`; a model whose every rank runs the whole batch, as
+serve's, is built without it); `--ref_compat_pos` feeds the implicit
+relation ops/position.py::position_matrix_ref_compat, for every fusion.
 """
 
 from __future__ import annotations
@@ -60,7 +67,7 @@ from tf_vqa_regat_tpu_torch.models.relation import (
     ImplicitRelationEncoder,
 )
 from tf_vqa_regat_tpu_torch.nn import DTYPES
-from tf_vqa_regat_tpu_torch.ops.position import position_matrix
+from tf_vqa_regat_tpu_torch.ops.position import position_matrix, position_matrix_ref_compat
 from tf_vqa_regat_tpu_torch.ops.spatial_graph import (
     broadcast_adj_labels,
     build_spatial_graph,
@@ -72,8 +79,9 @@ FUSIONS = ("butd", "ban", "mutan")
 
 
 def check_supported(cfg: Config) -> None:
-    """Raise for an unknown relation type or fusion. (Flags of features not
-    ported yet are not in the port's Config: the parser rejects them.)"""
+    """Raise for an unknown relation type or fusion. (The port's Config
+    lacks only the JAX flags `--prng_impl`, `--sp_rois` and `--use_pallas`,
+    which name TPU or JAX machinery: the parser rejects them.)"""
     if cfg.relation_type not in RELATION_TYPES:
         raise ValueError(f"unknown relation_type {cfg.relation_type!r}")
     if cfg.fusion not in FUSIONS:
@@ -85,19 +93,22 @@ class ReGAT(nn.Module):
         self, cfg: Config, ntoken: int, v_dim: int, num_ans: int,
         generator: Optional[torch.Generator] = None,
         tp: Optional[TensorParallel] = None,
+        data: Optional[TensorParallel] = None,
     ):
         super().__init__()
         check_supported(cfg)
         g = generator if generator is not None else torch.Generator().manual_seed(cfg.seed)
         self.padding_idx = ntoken
         self.nongt_dim = cfg.nongt_dim
+        self.ref_compat_pos = cfg.ref_compat_pos
         self.relation_type = cfg.relation_type
         drop = cfg.dropout
         graph_drop = 0.2 if drop > 0 else 0.0
         cd = DTYPES[cfg.compute_dtype]
         self.w_emb = WordEmbedding(ntoken, 300, cfg.op, g, drop, cd)
         self.q_emb = QuestionEmbedding(cfg.word_dim, cfg.num_hid, g, cd)
-        self.q_att = QuestionSelfAttention(cfg.num_hid, g, drop, cd)
+        self.q_att = QuestionSelfAttention(cfg.num_hid, g, drop, cd, cfg.ref_compat_q_att)
+        self.q_att.data = data if cfg.ref_compat_q_att else None
         if cfg.relation_type == "implicit":
             self.v_relation = ImplicitRelationEncoder(
                 v_dim, cfg.num_hid, cfg.relation_dim, cfg.dir_num,
@@ -149,7 +160,8 @@ class ReGAT(nn.Module):
         q_seq, q_last = self.q_emb(w_emb)
         q_vec = self.q_att(q_seq, generator)
         if self.relation_type == "implicit":
-            pos_mat = position_matrix(batch["bb"], self.nongt_dim)
+            position = position_matrix_ref_compat if self.ref_compat_pos else position_matrix
+            pos_mat = position(batch["bb"], self.nongt_dim)
             v_emb = self.v_relation(features, pos_mat, q_vec, roi_mask, generator)
         else:
             adj_label = batch.get("adj_label")

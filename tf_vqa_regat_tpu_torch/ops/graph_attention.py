@@ -38,6 +38,9 @@ fully masked. The dropout masks (FCNet's input dropout, B1's keep-mask)
 come from the step's generator, seeded by the data index, and are drawn at
 the full shapes: the tp ranks of a data group draw the same masks, and the
 masks of tp = 1.
+
+Under --debug_nans the fused attention's output is checked by the
+Function's name (train/debug_nans.py::check_output).
 """
 
 from __future__ import annotations
@@ -55,6 +58,7 @@ from tf_vqa_regat_tpu_torch.ops.kernels.implicit_attention import (
 )
 from tf_vqa_regat_tpu_torch.ops.weight_norm import FCNet, wn_scale
 from tf_vqa_regat_tpu_torch.parallel.tensor import TensorParallel, copy_to, gather
+from tf_vqa_regat_tpu_torch.train.debug_nans import check_output
 
 
 class GroupedProjection(nn.Module):
@@ -141,6 +145,7 @@ class GraphSelfAttention(nn.Module):
         vw = vw.contiguous()
         if pos_mat is None:
             out = fused_graph_attention(q, k, vw, explicit_bias(adj_mask, label_bias, key_mask))
+            check_output("GraphAttention (B2)", out)
             return out.reshape(b, R, D) + self.out.b
         layer = self.pair_pos_fc.layers[0]
         drop_rate, dropmask = 0.0, None
@@ -151,6 +156,7 @@ class GraphSelfAttention(nn.Module):
         out = fused_implicit_graph_attention(
             q, k, vw, pos_mat, layer.kernel(), layer.b, key_mask, drop_rate, dropmask
         )
+        check_output("ImplicitAttention (B1)", out)
         return out.reshape(b, R, D) + self.out.b
 
 

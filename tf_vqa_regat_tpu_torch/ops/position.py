@@ -8,9 +8,9 @@ import numpy as np
 import torch
 
 
-def position_matrix(bb: torch.Tensor, nongt_dim: int) -> torch.Tensor:
-    """[b, R, 4] boxes (xmin, ymin, xmax, ymax) -> [b, R, n, 4]: query roi i
-    (all R) against key roi j (the first n = nongt_dim): (log|dx/w_i|,
+def _pair_geometry(bb: torch.Tensor, q_sel: slice, k_sel: slice) -> torch.Tensor:
+    """[b, R, 4] boxes (xmin, ymin, xmax, ymax) -> [b, Rq, Rk, 4]: row roi i
+    (of `q_sel`) against column roi j (of `k_sel`): (log|dx/w_i|,
     log|dy/h_i|, log(w_i/w_j), log(h_i/h_j)), the first two clamped at 1e-3
     (reference position_emb.py:117-151)."""
     xmin, ymin, xmax, ymax = bb.unbind(-1)
@@ -18,14 +18,31 @@ def position_matrix(bb: torch.Tensor, nongt_dim: int) -> torch.Tensor:
     h = ymax - ymin + 1.0
     cx = 0.5 * (xmin + xmax)
     cy = 0.5 * (ymin + ymax)
-    n = nongt_dim
-    qw, qh, qcx, qcy = (t[:, :, None] for t in (w, h, cx, cy))
-    kw, kh, kcx, kcy = (t[:, None, :n] for t in (w, h, cx, cy))
+    qw, qh, qcx, qcy = (t[:, q_sel, None] for t in (w, h, cx, cy))
+    kw, kh, kcx, kcy = (t[:, None, k_sel] for t in (w, h, cx, cy))
     dx = torch.log(torch.clamp(torch.abs(qcx - kcx) / qw, min=1e-3))
     dy = torch.log(torch.clamp(torch.abs(qcy - kcy) / qh, min=1e-3))
     dw = torch.log(qw / kw)
     dh = torch.log(qh / kh)
     return torch.stack([dx, dy, dw, dh], dim=-1)
+
+
+def position_matrix(bb: torch.Tensor, nongt_dim: int) -> torch.Tensor:
+    """[b, R, 4] boxes -> [b, R, n, 4]: query roi i (all R) against key roi
+    j (the first n = nongt_dim)."""
+    return _pair_geometry(bb, slice(None), slice(None, nongt_dim))
+
+
+def position_matrix_ref_compat(bb: torch.Tensor, nongt_dim: int) -> torch.Tensor:
+    """The TF reference's position matrix (--ref_compat_pos; JAX
+    ops/position.py::position_matrix_ref_compat): the first n = min(nongt_dim,
+    R) ROWS of the pairwise matrix against all R columns, [b, n, R, 4], read
+    flat as [b, R, n, 4], as the reference's attention layer reshapes it.
+    A (query, key) slot then holds another pair's geometry whenever R != n;
+    the shape is the corrected matrix's, so B1 takes it unchanged."""
+    b, R, _ = bb.shape
+    n = min(nongt_dim, R)
+    return _pair_geometry(bb, slice(None, n), slice(None)).reshape(b, R, n, 4)
 
 
 def position_embedding(

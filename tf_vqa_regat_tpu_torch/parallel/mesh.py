@@ -70,6 +70,16 @@ class Mesh:
 
         return TensorParallel(self.tp, self.model, self.model_group())
 
+    def data_axis(self):
+        """The data axis as a TensorParallel (`size` dp, `index` this rank's
+        data index, the data group), or None without a group or at dp = 1:
+        what gathers a batch-axis softmax's rows (models/language.py)."""
+        if self.dp == 1 or not self.group:
+            return None
+        from tf_vqa_regat_tpu_torch.parallel.tensor import TensorParallel
+
+        return TensorParallel(self.dp, self.data, self.data_group())
+
 
 def make_mesh(dp_size: int = 0, tp_size: int = 1, world: Optional[int] = None,
               rank: Optional[int] = None) -> Mesh:

@@ -13,6 +13,9 @@ functions keep it at the edges of a split computation:
   contribution to the gradient);
 - `gather`: all-gather forward, slice backward, where split outputs become
   a replicated tensor (every rank then computes the same gradient of it);
+  over the data group (`sum_grad`), where each rank's rows join the global
+  batch of `--ref_compat_q_att`'s softmax, the gradient is summed over the
+  group before the slice;
 - `reduce_from`: all-reduce forward, identity backward, after a product
   over a split inner axis (the partial sums add up to the replicated
   output).
@@ -32,8 +35,10 @@ from tf_vqa_regat_tpu_torch.parallel import distributed
 
 @dataclasses.dataclass(frozen=True)
 class TensorParallel:
-    """The model axis seen from one rank: `size` ranks, this rank's `index`
-    among them, and their process `group`."""
+    """One axis of the mesh seen from one rank: `size` ranks, this rank's
+    `index` among them, and their process `group`. The model axis (tp > 1),
+    or the data axis (`Mesh.data_axis`) where a batch-axis softmax spans the
+    global batch."""
 
     size: int
     index: int
@@ -84,15 +89,17 @@ class _ReduceFrom(torch.autograd.Function):
 
 class _Gather(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, dim, tp):
-        ctx.dim, ctx.tp = dim, tp
-        return distributed.all_gather(x, dim, tp.group)
+    def forward(ctx, x, dim, axis, sum_grad):
+        ctx.dim, ctx.axis, ctx.sum_grad = dim, axis, sum_grad
+        return distributed.all_gather(x, dim, axis.group)
 
     @staticmethod
     def backward(ctx, grad):
+        if ctx.sum_grad:
+            grad = _all_reduce(grad, ctx.axis.group)
         index = [slice(None)] * grad.ndim
-        index[ctx.dim] = ctx.tp.part(grad.shape[ctx.dim])
-        return grad[tuple(index)], None, None
+        index[ctx.dim] = ctx.axis.part(grad.shape[ctx.dim])
+        return grad[tuple(index)], None, None, None
 
 
 def copy_to(x: torch.Tensor, tp: TensorParallel) -> torch.Tensor:
@@ -105,7 +112,10 @@ def reduce_from(x: torch.Tensor, tp: TensorParallel) -> torch.Tensor:
     return _ReduceFrom.apply(x, tp.group)
 
 
-def gather(x: torch.Tensor, tp: TensorParallel, dim: int) -> torch.Tensor:
-    """The ranks' parts of x concatenated along `dim` forward; this rank's
-    part of the gradient backward."""
-    return _Gather.apply(x, dim, tp)
+def gather(x: torch.Tensor, tp: TensorParallel, dim: int, sum_grad: bool = False) -> torch.Tensor:
+    """The ranks' parts of x concatenated along `dim` forward, in rank
+    order; this rank's part of the gradient backward. Over the model group
+    every rank holds the whole gradient of the replicated result; with
+    `sum_grad` (the data group, whose ranks' losses differ) the gradient is
+    first summed over the group."""
+    return _Gather.apply(x, dim, tp, sum_grad)

@@ -5,7 +5,8 @@ indices joined by '/', e.g. ``v_relation/gatt/neighbor/0/pair_pos_fc/layers/0/v`
 — with numpy arrays in the JAX layouts. The port's modules carry the same
 names, so a state-dict key is the path with '/' written as '.'. The port's
 checkpoint is ``np.savez`` of the flat dict, which needs no JAX to read
-(an orbax checkpoint does; its converter is in ROADMAP Queue A).
+(an Orbax checkpoint does: tools/orbax_to_npz.py converts the JAX
+package's to this form where JAX is installed).
 
 The full training state (train/checkpoint.py) is the same flat dict plus the
 Adamax state of train/optim.py under ``opt/mu/<path>``, ``opt/nu/<path>``
@@ -174,9 +175,12 @@ def load_state_arrays(model: nn.Module, opt: Any, flat: Mapping[str, np.ndarray]
 
 def _adamax_state(node: Any) -> Any:
     """The optax Adamax state (the node with `mu` and `nu`) inside an
-    opt_state of nested tuples."""
-    if hasattr(node, "mu") and hasattr(node, "nu"):
+    opt_state of nested tuples, as a mapping; an opt_state restored from
+    Orbax without its optax types holds it as a dict already."""
+    if isinstance(node, Mapping) and "mu" in node and "nu" in node:
         return node
+    if hasattr(node, "mu") and hasattr(node, "nu"):
+        return {"mu": node.mu, "nu": node.nu}
     children = node.values() if isinstance(node, Mapping) else (
         node if isinstance(node, (list, tuple)) else ()
     )
@@ -196,7 +200,7 @@ def train_state_arrays(state: Mapping[str, Any]) -> Dict[str, np.ndarray]:
         raise ValueError("the JAX opt_state holds no Adamax state (mu, nu)")
     flat = flatten_tree(state["params"])
     for m in ("mu", "nu"):
-        flat.update({f"{OPT_PREFIX}{m}/{k}": v for k, v in flatten_tree(getattr(adam, m)).items()})
+        flat.update({f"{OPT_PREFIX}{m}/{k}": v for k, v in flatten_tree(adam[m]).items()})
     flat[OPT_PREFIX + "count"] = np.asarray(int(state["step"]), np.int64)
     return flat
 

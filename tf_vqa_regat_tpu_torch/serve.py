@@ -26,7 +26,10 @@ tf_vqa_regat_tpu/serve.py).
   and runs the forward pass (the tp ranks take part in it), and rank 0
   answers; the other ranks wait in `InferenceEngine.follow` until rank 0's
   `stop`. At tp > 1 the forward pass runs eagerly (train/step.py::
-  eager_reason).
+  eager_reason). Every rank runs the whole batch, so --ref_compat_q_att's
+  batch-axis softmax needs no gather here: the padded slots of a batch
+  (padding tokens, image 0, no boxes, as JAX pads them) take part in it,
+  and the engine stays graphed.
 
 API (JSON over HTTP, stdlib ThreadingHTTPServer), as the JAX package's:
   GET  /healthz   -> {"status": "ok", "batch_sizes": [...], ...}

@@ -31,7 +31,9 @@ member's labels are partitioned with the base store's image assignment
 segment of every global batch, and the score and count are summed over the
 data group. Under a process group every member is built for the rank's
 place on the mesh (its part of each split leaf at tp > 1), and the members
-run eagerly at tp > 1 (train/step.py::eager_reason).
+run eagerly at tp > 1 (train/step.py::eager_reason), and over the sharded
+store under --ref_compat_q_att, whose batch-axis softmax then gathers the
+data groups' segments into the global batch.
 
 CLI: --mode ensemble_eval
      --ensemble_checkpoints implicit:PATH,spatial:PATH,semantic:PATH
@@ -69,7 +71,12 @@ from tf_vqa_regat_tpu_torch.train.loop import (
     resolve_data_mode,
 )
 from tf_vqa_regat_tpu_torch.train.loss import vqa_score_sum
-from tf_vqa_regat_tpu_torch.train.step import eager_reason, real_batches, resolve_graphed
+from tf_vqa_regat_tpu_torch.train.step import (
+    eager_line,
+    gathers_rows,
+    real_batches,
+    resolve_graphed,
+)
 
 Member = Tuple[str, ReGAT]
 # the host path's per-member edge labels among a graph's inputs
@@ -104,8 +111,9 @@ def load_members(
     tp = None if mesh is None else mesh.tensor_parallel()
     for rt, path in parse_members(cfg.ensemble_checkpoints):
         model = ReGAT(cfg.replace(relation_type=rt), ds.ntoken, ds.v_dim, ds.num_ans, tp=tp)
+        arrays = load_params(path)  # an Orbax directory raises, naming the converter
         try:
-            load_jax_arrays(model, load_params(path))
+            load_jax_arrays(model, arrays)
         except ValueError as e:
             raise ValueError(
                 f"ensemble member {rt}:{path} does not fit this run's flags (every "
@@ -191,14 +199,21 @@ def run_ensemble_eval(
                              extra_sharded=extra_sharded)
     check_roi_buckets_mode(cfg, mode)
     logger.write(data_mode_line(cfg, mode, val_ds, None, False, extra, dp=mesh.dp))
-    if eager_reason(mesh):
-        logger.write(f"[tp] {eager_reason(mesh)}")
+    if mode == "sharded" and cfg.ref_compat_q_att:
+        # each data group holds its segment of the global batch: the
+        # batch-axis softmax spans the segments (models/language.py)
+        for _, model in members:
+            model.q_att.data = mesh.data_axis()
+    gather = any(gathers_rows(model) for _, model in members)
+    line = eager_line(mesh, gather)
+    if line:
+        logger.write(line)
     passes = {"device": _resident_passes, "sharded": _sharded_passes}.get(mode, _host_passes)
     score = torch.zeros((), device=device)
     n = torch.zeros((), device=device)
     start = time.time()
     for probs, batch in passes(cfg, val_ds, device, members, sources,
-                               resolve_graphed(mesh, graphed), mesh):
+                               resolve_graphed(mesh, graphed, gather), mesh):
         score += vqa_score_sum(probs, batch["target"], batch["valid"])
         n += batch["valid"].to(torch.float32).sum()
     if mode == "sharded":  # each data group scored its own segments

@@ -70,6 +70,13 @@ logged once), the sums over the data group. After the init and after a
 resume the parameters are broadcast over each data group from its first
 rank, and every checkpoint gathers the split leaves first, so `state.npz`
 holds full leaves at any tp.
+
+Observability (JAX loop.py:228-232, :437): --profile_dir traces each
+epoch's train steps with `data` and `step` spans, --profile_port serves
+`/capture` and starts and stops its profiler at the loop's step boundaries
+(train/profiling.py), and --debug_nans runs the steps eagerly under
+train/debug_nans.py's checks, inside `pending_joined`, so an async write
+issued before its FloatingPointError is complete on disk.
 """
 
 from __future__ import annotations
@@ -99,6 +106,7 @@ from tf_vqa_regat_tpu_torch.parallel import distributed
 from tf_vqa_regat_tpu_torch.parallel.mesh import Mesh, batch_slice, make_mesh
 from tf_vqa_regat_tpu_torch.params import full_state, load_state_arrays
 from tf_vqa_regat_tpu_torch.train import checkpoint as ckpt
+from tf_vqa_regat_tpu_torch.train import debug_nans, profiling
 from tf_vqa_regat_tpu_torch.train.logging import Logger, MetricsWriter, time_since
 from tf_vqa_regat_tpu_torch.train.optim import (
     DECAY_START_EPOCH,
@@ -110,7 +118,8 @@ from tf_vqa_regat_tpu_torch.train.graphs import StepGraphs, to_device
 from tf_vqa_regat_tpu_torch.train.step import (
     EvalSteps,
     TrainSteps,
-    eager_reason,
+    eager_line,
+    gathers_rows,
     real_batches,
     resolve_graphed,
 )
@@ -573,9 +582,11 @@ class _DataPath:
             yield from batches
 
     def eval_steps_of(self, model: ReGAT, graphed: Optional[bool] = None,
-                      pool: Any = None) -> EvalSteps:
-        """`model`'s eval steps on this path (graphed on CUDA at tp = 1)."""
-        return EvalSteps(model, self.device, self.eval_store, graphed, pool, self.mesh)
+                      pool: Any = None, debug_nans: bool = False) -> EvalSteps:
+        """`model`'s eval steps on this path (graphed on CUDA unless
+        train/step.py::eager_reason gives a reason)."""
+        return EvalSteps(model, self.device, self.eval_store, graphed, pool, self.mesh,
+                         debug_nans)
 
 
 def _run_eval(
@@ -640,11 +651,19 @@ def run_training(
     distributed.broadcast_([*opt.params, *opt.mu, *opt.nu, opt.count_t], src=mesh.model,
                            group=mesh.data_group())
     run_sig = _run_signature(cfg, N, data.mode, mesh.dp)
-    if eager_reason(mesh):
-        logger.write(f"[tp] {eager_reason(mesh)}")
+    line = eager_line(mesh, gathers_rows(model), cfg.debug_nans)
+    if line:
+        logger.write(line)
     # the graphs capture the restored tensors: no step runs before the resume
     train = TrainSteps(model, opt, cfg, device, data.train_store, mesh=mesh)
-    evaluate = data.eval_steps_of(model, pool=train.graphs.pool)
+    evaluate = data.eval_steps_of(model, pool=train.graphs.pool, debug_nans=cfg.debug_nans)
+    try:
+        capture = profiling.maybe_start_server(cfg.profile_port,
+                                               os.path.join(cfg.output, "profile"),
+                                               cfg.profile_dir)
+    except BaseException:
+        logger.close()
+        raise
 
     metrics_writer = MetricsWriter(os.path.join(cfg.output, "metrics.jsonl"))
     logger.write(
@@ -652,11 +671,13 @@ def run_training(
         % (cfg.base_lr, cfg.lr_decay_step, cfg.lr_decay_rate)
         + "grad_clip=%.2f" % cfg.grad_clip
     )
-    # an exception anywhere still joins the in-flight async write, so every
-    # checkpoint issued before it is on disk; closing the batch stream ends
-    # the host path's prefetch thread
+    # an exception anywhere (--debug_nans' FloatingPointError among them)
+    # still joins the in-flight async write, so every checkpoint issued
+    # before it is on disk; closing the batch stream ends the host path's
+    # prefetch thread
     try:
-        with ckpt.pending_joined(), _PreemptWatcher() as preempt:
+        with ckpt.pending_joined(), _PreemptWatcher() as preempt, \
+                debug_nans.watching(model, cfg.debug_nans):
             for epoch in range(start_epoch, cfg.epochs):
                 skip = skip_steps if epoch == start_epoch else 0
                 lr_now = lr_fn(epoch * N)
@@ -685,10 +706,20 @@ def run_training(
                     n_restored = float(acc_resume.get("n", 0.0))
                 start = time.time()
                 done = skip  # optimizer steps of this epoch taken
-                with contextlib.closing(data.train_stream(epoch, skip)) as stream:
-                    for nsteps, item in stream:
-                        m = (train.block(*item, nsteps) if data.mode != "host"
-                             else train.batch(item))
+                with profiling.trace_epoch(cfg.profile_dir, epoch), \
+                        contextlib.closing(data.train_stream(epoch, skip)) as stream:
+                    if capture is not None:
+                        capture.poll()
+                    while True:
+                        with profiling.annotate("data"):
+                            nsteps, item = next(stream, (0, None))
+                        if item is None:
+                            break
+                        with profiling.annotate("step"):
+                            m = (train.block(*item, nsteps) if data.mode != "host"
+                                 else train.batch(item))
+                        if capture is not None:
+                            capture.poll(nsteps)
                         # the block's loss_sum, not loss * n (the last step's
                         # loss weighted by the block's count)
                         for k in acc:
@@ -767,6 +798,8 @@ def run_training(
                             f"fetch+write can drain)"
                         )
     finally:
+        if capture is not None:
+            capture.close()
         logger.close()
         metrics_writer.close()
     return model, best_score
@@ -780,8 +813,9 @@ def run_evaluation(
     model.to(device)
     mesh = make_mesh(cfg.dp_size, cfg.tp_size)
     data = _DataPath(cfg, None, val_ds, device, logger, mesh)
-    if eager_reason(mesh):
-        logger.write(f"[tp] {eager_reason(mesh)}")
+    line = eager_line(mesh, gathers_rows(model))
+    if line:
+        logger.write(line)
     return _run_eval(data.eval_steps_of(model), data, cfg, 0, logger, device)
 
 
@@ -806,8 +840,9 @@ def run_prediction(
     mode = resolve_data_mode(cfg, ds, None, include_adj, dp=mesh.dp)
     check_roi_buckets_mode(cfg, mode)
     logger.write(data_mode_line(cfg, mode, ds, None, include_adj, dp=mesh.dp))
-    if eager_reason(mesh):
-        logger.write(f"[tp] {eager_reason(mesh)}")
+    line = eager_line(mesh, gathers_rows(model))
+    if line:
+        logger.write(line)
     qids = ds.entries.question_ids
     # -1-filled: a coverage gap fails the label2ans lookup, never writes garbage
     answers = np.full(len(qids), -1, dtype=np.int64)
@@ -825,7 +860,7 @@ def run_prediction(
     def mine(a: np.ndarray) -> np.ndarray:
         return batch_slice(a, mesh.data, mesh.dp)
 
-    steps = StepGraphs(predict, device, resolve_graphed(mesh, graphed))
+    steps = StepGraphs(predict, device, resolve_graphed(mesh, graphed, gathers_rows(model)))
     if store is not None:
         for R, blk in blocked_eval_stream(cfg, store, eval_batch)[2]:
             nreal = real_batches(blk)

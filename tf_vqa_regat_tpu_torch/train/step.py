@@ -39,7 +39,10 @@ tp ranks of a data group hold the same rows; a split leaf keeps its part in
 the flat buffer, which the ranks of one data group lay out alike. At
 tp > 1 the forward and backward passes hold collectives over the model
 group, which a CUDA graph cannot capture here (gloo's cannot be captured at
-all), so the steps run eagerly (`eager_reason`).
+all), so the steps run eagerly (`eager_reason`). So do the steps whose
+forward pass gathers its rows over the data group (--ref_compat_q_att at
+dp > 1), and, under --debug_nans, the train steps and in-training eval
+passes (train/debug_nans.py).
 """
 
 from __future__ import annotations
@@ -192,22 +195,50 @@ def eval_step(model: ReGAT, batch: Batch) -> Dict[str, torch.Tensor]:
     return _metrics(logits, bce_with_logits_sum(logits, batch["target"], batch["valid"]), batch)
 
 
-def eager_reason(mesh: Mesh) -> Optional[str]:
-    """Why a step of `mesh` runs eagerly on the card, or None (graphed)."""
+def gathers_rows(model: ReGAT) -> bool:
+    """Whether `model`'s forward pass gathers its rows over the data group
+    (--ref_compat_q_att at dp > 1, models/language.py::batch_axis_softmax)."""
+    return model.q_att.data is not None
+
+
+def eager_reason(mesh: Mesh, gather: bool = False, debug_nans: bool = False) -> Optional[str]:
+    """Why a step of `mesh` runs eagerly on the card, or None (graphed):
+    tp > 1, a forward pass that gathers its rows over the data group
+    (`gather`, gathers_rows), or --debug_nans (`debug_nans`)."""
     if mesh.tp > 1:
         return (f"tp={mesh.tp}: each step runs eagerly (its forward and backward passes "
                 f"hold collectives over the model group, which a CUDA graph does not "
                 f"capture here)")
+    if gather:
+        return (f"--ref_compat_q_att at dp={mesh.dp}: each step runs eagerly (its "
+                f"forward pass gathers the question-attention logits over the data "
+                f"group, a collective a CUDA graph does not capture here)")
+    if debug_nans:
+        return ("--debug_nans: each train step and in-training eval pass runs eagerly "
+                "(every module's output is checked for a non-finite value, and the "
+                "backward runs under autograd's anomaly mode, neither of which a CUDA "
+                "graph replay can do)")
     return None
 
 
-def resolve_graphed(mesh: Mesh, graphed: Optional[bool]) -> Optional[bool]:
-    """`graphed` for a step of `mesh`: False at tp > 1, where an explicit
-    True raises."""
-    if eager_reason(mesh) is None:
+def eager_line(mesh: Mesh, gather: bool = False, debug_nans: bool = False) -> Optional[str]:
+    """The log line of eager_reason's reason, or None: `[tp] ...` at tp > 1,
+    `[eager] ...` otherwise."""
+    reason = eager_reason(mesh, gather, debug_nans)
+    if reason is None:
+        return None
+    return f"[{'tp' if mesh.tp > 1 else 'eager'}] {reason}"
+
+
+def resolve_graphed(mesh: Mesh, graphed: Optional[bool], gather: bool = False,
+                    debug_nans: bool = False) -> Optional[bool]:
+    """`graphed` for a step of `mesh`: False where eager_reason gives a
+    reason, where an explicit True raises."""
+    reason = eager_reason(mesh, gather, debug_nans)
+    if reason is None:
         return graphed
     if graphed:
-        raise ValueError(f"graphed steps are refused at {eager_reason(mesh)}")
+        raise ValueError(f"graphed steps are refused at {reason}")
     return False
 
 
@@ -238,7 +269,7 @@ class TrainSteps:
         self.seed, self.k, self.dtype = cfg.seed, cfg.grad_accum, cfg.compute_dtype
         self.device = torch.device(device)
         self.mesh = mesh if mesh is not None else Mesh(dp=1)
-        graphed = resolve_graphed(self.mesh, graphed)
+        graphed = resolve_graphed(self.mesh, graphed, gathers_rows(model), cfg.debug_nans)
         seed, k, rank = self.seed, self.k, self.mesh.data
 
         def gather(key, inputs) -> Batch:
@@ -308,10 +339,10 @@ class EvalSteps:
 
     def __init__(self, model: ReGAT, device: torch.device, store: Optional[DeviceStore] = None,
                  graphed: Optional[bool] = None, pool: Any = None,
-                 mesh: Optional[Mesh] = None):
+                 mesh: Optional[Mesh] = None, debug_nans: bool = False):
         self.device = torch.device(device)
         self.mesh = mesh if mesh is not None else Mesh(dp=1)
-        graphed = resolve_graphed(self.mesh, graphed)
+        graphed = resolve_graphed(self.mesh, graphed, gathers_rows(model), debug_nans)
 
         def step(R, inputs, generators) -> Dict[str, torch.Tensor]:
             batch = inputs if store is None else gather_batch(store, inputs["idx"], R)
