@@ -1,0 +1,9 @@
+"""optimizer_ms.train: device-busy ms per train step in the `optimizer` phase,
+between the program's `optimizer` mark and the next boundary mark, over the
+traced epoch's train steps (regat_bench/phases.py)."""
+
+from regat_bench import phases
+
+
+def read(rec):
+    return phases.phase_ms(rec, "optimizer")

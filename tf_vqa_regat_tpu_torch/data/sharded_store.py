@@ -71,6 +71,7 @@ from tf_vqa_regat_tpu_torch.data.store import (
     upload_table,
 )
 from tf_vqa_regat_tpu_torch.parallel import distributed
+from tf_vqa_regat_tpu_torch.train.profiling import timed
 
 
 def _padded_step_batches(per_shard: List[np.ndarray], per: int) -> Iterator[np.ndarray]:
@@ -173,6 +174,7 @@ class ShardedDeviceStore:
     `epoch_indices`, `epoch_indices_bucketed`, `bucketed_batch_counts`; its
     index batches are global [dp * per] vectors of shard-local ids."""
 
+    @timed("upload")  # the set-up counter of the tables' upload (train/profiling.py)
     def __init__(self, ds: VQADataset, device: torch.device, rank: int, dp: int,
                  targets: bool = True, feature_dtype: str = "float32",
                  include_adj: bool = False, cache_dir: str = ""):

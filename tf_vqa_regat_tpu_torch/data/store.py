@@ -43,6 +43,7 @@ from tf_vqa_regat_tpu_torch.data.cache import (
 from tf_vqa_regat_tpu_torch.data.entries import EntryTable, assert_unique_labels
 from tf_vqa_regat_tpu_torch.data.features import VQADataset, source_fingerprint
 from tf_vqa_regat_tpu_torch.data.ordering import batch_shuffle_rng, epoch_perm_rng
+from tf_vqa_regat_tpu_torch.train.profiling import timed
 
 MAX_LABELS = 16  # VQA soft targets have <= 10 answers
 CHUNK_ROWS = 262144  # rows per conversion chunk (~2 GB f32 at 2048-d), as JAX's
@@ -296,6 +297,7 @@ class DeviceStore:
     run on an answerless split) the soft targets are neither read nor
     stored."""
 
+    @timed("upload")  # the set-up counter of the tables' upload (train/profiling.py)
     def __init__(
         self, ds: VQADataset, device: torch.device, targets: bool = True,
         feature_dtype: str = "float32", include_adj: bool = True, cache_dir: str = "",

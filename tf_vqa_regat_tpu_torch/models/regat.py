@@ -73,6 +73,7 @@ from tf_vqa_regat_tpu_torch.ops.spatial_graph import (
     build_spatial_graph,
 )
 from tf_vqa_regat_tpu_torch.parallel.tensor import TensorParallel
+from tf_vqa_regat_tpu_torch.train.profiling import timed
 
 RELATION_TYPES = ("implicit", "spatial", "semantic")
 FUSIONS = ("butd", "ban", "mutan")
@@ -89,6 +90,7 @@ def check_supported(cfg: Config) -> None:
 
 
 class ReGAT(nn.Module):
+    @timed("init")  # the set-up counter of the model's construction (train/profiling.py)
     def __init__(
         self, cfg: Config, ntoken: int, v_dim: int, num_ans: int,
         generator: Optional[torch.Generator] = None,

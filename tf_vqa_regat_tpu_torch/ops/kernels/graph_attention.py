@@ -45,6 +45,7 @@ from typing import NamedTuple
 import torch
 
 from tf_vqa_regat_tpu_torch.ops.kernels import build
+from tf_vqa_regat_tpu_torch.train.profiling import mark
 
 SOURCE = build.CSRC_DIR / "graph_attention.cu"
 
@@ -272,7 +273,8 @@ class GraphAttention(torch.autograd.Function):
     """The fused attention with its gradient (`_fused` with its custom VJP):
     forward through the kernel, backward by `graph_attention_backward`.
     dbias = daff, summed back over the axes the bias was broadcast along (the
-    head axis for the model's shared bias)."""
+    head axis for the model's shared bias). The backward is bracketed by the
+    phase marks `b2_backward_begin` / `b2_backward_end` (train/profiling.py)."""
 
     @staticmethod
     def forward(ctx, q, k, vw, bias, per_head):
@@ -289,10 +291,12 @@ class GraphAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         q, k, vw, bias = ctx.saved_tensors
+        mark("b2_backward_begin", g.device)
         dq, dk, dvw, daff = graph_attention_backward(
             g.contiguous(), q, k, vw, bias, ctx.per_head
         )
         dbias = daff.sum_to_size(bias.shape) if ctx.needs_input_grad[3] else None
+        mark("b2_backward_end", g.device)
         return dq, dk, dvw, dbias, None
 
 

@@ -45,6 +45,7 @@ import torch
 from tf_vqa_regat_tpu_torch.nn import drop_threshold
 from tf_vqa_regat_tpu_torch.ops.kernels import build
 from tf_vqa_regat_tpu_torch.ops.kernels import graph_attention as ga
+from tf_vqa_regat_tpu_torch.train.profiling import mark
 
 NEG_INF = -9e15  # additive key mask (reference graph_att_layer.py:95)
 SOURCE = build.CSRC_DIR / "implicit_attention.cu"
@@ -345,7 +346,8 @@ class ImplicitAttention(torch.autograd.Function):
     """The fused attention with its gradient (`_fused_v3` with its custom VJP):
     forward through the train variant, which keeps `pwr`; backward by
     `implicit_attention_backward`. No gradient w.r.t. the position matrix,
-    the key mask or the keep-mask."""
+    the key mask or the keep-mask. The backward is bracketed by the phase
+    marks `b1_backward_begin` / `b1_backward_end` (train/profiling.py)."""
 
     @staticmethod
     def forward(ctx, q, k, vw, pos_mat, w_pos, b_pos, key_mask, drop_rate, dropmask):
@@ -367,9 +369,11 @@ class ImplicitAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         q, k, vw, pos_mat, w_pos, mrow, keep, pwr = ctx.saved_tensors
+        mark("b1_backward_begin", g.device)
         dq, dk, dvw, dw_pos, db_pos = implicit_attention_backward(
             g.contiguous(), q, k, vw, pos_mat, w_pos, mrow, keep, ctx.inv_keep, pwr
         )
+        mark("b1_backward_end", g.device)
         return (dq, dk, dvw, None, dw_pos, db_pos if ctx.has_b_pos else None,
                 None, None, None)
 

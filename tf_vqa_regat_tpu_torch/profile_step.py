@@ -18,11 +18,15 @@ device store on the card, inside the step.
 
 Prints, per mode (graphed, eager): the capture's seconds (graphed), the
 step time on the host clock with and without the profiler, the device's
-busy time (sum of kernel times) and idle share, kernels launched per step,
-the shares of B1 (both variants), B2 and the GEMMs, the peak device memory,
-and the kernels that took the most time. Flags it does not know go to the
-config parser after the JSON's values (e.g. `--compute_dtype bfloat16
---num_rois 36`). Needs a CUDA device; TF32 is off, as in chip_smoke.py.
+busy time (the union of the device operations' intervals, so overlapping
+kernels count once) and idle share, the step's phases from its marks
+(train/profiling.py: gather, forward, backward with B1's and B2's
+backward inside it, optimizer; device ms per step), kernels launched per
+step, the shares of B1 (both variants), B2 and the GEMMs, the peak device
+memory, and the kernels that took the most time. Flags it does not know go
+to the config parser after the JSON's values (e.g. `--compute_dtype
+bfloat16 --num_rois 36`). Needs a CUDA device; TF32 is off, as in
+chip_smoke.py.
 """
 
 from __future__ import annotations
@@ -45,6 +49,7 @@ from tf_vqa_regat_tpu_torch.main import build_dataset
 from tf_vqa_regat_tpu_torch.models.regat import ReGAT, trainable_mask
 from tf_vqa_regat_tpu_torch.train.loop import check_grad_accum, host_loader
 from tf_vqa_regat_tpu_torch.train.optim import Adamax, make_lr_schedule
+from tf_vqa_regat_tpu_torch.train.profiling import PAIRS, PHASES, phase_ns, union_ns
 from tf_vqa_regat_tpu_torch.train.step import TrainSteps
 
 CONFIG = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
@@ -100,7 +105,11 @@ def profile_mode(cfg, ds, device, graphed: bool, steps: int, trace: str) -> None
     # the host path's copies run on the copy engine beside the kernels:
     # reported apart, not counted as busy
     h2d = {k: busy.pop(k) for k in list(busy) if "HtoD" in k}
-    total = sum(ms for ms, _ in busy.values())
+    ops = [(e.name(), e.start_ns(), e.end_ns())
+           for e in prof.profiler.kineto_results.events()
+           if e.device_type() == DeviceType.CUDA and not e.is_user_annotation()
+           and "HtoD" not in e.name()]
+    total = union_ns((s, e) for _, s, e in ops) / 1e6 / steps
     b1 = sum(ms for k, (ms, _) in busy.items() if "implicit_attention" in k)
     b2 = sum(ms for k, (ms, _) in busy.items() if "graph_attention_kernel" in k)
     gemm = sum(ms for k, (ms, _) in busy.items() if GEMM.search(k))
@@ -116,6 +125,13 @@ def profile_mode(cfg, ds, device, graphed: bool, steps: int, trace: str) -> None
     print(f"[{mode}] device busy ms/step: {total:.3f}; idle share of the profiled step: "
           f"{1 - total / traced_ms:.3f}, of the unprofiled step: "
           f"{max(0.0, 1 - total / plain_ms):.3f}")
+    marked, phases = phase_ns(ops)
+    if marked:
+        ms = {k: v / 1e6 / marked for k, v in phases.items()}
+        covered = sum(ms[k] for k in PHASES)
+        print(f"[{mode}] phases, device ms/step over {marked} marked steps: "
+              + ", ".join(f"{k} {ms[k]:.3f}" for k in PHASES + PAIRS)
+              + f"; the phases cover {covered / total:.3f} of busy")
     print(f"[{mode}] kernels per step: {sum(c for _, c in busy.values()):.0f}; B1 share of "
           f"busy {b1 / total:.3f} ({b1:.3f} ms); B2 share {b2 / total:.3f} ({b2:.3f} ms); "
           f"GEMM share {gemm / total:.3f} ({gemm:.3f} ms); peak device memory {peak_gb:.2f} GB")

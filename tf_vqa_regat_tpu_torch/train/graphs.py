@@ -33,6 +33,8 @@ What a replay keeps, and what the callers take care of:
   graph's replay. A caller consumes or copies them before the next replay
   of any graph of the pool; a consumer's kernels queue on the same stream,
   so they read the outputs before the next replay writes them.
+- Set-up. Each graph's warm-up and capture is a `capture` span; its host
+  seconds (`capture_s`) add to train/profiling.py's `capture` total.
 - Launch counts. The kernel wrappers count in Python, which a replay does
   not run: the counts a capture adds are taken back and added again at
   every replay, so a count is the launches the card ran; a warm-up's
@@ -58,6 +60,7 @@ import torch
 
 from tf_vqa_regat_tpu_torch.ops.kernels import graph_attention as _ga
 from tf_vqa_regat_tpu_torch.ops.kernels import implicit_attention as _ia
+from tf_vqa_regat_tpu_torch.train import profiling
 
 Inputs = Dict[str, torch.Tensor]
 StepFn = Callable[[Hashable, Inputs, List[torch.Generator]], Any]
@@ -128,6 +131,14 @@ class _Graph:
     def __init__(self, fn: StepFn, key: Hashable, inputs: Inputs, n_generators: int,
                  device: torch.device, pool: Any, keep: Optional[Callable[[], Callable]]):
         t0 = time.perf_counter()
+        with profiling.annotate("capture"):
+            self._capture(fn, key, inputs, n_generators, device, pool, keep)
+        self.capture_s = time.perf_counter() - t0
+        profiling.add_setup("capture", self.capture_s)
+
+    def _capture(self, fn: StepFn, key: Hashable, inputs: Inputs, n_generators: int,
+                 device: torch.device, pool: Any, keep: Optional[Callable[[], Callable]]):
+        """Warm the step up, capture it, restore the state the warm-up changed."""
         self.static = {k: v.detach().clone() for k, v in inputs.items()}
         self.generators = [torch.Generator(device=device) for _ in range(n_generators)]
         restore = keep() if keep is not None else None
@@ -166,7 +177,6 @@ class _Graph:
         if restore is not None:
             restore()
         torch.cuda.synchronize(device)
-        self.capture_s = time.perf_counter() - t0
 
     def replay(self, inputs: Inputs, seeds: Sequence[int]) -> Any:
         if inputs.keys() != self.static.keys():

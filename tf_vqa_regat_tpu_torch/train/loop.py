@@ -72,7 +72,11 @@ rank, and every checkpoint gathers the split leaves first, so `state.npz`
 holds full leaves at any tp.
 
 Observability (JAX loop.py:228-232, :437): --profile_dir traces each
-epoch's train steps with `data` and `step` spans, --profile_port serves
+epoch's train steps with `data` spans around the fetch of each block
+(`_DataPath.train_stream`) and `step` and `upload` spans around its steps
+(train/step.py::TrainSteps) and the steps' phase marks on the device's
+clock; after the run's first eval pass the log carries the `[setup]` line
+of the process's set-up totals (train/profiling.py); --profile_port serves
 `/capture` and starts and stops its profiler at the loop's step boundaries
 (train/profiling.py), and --debug_nans runs the steps eagerly under
 train/debug_nans.py's checks, inside `pending_joined`, so an async write
@@ -486,6 +490,21 @@ def host_loader(cfg: Config, ds: VQADataset, batch_size: int, shuffle: bool,
                        feature_dtype=cfg.feature_dtype, shard=(mesh.data, mesh.dp))
 
 
+_END = object()
+
+
+def _spanned(name: str, items: Iterable[Any]) -> Iterator[Any]:
+    """`items`, each fetched inside the host span `name`
+    (train/profiling.py::annotate)."""
+    it = iter(items)
+    while True:
+        with profiling.annotate(name):
+            item = next(it, _END)
+        if item is _END:
+            return
+        yield item
+
+
 class _DataPath:
     """The resolved data path of a train or eval run (JAX `_DataPath`): the
     device or sharded stores with the on-card gather, or the host loaders
@@ -551,13 +570,13 @@ class _DataPath:
         if self.mode == "host":
             with contextlib.closing(prefetch_to_device(
                     self.train_loader, self.device, epoch, skip, cfg.prefetch)) as batches:
-                for batch in batches:
+                for batch in _spanned("data", batches):
                     yield 1, batch
             return
         K = self.train_block
         raw = train_batch_stream(cfg, self.train_store, epoch)
         consumed = 0
-        for R, blk, nreal in _block_batches_counted(raw, K, cfg.batch_size):
+        for R, blk, nreal in _spanned("data", _block_batches_counted(raw, K, cfg.batch_size)):
             if consumed < skip:
                 if consumed + nreal > skip:
                     raise ValueError(
@@ -710,14 +729,9 @@ def run_training(
                         contextlib.closing(data.train_stream(epoch, skip)) as stream:
                     if capture is not None:
                         capture.poll()
-                    while True:
-                        with profiling.annotate("data"):
-                            nsteps, item = next(stream, (0, None))
-                        if item is None:
-                            break
-                        with profiling.annotate("step"):
-                            m = (train.block(*item, nsteps) if data.mode != "host"
-                                 else train.batch(item))
+                    for nsteps, item in stream:
+                        m = (train.block(*item, nsteps) if data.mode != "host"
+                             else train.batch(item))
                         if capture is not None:
                             capture.poll(nsteps)
                         # the block's loss_sum, not loss * n (the last step's
@@ -770,6 +784,8 @@ def run_training(
                 logger.write(
                     f"[DEBUG] train_score: {train_score:.4f} eval_score: {eval_score:.4f}"
                 )
+                if epoch == start_epoch:
+                    logger.write(profiling.setup_line())
                 metrics_writer.write({
                     "epoch": epoch,
                     "lr": lr_now,

@@ -1,14 +1,26 @@
-"""Tracing hooks of `--mode train` (counterpart of
-tf_vqa_regat_tpu/train/profiling.py), both flag-gated:
+"""Tracing hooks of the port (counterpart of
+tf_vqa_regat_tpu/train/profiling.py):
 
 - `trace_epoch(logdir, epoch)` (--profile_dir): a `torch.profiler` trace
   (CPU and, where CUDA is available, CUDA activities) around the epoch's
   train steps, written as a Chrome trace to
   `{logdir}/epoch_{epoch:04d}/rank{r}.pt.trace.json`; nothing runs when
   `logdir` is empty.
-- `annotate(name)`: a `record_function` span. The train loop puts `data`
-  around the fetch of each dispatch and `step` around its steps (a block,
-  or one host batch), so a timeline shows where the host's time goes.
+- `annotate(name)`: a host span. The data path puts `data` around the
+  assembly of each train block's indices (`_DataPath.train_stream`), the
+  train steps `step` around a block's steps and `upload` around its copy
+  to the card (`TrainSteps.block`, `TrainSteps.batch`), so a timeline
+  shows where the host's time goes. On CUDA the profiler mirrors a span
+  onto the device's timeline, stretched over the kernels launched inside
+  it and flagged as a user annotation: a reader of device intervals leaves
+  such events out (profile_step.py does), or it counts the mirror as
+  device work.
+- `mark(name, device)`: a phase mark inside a train step, on the device's
+  clock (below).
+- `timed(name)`: a span that also adds its host seconds to a process-wide
+  set-up total, `setup_seconds()`: `init` (ReGAT's construction), `upload`
+  (a device store's tables), `capture` (a graph's warm-up and capture,
+  train/graphs.py, which adds the seconds it measures itself).
 - `maybe_start_server(port, default_dir)` (--profile_port): JAX starts
   jax.profiler's live-capture server there. Torch has none, so the port
   serves `GET /capture?duration_ms=N` over HTTP from a daemon thread: the
@@ -21,13 +33,30 @@ tf_vqa_regat_tpu/train/profiling.py), both flag-gated:
   request that finds an epoch trace running (--profile_dir) is answered
   409, one that no step boundary reaches before training ends 503.
 
-A CUDA-graphed step appears in a trace as a graph launch; the profiler
-changes nothing that runs (no step leaves its graph).
+Phase marks. A train step is one CUDA graph replay, and a host range
+inside it runs at capture only. A mark is an empty kernel
+(`csrc/marks.cu`, one per name, `regat_mark_<name>`) launched <<<1, 1>>> on
+the current stream, so a capture takes it into the graph and every replay
+runs it; the profiler records it beside the step's other kernels. Every
+train step, graphed or eager, marks `gather` (before the batch's gather),
+then per microbatch `forward` and `backward`, then under a process group
+`reduce` (before the gradient sums are written for the all-reduce), then
+`optimizer` (before the clip and Adamax update) and `end`. Inside
+`backward`, each B1 or B2 backward is bracketed by `b1_backward_begin` /
+`b1_backward_end` (`b2_...`). A phase's device time is the device work
+between its mark and the next boundary mark (`phase_ns`). Eval steps are
+not marked. Off CUDA a mark launches nothing; inside `recording()` its
+name is appended to the list it yields (the CPU tests' view of the
+order).
+
+A CUDA-graphed step appears in a trace as a graph launch and its kernels;
+the profiler changes nothing that runs (no step leaves its graph).
 """
 
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import json
 import os
 import queue
@@ -35,10 +64,11 @@ import threading
 import time
 import urllib.parse
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Iterator, Optional
+from typing import Dict, Iterable, Iterator, List, Optional, Sequence, Tuple
 
 import torch
 
+from tf_vqa_regat_tpu_torch.ops.kernels import build
 from tf_vqa_regat_tpu_torch.parallel import distributed
 
 
@@ -86,6 +116,156 @@ def trace_epoch(logdir: Optional[str], epoch: int) -> Iterator[None]:
 def annotate(name: str):
     """Span annotation visible in profiler timelines."""
     return torch.profiler.record_function(name)
+
+
+# ---- set-up counters ---------------------------------------------------------
+
+_SETUP: Dict[str, List[float]] = {}  # name -> [seconds, calls]
+
+
+def add_setup(name: str, seconds: float) -> None:
+    """Add `seconds` of host time to the set-up total `name`."""
+    total = _SETUP.setdefault(name, [0.0, 0])
+    total[0] += seconds
+    total[1] += 1
+
+
+@contextlib.contextmanager
+def timed(name: str) -> Iterator[None]:
+    """A span `name` whose host seconds add to the set-up total `name`."""
+    t0 = time.perf_counter()
+    try:
+        with annotate(name):
+            yield
+    finally:
+        add_setup(name, time.perf_counter() - t0)
+
+
+def setup_seconds() -> Dict[str, float]:
+    """The process's set-up totals so far, in host seconds, by name."""
+    return {name: total[0] for name, total in _SETUP.items()}
+
+
+def setup_calls() -> Dict[str, int]:
+    """How many times each set-up total was added to (graphs captured,
+    stores uploaded, models built)."""
+    return {name: int(total[1]) for name, total in _SETUP.items()}
+
+
+def setup_line() -> str:
+    """The operator's reading of the set-up totals."""
+    s, n = setup_seconds(), setup_calls()
+    return (f"[setup] model init {s.get('init', 0.0):.3f} s, tables upload "
+            f"{s.get('upload', 0.0):.3f} s, warm-up and capture {s.get('capture', 0.0):.3f} s "
+            f"({n.get('capture', 0)} graphs)")
+
+
+# ---- phase marks -------------------------------------------------------------
+
+# in csrc/marks.cu's order (checked when it loads)
+MARKS = ("gather", "forward", "backward", "reduce", "optimizer", "end",
+         "b1_backward_begin", "b1_backward_end", "b2_backward_begin", "b2_backward_end")
+MARK_PREFIX = "regat_mark_"
+# the marks that end one phase and open the next, and the phases they open
+BOUNDARIES = ("gather", "forward", "backward", "reduce", "optimizer", "end")
+PHASES = BOUNDARIES[:-1]
+# the bracketed spans inside `backward`
+PAIRS = ("b1_backward", "b2_backward")
+_INDEX = {name: i for i, name in enumerate(MARKS)}
+_LIB: List[ctypes.CDLL] = []
+_RECORDING: List[List[str]] = []
+
+
+def _lib() -> ctypes.CDLL:
+    """The marks' library, built at first use."""
+    if not _LIB:
+        lib = build.load(build.CSRC_DIR / "marks.cu")
+        lib.regat_mark.argtypes = [ctypes.c_int, ctypes.c_void_p]
+        lib.regat_mark.restype = ctypes.c_int
+        lib.regat_mark_count.restype = ctypes.c_int
+        lib.regat_mark_name.argtypes = [ctypes.c_int]
+        lib.regat_mark_name.restype = ctypes.c_char_p
+        names = tuple(lib.regat_mark_name(i).decode() for i in range(lib.regat_mark_count()))
+        if names != MARKS:
+            raise RuntimeError(f"csrc/marks.cu has the marks {names}, this module {MARKS}")
+        _LIB.append(lib)
+    return _LIB[0]
+
+
+def mark(name: str, device: torch.device) -> None:
+    """Phase mark `name` (one of MARKS) on `device`'s current stream: a
+    kernel on CUDA (captured into a graph being captured), else nothing but
+    its name in the lists of the open `recording()`s."""
+    i = _INDEX.get(name)
+    if i is None:
+        raise ValueError(f"no phase mark {name!r}; the marks are {MARKS}")
+    device = torch.device(device)
+    if device.type != "cuda":
+        for names in _RECORDING:
+            names.append(name)
+        return
+    index = torch.cuda.current_device() if device.index is None else device.index
+    if index != torch.cuda.current_device():
+        with torch.cuda.device(index):
+            return mark(name, device)
+    err = _lib().regat_mark(i, torch._C._cuda_getCurrentRawStream(index))
+    if err != 0:
+        raise RuntimeError(f"phase mark {name}: launch failed, CUDA error {err}")
+
+
+@contextlib.contextmanager
+def recording() -> Iterator[List[str]]:
+    """The names of the marks made off CUDA while it is open, in order."""
+    names: List[str] = []
+    _RECORDING.append(names)
+    try:
+        yield names
+    finally:
+        _RECORDING.remove(names)
+
+
+Op = Tuple[str, int, int]  # name, start ns, end ns
+
+
+def union_ns(intervals: Iterable[Tuple[int, int]]) -> int:
+    """The length of the union of [start, end) intervals."""
+    total, reach = 0, None
+    for s, e in sorted(intervals):
+        if reach is None or s > reach:
+            total += max(e - s, 0)
+            reach = e
+        elif e > reach:
+            total += e - reach
+            reach = e
+    return total
+
+
+def phase_ns(ops: Sequence[Op]) -> Tuple[int, Dict[str, int]]:
+    """(steps, device-busy ns by phase and bracketed pair) of a stretch of
+    device operations holding whole marked steps: a phase's time is the
+    union of the operations' intervals (marks among them) between the end
+    of its mark and the start of the next boundary mark; a pair's between
+    the end of its begin mark and the start of its end mark; steps are the
+    `end` marks."""
+    marks = sorted(((name[len(MARK_PREFIX):], s, e) for name, s, e in ops
+                    if name.startswith(MARK_PREFIX)), key=lambda m: m[1])
+
+    def busy(lo: int, hi: int) -> int:
+        return union_ns((max(s, lo), min(e, hi)) for _, s, e in ops if e > lo and s < hi)
+
+    out = {name: 0 for name in PHASES + PAIRS}
+    bounds = [m for m in marks if m[0] in BOUNDARIES]
+    for (name, _, end), (_, start, _) in zip(bounds, bounds[1:]):
+        if name in PHASES:
+            out[name] += busy(end, start)
+    opened: Dict[str, int] = {}
+    for name, start, end in marks:
+        pair, _, edge = name.rpartition("_")
+        if pair in PAIRS and edge == "begin":
+            opened[pair] = end
+        elif pair in opened:
+            out[pair] += busy(opened.pop(pair), start)
+    return sum(1 for m in bounds if m[0] == "end"), out
 
 
 class _Request:

@@ -43,6 +43,13 @@ all), so the steps run eagerly (`eager_reason`). So do the steps whose
 forward pass gathers its rows over the data group (--ref_compat_q_att at
 dp > 1), and, under --debug_nans, the train steps and in-training eval
 passes (train/debug_nans.py).
+
+Phase marks (train/profiling.py::mark): every train step, graphed or
+eager, marks `gather` before its batch's gather, `forward` and `backward`
+per microbatch, `reduce` before a process group's sums are written,
+`optimizer` before the clip and update and `end` after it; a capture takes
+the marks into the graph, so every replay runs them. The step's metrics
+count in `forward`. Eval steps are not marked.
 """
 
 from __future__ import annotations
@@ -61,6 +68,7 @@ from tf_vqa_regat_tpu_torch.parallel.mesh import Mesh, batch_slice
 from tf_vqa_regat_tpu_torch.train.graphs import StepGraphs, to_device
 from tf_vqa_regat_tpu_torch.train.loss import bce_with_logits_sum, vqa_score_sum
 from tf_vqa_regat_tpu_torch.train.optim import Adamax
+from tf_vqa_regat_tpu_torch.train.profiling import annotate, mark
 
 Batch = Dict[str, torch.Tensor]
 
@@ -102,16 +110,24 @@ def train_step(
     from `generators`, one per microbatch, seeded by the caller (a captured
     step keeps its generators), or by default from train_forward's."""
     gens = generators or [None] * grad_accum
+    device = batch["features"].device
     if grad_accum == 1:
+        mark("forward", device)
         loss, logits = train_forward(model, batch, step, seed, 0, gens[0])
+        m = _metrics(logits, loss, batch)
+        mark("backward", device)
         grads = torch.autograd.grad(loss, opt.params)
+        mark("optimizer", device)
         opt.step(grads)
-        return _metrics(logits, loss, batch)
+        mark("end", device)
+        return m
     grads, loss_sum, score, n_sum = grad_sums(model, opt.params, batch, step, seed,
                                               grad_accum, gens)
+    mark("optimizer", device)
     n = torch.clamp(n_sum, min=1.0)
     torch._foreach_div_(grads, n)
     opt.step(grads)
+    mark("end", device)
     return {"loss": loss_sum / n, "score": score, "n": n_sum}
 
 
@@ -124,14 +140,17 @@ def grad_sums(
     run one after another, each with its generator (default:
     step_generator(seed + 1, step, device, microbatch, rank))."""
     gens = generators or [None] * grad_accum
+    device = batch["features"].device
     grads, loss_sum, score, n_sum = None, 0.0, 0.0, 0.0
     for a in range(grad_accum):
+        mark("forward", device)
         mb = batch if grad_accum == 1 else microbatch(batch, a, grad_accum)
         gen = gens[a]
         if gen is None and rank:
-            gen = step_generator(seed + 1, step, mb["features"].device, a, rank)
+            gen = step_generator(seed + 1, step, device, a, rank)
         loss, logits = train_forward(model, mb, step, seed, a, gen)
         m = _metrics(logits, loss, mb)
+        mark("backward", device)
         g = torch.autograd.grad(loss * m["n"], params)
         del loss, logits  # this microbatch's activations go before the next
         if grads is None:
@@ -168,8 +187,11 @@ def apply_sums(opt: Adamax, sums: FlatSums) -> Dict[str, torch.Tensor]:
     """The update from summed gradients: divided by the summed count (max 1),
     then the per-tensor clip and Adamax -> the metrics of the global batch.
     The buffer is read, not changed."""
+    device = sums.flat.device
+    mark("optimizer", device)
     n = torch.clamp(sums.sums[2], min=1.0)
     opt.step(torch._foreach_div(sums.grads, n))
+    mark("end", device)
     return {"loss": sums.sums[0] / n, "score": sums.sums[1].clone(),
             "n": sums.sums[2].clone()}
 
@@ -270,9 +292,10 @@ class TrainSteps:
         self.device = torch.device(device)
         self.mesh = mesh if mesh is not None else Mesh(dp=1)
         graphed = resolve_graphed(self.mesh, graphed, gathers_rows(model), cfg.debug_nans)
-        seed, k, rank = self.seed, self.k, self.mesh.data
+        seed, k, rank, device = self.seed, self.k, self.mesh.data, self.device
 
         def gather(key, inputs) -> Batch:
+            mark("gather", device)
             return inputs if store is None else gather_batch(store, inputs["idx"], key[0])
 
         if not self.mesh.group:
@@ -287,8 +310,10 @@ class TrainSteps:
         sums = self.sums = FlatSums(opt.params, self.device)
 
         def local(key, inputs, generators) -> Dict[str, torch.Tensor]:
-            sums.write(*grad_sums(model, opt.params, gather(key, inputs), opt.count, seed, k,
-                                  generators, rank))
+            summed = grad_sums(model, opt.params, gather(key, inputs), opt.count, seed, k,
+                               generators, rank)
+            mark("reduce", device)
+            sums.write(*summed)
             return {}
 
         def update(key, inputs, generators) -> Dict[str, torch.Tensor]:
@@ -317,18 +342,21 @@ class TrainSteps:
         one step each, with one copy of this rank's rows to the card -> the
         block's metrics (add_step): JAX's scanned block, whose padded steps
         leave the state as it is."""
-        blk = batch_slice(blk, self.mesh.data, self.mesh.dp)
-        idx = to_device(blk[:nreal], self.device)
-        acc = block_zeros(self.device)
-        for j in range(nreal):
-            add_step(acc, self.step(R, {"idx": idx[j]}))
-        return acc
+        with annotate("step"):
+            with annotate("upload"):
+                blk = batch_slice(blk, self.mesh.data, self.mesh.dp)
+                idx = to_device(blk[:nreal], self.device)
+            acc = block_zeros(self.device)
+            for j in range(nreal):
+                add_step(acc, self.step(R, {"idx": idx[j]}))
+            return acc
 
     def batch(self, batch: Batch) -> Dict[str, torch.Tensor]:
         """One step on a batch of the host path -> a block of one."""
-        acc = block_zeros(self.device)
-        add_step(acc, self.step(batch["features"].shape[1], batch))
-        return acc
+        with annotate("step"):
+            acc = block_zeros(self.device)
+            add_step(acc, self.step(batch["features"].shape[1], batch))
+            return acc
 
 
 class EvalSteps:
