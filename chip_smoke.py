@@ -276,9 +276,32 @@ Phases, each of which fails the run (non-zero exit, no result line):
      one GET /capture?duration_ms=500 during a butd run answers with a
      trace file that exists; every step of (c)-(e) but --debug_nans' stays
      a graph replay.
+ 26. B1's backward kernel (`ImplicitAttention.backward` on the card)
+     against `implicit_attention_backward`, the transcription the CPU runs,
+     on the same saved `pwr`: R = 100, 64 and 36 at b=256, H = 16 and 8
+     (dh=o=64), each with the keep-mask and b_pos and without either, and
+     R=100, H=16 at b = 32 and 8, whose plans cut the rows into chunks;
+     then the general instance at the other widths the model's flags can
+     give (BACKWARD_CASES: 12 heads, dh=128, nongt_dim 36, 50 and 10, roi
+     buckets of 16 and 7 below nongt_dim, P = 32 and 96); dq, dk and dvw
+     within GRAD_RTOL, dW_pos and db_pos within POS_GRAD_RTOL of their
+     largest magnitude, two launches giving equal bits, the train variant's
+     row maxima against the plain version's; the device memory one
+     backward allocates (its outputs and workspaces, no [b, R, n, P] or
+     [b, R, H, n] tensor); times of the kernel against the transcription
+     (the specialised instance at b=256 and the general one at its first
+     case) and of forward plus backward against autograd of the plain
+     version (timed as in 3), and the kernel's bound.
+     Then `--mode train` and `--mode eval` of the implicit family at
+     OTHER_WIDTHS (8 heads of 128, nongt_dim 12, imp_pos_emb_dim 32), as
+     in 8-9. `--only 26` runs 4, 26 and 8-9 for the implicit family (whose
+     train runs must count one backward launch per train launch) alone,
+     without a result line.
 Counts of launches are set to 0 just before each path of 8-13, 17-21 and
 23-25 (in each rank's process in 23 (b), 24 and 25 (b)) runs and read just after it; the comparison launches of 3-7, 14-16 and 22
-and of the plain-path comparisons do not count. Every step of 8-21 is a
+and of the plain-path comparisons do not count; B1's backward launches of
+those paths, the rank processes' included, must sum to their B1 train
+launches (one backward per train forward). Every step of 8-21 is a
 CUDA graph replay, whose wrapper counts are added per replay (a capture's
 are taken back), so a count is the launches the card ran. Each phase prints its wall
 time. Phases 8-13 run at the configs' full widths and depths, as before.
@@ -489,7 +512,7 @@ def reset_counts() -> None:
     from tf_vqa_regat_tpu_torch.ops.kernels import graph_attention as ga
     from tf_vqa_regat_tpu_torch.ops.kernels import implicit_attention as ia
 
-    ia.KERNEL.launches = ia.KERNEL.train_launches = 0
+    ia.KERNEL.launches = ia.KERNEL.train_launches = ia.KERNEL.backward_launches = 0
     ga.KERNEL.launches = ga.KERNEL.per_head_launches = 0
     ia.KERNEL.launches_by_rows.clear()
     ga.KERNEL.launches_by_rows.clear()
@@ -520,6 +543,8 @@ def rows_counts() -> dict:
 
 # the launches by (kernel, R) of every path of 8-21 that records them
 PATH_ROWS = []
+# B1's backward launches of those paths
+PATH_BACKWARD = []
 # the split sizes of check_entry_point's last training run, and its train
 # batches that carried edge labels
 LAST_TRAIN = {}
@@ -529,9 +554,30 @@ LAST_TRAIN = {}
 LAST_ENSEMBLE = {}
 
 
+def b1_backward_launches() -> int:
+    """B1's backward launches since the last reset_counts()."""
+    from tf_vqa_regat_tpu_torch.ops.kernels import implicit_attention as ia
+
+    return ia.KERNEL.backward_launches
+
+
+def rank_launches(rec, label) -> dict:
+    """The launch counts of a rank process's record; its B1 backward launches,
+    one per B1 train launch, go to PATH_BACKWARD."""
+    if rec["backward"] != rec["launches"]["B1 train"]:
+        fail(f"{label}: {rec['backward']} B1 backward launches for "
+             f"{rec['launches']['B1 train']} train launches")
+    PATH_BACKWARD.append(rec["backward"])
+    return rec["launches"]
+
+
 def read_path_counts() -> dict:
-    """counts() of the path that just ran; its launches by R go to PATH_ROWS."""
+    """counts() of the path that just ran; its launches by R go to PATH_ROWS
+    and its B1 backward launches to PATH_BACKWARD."""
+    from tf_vqa_regat_tpu_torch.ops.kernels import implicit_attention as ia
+
     PATH_ROWS.append(rows_counts())
+    PATH_BACKWARD.append(ia.KERNEL.backward_launches)
     return counts()
 
 
@@ -587,18 +633,20 @@ def plain_kernels():
         graph_attention.fused_graph_attention = ga.fused_graph_attention
 
 
-def kernel_inputs(b, device, seed, R=SERVE_SHAPES["R"], position=None):
+def kernel_inputs(b, device, seed, R=SERVE_SHAPES["R"], position=None, H=SERVE_SHAPES["H"],
+                  widths=None):
     """Serve-shaped inputs for one direction of the implicit attention, at
-    R query rows (box counts 10-R), the position matrix by `position`
-    (default ops/position.py::position_matrix)."""
+    R query rows (box counts min(10, R)-R), H heads and SERVE_SHAPES' widths
+    but those in `widths`, the position matrix by `position` (default
+    ops/position.py::position_matrix)."""
     import torch
 
     from tf_vqa_regat_tpu_torch.ops.position import position_matrix
 
     position = position or position_matrix
 
-    s = SERVE_SHAPES
-    H, dh, o, n, P = s["H"], s["dh"], s["o"], s["n"], s["P"]
+    s = {**SERVE_SHAPES, **(widths or {})}
+    dh, o, n, P = s["dh"], s["o"], s["n"], s["P"]
     g = torch.Generator(device=device).manual_seed(seed)
 
     def randn(*shape, scale=1.0):
@@ -606,7 +654,7 @@ def kernel_inputs(b, device, seed, R=SERVE_SHAPES["R"], position=None):
 
     xy = torch.rand(b, R, 2, generator=g, device=device) * 450
     wh = torch.rand(b, R, 2, generator=g, device=device) * 190 + 4
-    num_boxes = torch.randint(10, R + 1, (b,), generator=g, device=device)
+    num_boxes = torch.randint(min(10, R), R + 1, (b,), generator=g, device=device)
     if b > 1:
         num_boxes[-1] = 0  # a padded serve slot: every key masked
     q = randn(b, R, H, dh)
@@ -614,7 +662,7 @@ def kernel_inputs(b, device, seed, R=SERVE_SHAPES["R"], position=None):
     # one row whose head 0 outscores every other head by ~500: those heads
     # underflow against the row max and must get all-zero weights
     k[0, :, 0, :] = 8.0
-    q[0, 7, 0, :] = 8.0
+    q[0, min(7, R - 1), 0, :] = 8.0
     return dict(
         q=q, k=k, vw=randn(b, n, H, o),
         pos_mat=position(torch.cat([xy, xy + wh], -1), n).contiguous(),
@@ -733,11 +781,11 @@ def check_train_kernel(device, resources, baseline=None):
 
         args = [x[k] for k in KERNEL_ARGS] + [0.2, dropmask]
         with torch.no_grad():
-            out_k, pwr_k = ia.KERNEL(*args, save_pwr=True)
+            out_k, pwr_k, _ = ia.KERNEL(*args, save_pwr=True)
             out_p, pwr_p = implicit_reference(*args, save_pwr=True)
             out_32, pwr_32 = ia.implicit_attention_plain(*args, save_pwr=True)
             # determinism: a second launch on the same inputs gives equal bits
-            out_2, pwr_2 = ia.KERNEL(*args, save_pwr=True)
+            out_2, pwr_2, _ = ia.KERNEL(*args, save_pwr=True)
         fout_k, grads_k = fwd_bwd(ia.fused_implicit_graph_attention)  # the Function
         fout_p, grads_p = fwd_bwd(ia.implicit_attention_plain)
         torch.cuda.synchronize()
@@ -760,7 +808,7 @@ def check_train_kernel(device, resources, baseline=None):
         extra = {}
         with torch.no_grad():
             if baseline is not None:
-                out_b, pwr_b = baseline.KERNEL(*args, save_pwr=True)
+                out_b, pwr_b = baseline.KERNEL(*args, save_pwr=True)[:2]
                 extra["baseline_err"] = max((out_b - out_p).abs().max().item(),
                                                  (pwr_b - pwr_p).abs().max().item())
                 fns["baseline_fwd_ms"] = lambda: baseline.KERNEL(*args, save_pwr=True)
@@ -782,6 +830,148 @@ def check_train_kernel(device, resources, baseline=None):
         for name, tol in limits:
             if not err[name] <= tol:
                 fail(f"train variant: {name} differs by {err[name]} > {tol} at b={b}")
+        rows.append(row)
+    return rows
+
+
+def implicit_bwd_flops(b, R=SERVE_SHAPES["R"], H=SERVE_SHAPES["H"], n=SERVE_SHAPES["n"],
+                       dh=SERVE_SHAPES["dh"], P=SERVE_SHAPES["P"]):
+    """f32 operations of one B1 backward: per (row, head, key) the q.k and
+    g.vw dots rebuilt, the dq and dk sums, the dvw sum and the dW_pos sum."""
+    return 2.0 * b * R * H * n * (5 * dh + P)
+
+
+# phase 26's cases: (b, R, H, keep-mask and b_pos, widths other than the
+# model's); those with other widths, or 12 heads, run the general instance
+BACKWARD_CASES = tuple((256, R, H, full, {}) for R in (100, 64, 36) for H in (16, 8)
+                       for full in (True, False)) + (
+    (32, 100, 16, True, {}), (8, 100, 16, True, {}),
+    (64, 100, 12, True, {}),  # 12 heads of 64: 4 heads a block
+    (64, 100, 8, True, dict(dh=128, o=128)),  # relation_dim 1024 over 8 heads
+    (64, 100, 8, True, dict(n=36)),  # --nongt_dim 36 over 8 heads: 4 heads a block
+    (64, 100, 4, True, dict(n=50)),  # --nongt_dim 50 over 4 heads: 2 heads a block
+    (64, 36, 16, False, dict(n=10)),  # --nongt_dim 10: keys not a multiple of 4
+    (64, 16, 16, True, dict(n=16)),  # a roi bucket of 16 under nongt_dim 20: n = R
+    (64, 7, 16, True, dict(n=7)),  # a roi bucket of 7: n = R = 7
+    (64, 100, 16, True, dict(P=32)),  # --imp_pos_emb_dim 32
+    (32, 36, 4, True, dict(dh=32, o=32, P=96)),  # P = 96: 6 sets of dW_pos warps, 4 idle
+)
+
+
+def backward_resources() -> dict:
+    """The backward kernel's ptxas report: its specialised instance and its
+    general one (template arguments 0)."""
+    from tf_vqa_regat_tpu_torch.ops.kernels import build
+    from tf_vqa_regat_tpu_torch.ops.kernels import implicit_attention as ia
+
+    report = ptxas_report(build.library_path(ia.SOURCE).with_suffix(".log").read_text())
+    found = {("general" if "ILi0ELi0ELi0ELi0E" in name else "specialised"):
+             {"static_smem": 0, **res}
+             for name, res in report.items() if "implicit_attention_bwd_kernel" in name}
+    if set(found) != {"general", "specialised"}:
+        fail(f"no ptxas report for both backward instances: {sorted(report)}")
+    return found
+
+
+def check_backward_kernel(device):
+    """Phase 26: B1's backward kernel against implicit_attention_backward on
+    the same saved pwr. Returns per-case rows; the first (b=256, R=100,
+    H=16, keep-mask and b_pos) carries the memory check and the times, and
+    the first case of the general instance its times."""
+    import torch
+
+    from tf_vqa_regat_tpu_torch.ops.kernels import implicit_attention as ia
+
+    names = ("dq", "dk", "dvw", "dw_pos", "db_pos")
+    rows, general_timed = [], False
+    for i, (b, R, H, full, widths) in enumerate(BACKWARD_CASES):
+        s = {**SERVE_SHAPES, **widths}
+        n, dh, P = s["n"], s["dh"], s["P"]
+        x = kernel_inputs(b, device, seed=300 + i, R=R, H=H, widths=widths)
+        if not full:
+            x["b_pos"] = None
+        g = torch.Generator(device=device).manual_seed(400 + i)
+        rate, dropmask = 0.0, None
+        if full:
+            bits = torch.randint(0, 256, (b, R, n, P), generator=g, device=device,
+                                 dtype=torch.uint8)
+            rate, dropmask = 0.2, (bits >= 51).view(torch.uint8)  # keep-mask at rate 51/256
+        G = torch.randn(b, R, H, s["o"], generator=g, device=device)
+        args = [x[k] for k in KERNEL_ARGS] + [rate, dropmask]
+        with torch.no_grad():
+            _, pwr, rowmax = ia.KERNEL(*args, save_pwr=True)
+        mrow, _, keep, inv_keep = ia._prepare(H, x["b_pos"], x["key_mask"], rate, dropmask,
+                                              device)
+        core = (x["q"], x["k"], x["vw"], x["pos_mat"])
+
+        def kernel():
+            return ia.KERNEL.backward(G, *core, mrow, keep, inv_keep, pwr, rowmax, P)
+
+        def transcription():
+            return ia.implicit_attention_backward(G, *core, x["w_pos"], mrow, keep, inv_keep,
+                                                  pwr)
+
+        plan = ia.backward_plan(b, R, n, H, dh, s["o"], P)
+        general = (plan.heads, n, dh, P) not in ia.BWD_SPECIALISED
+        got, again, want = kernel(), kernel(), transcription()
+        torch.cuda.synchronize()
+        where = f"b={b}, R={R}, H={H}, widths {widths}"
+        for name, t in zip(names, got):
+            if not torch.isfinite(t).all():
+                fail(f"B1 backward: {name} not finite at {where}")
+        # the row max the backward rebuilds the weights against, vs the plain
+        # version's affinities from the same pwr (absolute, in the examples
+        # with a key: a fully masked one's max is -9e15)
+        bias = torch.log(torch.clamp(pwr, min=1e-6)) + mrow[:, None, None, :]
+        aff = torch.einsum("brhd,bnhd->brhn", x["q"], x["k"]) / math.sqrt(dh) + bias
+        valid = x["key_mask"].any(1)
+        row = dict(b=b, R=R, H=H, keep_and_b_pos=full, widths=widths, general=general,
+                   plan=plan._asdict(),
+                   **{m: max_rel(a, w) for m, a, w in zip(names, got, want)},
+                   rowmax=(rowmax - aff.amax(dim=(2, 3)))[valid].abs().max().item(),
+                   equal_bits_twice=all(torch.equal(a, c) for a, c in zip(got, again)))
+        del got, again, want, aff, bias
+        if i == 0:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(device)
+            base = torch.cuda.memory_allocated(device)
+            res = kernel()
+            torch.cuda.synchronize()
+            row["bwd_peak_bytes"] = torch.cuda.max_memory_allocated(device) - base
+            workspace = plan.chunks * b * (P + 1) * H * 8
+            row["bwd_outputs_bytes"] = nbytes(*res) + workspace
+            row["embedding_bytes"] = b * R * n * P * 4  # one [b, R, n, P] f32
+            row["weights_bytes"] = b * R * H * n * 4  # one [b, R, H, n] f32
+            del res
+            leaves_at = {k: x[k] for k in GRAD_ARGS}
+
+            def fwd_bwd(fn):
+                leaves = {k: t.clone().requires_grad_() for k, t in leaves_at.items()}
+                out = fn(*(leaves.get(k, x[k]) for k in KERNEL_ARGS), rate, dropmask)
+                return torch.autograd.grad((out * G).sum(), list(leaves.values()))
+
+            row["fwd_bwd_ms"], row["fwd_bwd_plain_ms"] = median_ms_interleaved(
+                [lambda: fwd_bwd(ia.fused_implicit_graph_attention),
+                 lambda: fwd_bwd(ia.implicit_attention_plain)], reps=21, calls=3)
+        if i == 0 or general and not general_timed:
+            general_timed |= general
+            row["bwd_ms"], row["bwd_transcription_ms"] = median_ms_interleaved(
+                [kernel, transcription], reps=21, calls=3)
+            moved = nbytes(G, *core, pwr, rowmax, mrow, *(t for t in (keep,) if t is not None),
+                           x["q"], x["k"], x["vw"])  # and dq, dk, dvw written
+            row.update(bound(moved, implicit_bwd_flops(b, R, H, n, dh, P)))
+        print("kernel implicit_attention backward", json.dumps(row), flush=True)
+        if not row["equal_bits_twice"]:
+            fail(f"B1 backward: two launches on the same inputs differ at {where}")
+        limits = [("dq", GRAD_RTOL), ("dk", GRAD_RTOL), ("dvw", GRAD_RTOL),
+                  ("dw_pos", POS_GRAD_RTOL), ("db_pos", POS_GRAD_RTOL), ("rowmax", KERNEL_ATOL)]
+        for name, tol in limits:
+            if not row[name] <= tol:
+                fail(f"B1 backward: {name} differs by rel {row[name]} > {tol} at {where}, "
+                     f"keep-mask and b_pos {full}")
+        if i == 0 and row["bwd_peak_bytes"] > row["bwd_outputs_bytes"] + 2**20:
+            fail(f"B1 backward allocated {row['bwd_peak_bytes']} B for "
+                 f"{row['bwd_outputs_bytes']} B of outputs and workspace")
         rows.append(row)
     return rows
 
@@ -1313,6 +1503,9 @@ def check_entry_point(tmp, smi, family, extra=(), config=None, data=None, fallin
     if launches != expected_launches(family, eval_passes, len(losses)):
         fail(f"{label} --mode train: launches {launches} for {len(losses)} train and "
              f"{eval_passes} eval forward passes")
+    if PATH_BACKWARD[-1] != launches["B1 train"]:
+        fail(f"{label} --mode train: {PATH_BACKWARD[-1]} B1 backward launches for "
+             f"{launches['B1 train']} train launches")
 
     reset_counts()  # the eval path starts here
     score, loss = port_main.main(argv + ["--mode", "eval", "--checkpoint", path])
@@ -1816,6 +2009,10 @@ BENCH_FLAGS = ("--feature_dtype", "bfloat16", "--compute_dtype", "bfloat16",
                "--roi_buckets", "36,64,100")
 # the train split of the entry point's runs in 8 and 17: 6 steps of b=256
 SHORT_TRAIN = ("--synthetic_train_size", "1536")
+# phase 26's training run at widths other than the configuration's, which
+# B1's backward runs through its general instance: 8 heads of 128, 12 keys,
+# 32 embedding lanes
+OTHER_WIDTHS = ("--nongt_dim", "12", "--imp_pos_emb_dim", "32", "--num_heads", "8")
 
 
 def check_kernels_at_rows(device, R):
@@ -1845,7 +2042,7 @@ def check_kernels_at_rows(device, R):
         with torch.no_grad():
             b1 = ia.fused_implicit_graph_attention(*args)
             b1_want = implicit_reference(*args)
-            out_t, pwr_t = ia.KERNEL(*targs, save_pwr=True)
+            out_t, pwr_t, _ = ia.KERNEL(*targs, save_pwr=True)
             out_r, pwr_r = implicit_reference(*targs, save_pwr=True)
             b2 = {w: ga.fused_graph_attention(q, k, vw, y[w]) for w in ("shared", "per_head")}
             b2_want = {w: ga.graph_attention_plain(q, k, vw, y[w]) for w in b2}
@@ -3445,7 +3642,8 @@ def dp_child(spec_path, rank):
         result = port_main.main(cmd["argv"])
         torch.cuda.synchronize()
         steps = rec.pop("steps")
-        rec.update(wall_s=time.perf_counter() - t0, launches=counts(), preempted=result is None,
+        rec.update(wall_s=time.perf_counter() - t0, launches=counts(),
+                   backward=b1_backward_launches(), preempted=result is None,
                    train_steps=len(steps),
                    step_ms=[a.elapsed_time(b) for (a, b), cap in steps if not cap])
         records.append(rec)
@@ -3560,7 +3758,7 @@ def check_dp_gloo(tmp, smi):
                      f"{rec['launches']}, want {want}")
             if rec["preempted"] != (i == 2):
                 fail(f"dp (b) run {i} rank {r}: preempted {rec['preempted']}")
-            launches.append(rec["launches"])
+            launches.append(rank_launches(rec, f"dp (b) run {i} rank {r}"))
     # the ranks' parameters bit-identical; (b) against (a')
     for i in (0, 1, 3):
         ranks = [np.load(os.path.join(tmp, f"params-{i}-rank{r}.npz")) for r in (0, 1)]
@@ -3832,7 +4030,8 @@ def tp_child(spec_path, rank):
             coll["bytes_q_part"], coll["bytes_roi"] = half.numel() * 4, roi.numel() * 4
         torch.cuda.synchronize()
         steps = rec.pop("steps")
-        rec.update(wall_s=time.perf_counter() - t0, launches=counts(), heads=sorted(heads),
+        rec.update(wall_s=time.perf_counter() - t0, launches=counts(),
+                   backward=b1_backward_launches(), heads=sorted(heads),
                    train_steps=len(steps), step_ms=[a.elapsed_time(b) for a, b in steps])
         records.append(rec)
     distributed.barrier()
@@ -4123,7 +4322,7 @@ def check_tp(tmp, smi, device, npz):
                     or not any(rec["launches"].values()):
                 fail(f"tp run {cmd['run']} rank {r}: launches {rec['launches']} on heads "
                      f"{rec['heads']}, want {want} on all 16")
-            launches.append(rec["launches"])
+            launches.append(rank_launches(rec, f"tp run {cmd['run']} rank {r}"))
 
     # (a): tp = 2 against tp = 1 per family
     if "implicit" not in DP_SOLO:
@@ -4361,7 +4560,7 @@ def check_b1_regrouped(device):
     G = torch.randn(b, s["R"], s["H"], s["o"], generator=g, device=device)
     args = [x[k] for k in KERNEL_ARGS] + [0.2, dropmask]
     with torch.no_grad():
-        out_k, pwr_k = ia.KERNEL(*args, save_pwr=True)
+        out_k, pwr_k, _ = ia.KERNEL(*args, save_pwr=True)
         out_p, pwr_p = implicit_reference(*args, save_pwr=True)
 
     def fwd_bwd(fn):
@@ -4457,7 +4656,7 @@ def check_ref_compat(tmp, smi, device):
         if rec["launches"] != want or rec["train_steps"] != DP_STEPS:
             fail(f"ref_compat (b) rank {r}: {rec['train_steps']} steps, launches "
                  f"{rec['launches']}, want {want}")
-        launches.append(rec["launches"])
+        launches.append(rank_launches(rec, f"ref_compat (b) rank {r}"))
     ranks = [np.load(os.path.join(tmp, "dp_children", f"params-0-rank{r}.npz")) for r in (0, 1)]
     if not all(np.array_equal(ranks[0][k], ranks[1][k]) for k in ranks[0].files):
         fail("ref_compat (b): the ranks' parameters differ")
@@ -4629,6 +4828,26 @@ def run_phase_25(tmp_root, smi, device):
     return launches
 
 
+def run_phase_26(tmp_root, smi, device):
+    """`--only 26`: phase 4, phase 26, and 8-9 for the implicit family."""
+    import torch
+
+    from tf_vqa_regat_tpu_torch.ops.kernels import implicit_attention as ia
+
+    resources = kernel_resources(ia, "implicit_attention_kernel", ("eval", "train"))
+    print("B1 backward ptxas", json.dumps(backward_resources()), flush=True)
+    with phase("4, B1 train variant"):
+        check_train_kernel(device, resources)
+    with phase("26, B1 backward"):
+        check_backward_kernel(device)
+    torch.cuda.empty_cache()
+    with phase("8-9, implicit train and eval"):
+        check_entry_point(os.path.join(tmp_root, "implicit"), smi, "implicit", SHORT_TRAIN)
+    with phase("26, implicit train and eval at other widths"):
+        check_entry_point(os.path.join(tmp_root, "widths"), smi, "implicit",
+                          SHORT_TRAIN + OTHER_WIDTHS)
+
+
 def build_kernels():
     """Build every CUDA source of the port, one nvcc each, all at once."""
     from tf_vqa_regat_tpu_torch.ops.kernels import build
@@ -4652,7 +4871,7 @@ def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--baseline", help="another checkout whose B1 and B2 phases 3-5 "
                         "time in turns with this one")
-    parser.add_argument("--only", choices=("23", "24", "25"),
+    parser.add_argument("--only", choices=("23", "24", "25", "26"),
                         help="build the kernels and run this phase alone (no result line)")
     parser.add_argument("--dp_child", nargs=2, metavar=("SPEC", "RANK"),
                         help=argparse.SUPPRESS)  # one rank of phase 23 (b)
@@ -4702,7 +4921,7 @@ def main() -> None:
     if args.only:
         with tempfile.TemporaryDirectory() as tmp_root:
             {"23": run_phase_23, "24": lambda *a: run_phase_24(*a, {}),
-             "25": run_phase_25}[args.only](tmp_root, smi_line, device)
+             "25": run_phase_25, "26": run_phase_26}[args.only](tmp_root, smi_line, device)
         print(f"phase {args.only} alone: {time.perf_counter() - start:.1f} s wall; no result "
               f"line", flush=True)
         return
@@ -4715,6 +4934,10 @@ def main() -> None:
         rows = check_kernels(device, b1_resources, b1_baseline)
     with phase("4, B1 train variant"):
         train_rows = check_train_kernel(device, b1_resources, b1_baseline)
+    print("B1 backward ptxas", json.dumps(backward_resources()), flush=True)
+    with phase("26, B1 backward"):
+        bwd_rows = check_backward_kernel(device)
+    torch.cuda.empty_cache()
     with phase("5, B2"):
         graph_rows = check_graph_kernel(device, kernel_resources(
             ga, "graph_attention_kernel", ("v2", "v1")),
@@ -4760,6 +4983,10 @@ def main() -> None:
             shutil.rmtree(os.path.join(tmp, "checkpoints"))
             torch.cuda.empty_cache()
             launches += [train_launches, serve_launches]
+        with phase("26, implicit train and eval at other widths"):
+            launches.append(check_entry_point(os.path.join(tmp_root, "widths"), smi_line,
+                                              "implicit", SHORT_TRAIN + OTHER_WIDTHS)[1])
+        torch.cuda.empty_cache()
         with phase("11, resume"):
             launches.append(check_resume(os.path.join(tmp_root, "resume"), smi_line, device))
         torch.cuda.empty_cache()
@@ -4812,10 +5039,14 @@ def main() -> None:
     b2_source = "tf_vqa_regat_tpu_torch/csrc/graph_attention.cu"
     # B1 eval at b=32, the largest serve batch; the others at b=256
     big = next(r for r in rows if r["b"] == 32)
-    train_big, graph_big = train_rows[-1], graph_rows[-1]
+    train_big, graph_big, bwd_big = train_rows[-1], graph_rows[-1], bwd_rows[0]
     bound_keys = ("bound_ms", "bound_by")
     def total(kernel):  # over every path of 8-21, all R
         return sum(run[kernel] for run in launches)
+
+    if sum(PATH_BACKWARD) != total("B1 train"):
+        fail(f"{sum(PATH_BACKWARD)} B1 backward launches over the paths for "
+             f"{total('B1 train')} train launches")
 
     def at_rows(kernel, R):  # over every path of 8-21, at R
         return sum(run.get((kernel, R), 0) for run in PATH_ROWS)
@@ -4874,6 +5105,18 @@ def main() -> None:
         "ms": train_big["fwd_ms"],
         "plain_ms": train_big["fwd_plain_ms"],
         **{k: train_big[k] for k in bound_keys},
+        "library_ms": None,
+    }, {
+        "name": "implicit_attention_backward",
+        "route": "cuda",
+        "source": b1_source,
+        "replaces": "tf_vqa_regat_tpu/ops/pallas/implicit_attention.py:259",
+        "launches": sum(PATH_BACKWARD),
+        "max_rel_err": max(max(r[n] for n in ("dq", "dk", "dvw", "dw_pos", "db_pos"))
+                           for r in bwd_rows),
+        "ms": bwd_big["bwd_ms"],
+        "plain_ms": bwd_big["bwd_transcription_ms"],
+        **{k: bwd_big[k] for k in bound_keys},
         "library_ms": None,
     }, {
         "name": "graph_attention",

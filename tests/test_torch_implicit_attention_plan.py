@@ -141,6 +141,10 @@ def test_the_plan_is_held_to_the_kernel_layout_at_load(monkeypatch):
             regat_implicit_attention_fwd=_Function(None),
             regat_implicit_attention_set_smem=_Function(None),
             regat_implicit_attention_smem_bytes=_Function(lambda *s: ia.smem_bytes(*s) + extra),
+            regat_implicit_attention_bwd=_Function(None),
+            regat_implicit_attention_bwd_set_smem=_Function(None),
+            regat_implicit_attention_bwd_smem_bytes=_Function(ia.bwd_smem_bytes),
+            regat_implicit_attention_bwd_specialised=_Function(lambda *s: 1),
         )
 
     for extra in (0, 16):

@@ -70,7 +70,7 @@ StepFn = Callable[[Hashable, Inputs, List[torch.Generator]], Any]
 WARMUP_CALLS = 1
 
 # the wrappers' launch counters: (kernel, its plain integer counters)
-_COUNTERS = ((_ia.KERNEL, ("launches", "train_launches")),
+_COUNTERS = ((_ia.KERNEL, ("launches", "train_launches", "backward_launches")),
              (_ga.KERNEL, ("launches", "per_head_launches")))
 
 
