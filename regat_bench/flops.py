@@ -14,6 +14,8 @@ from __future__ import annotations
 
 from typing import List, Tuple
 
+from regat_bench.reference import fusion
+
 # NVIDIA H100 SXM data sheet: HBM3 rate, and f32 outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
@@ -39,12 +41,13 @@ def _dims(cfg: dict):
 def matmuls(cfg: dict) -> List[Tuple[str, float, bool]]:
     """Every matrix product of one question's forward pass: (what, f32
     operations at 2 per multiply-add, whether its backward also needs the
-    gradient of its input). Elementwise work, softmaxes and the weight
-    norms are not counted."""
+    gradient of its input); the fusion's and classifier's last, from the
+    fusion's file (reference/fusion/). Elementwise work, softmaxes and the
+    weight norms are not counted."""
     h, rel, H, R, n, dh = _dims(cfg)
     T = int(cfg["max_q_len"])
     wd = 600 if "c" in cfg["op"] else 300
-    A, v = int(cfg["num_ans"]), int(cfg["v_dim"])
+    v = int(cfg["v_dim"])
     out = [
         ("gru input", 2.0 * T * wd * 3 * h, True),
         ("gru recurrence", 2.0 * T * h * 3 * h, True),
@@ -65,18 +68,10 @@ def matmuls(cfg: dict) -> List[Tuple[str, float, bool]]:
         if cfg["relation_type"] == "implicit":
             out.append((f"dir{d} pos-FC", 2.0 * R * n * int(cfg["imp_pos_emb_dim"]) * H, False))
         else:
-            out.append((f"dir{d} label FC", 2.0 * R * n * int(cfg["spa_label_num"]), False))
-    out += [
-        ("butd v2attention", 2.0 * R * rel * h, True),
-        ("butd q2attention", 2.0 * h * h, True),
-        ("butd linear", 2.0 * R * h, True),
-        ("butd pooling", 2.0 * R * rel, True),
-        ("butd visual_embed", 2.0 * rel * h, True),
-        ("butd question_embed", 2.0 * h * h, True),
-        ("classifier fc1", 2.0 * h * 2 * h, True),
-        ("classifier fc2", 2.0 * 2 * h * A, True),
-    ]
-    return out
+            L = int(cfg["spa_label_num"] if cfg["relation_type"] == "spatial"
+                    else cfg["sem_label_num"])
+            out.append((f"dir{d} label FC", 2.0 * R * n * L, False))
+    return out + fusion.load(cfg["fusion"]).matmuls(cfg)
 
 
 def forward_flops(cfg: dict) -> float:

@@ -3,6 +3,10 @@ configuration, traffic mix, driver, limits and per-layer metric readers by
 name, so a later cell, mix or metric is new files and new entries only.
 
   configs/<config>.json     the configuration, as its `file` names it
+  reference/fusion/<fusion>.py
+                            the configuration's fusion and classifier, as
+                            its "fusion" names them: their leaves, frozen
+                            leaves, reference forward and matrix products
   traffic/<mix>.json        a mix's parameters; its "driver" names
   drivers/<driver>.py       the code that runs a mix (`run(ctx)`)
   limits/<workload>.json    each compared number's limit in that cell

@@ -5,10 +5,11 @@ It follows Li et al., "Relation-Aware Graph Attention Network for Visual
 Question Answering" (ICCV 2019, arXiv:1903.12314) and the configs of
 linjieli222/VQA_ReGAT: a GRU question encoder with self-attention, an
 implicit (fully connected, with a geometry bias) or spatial (11 edge labels
-built from the boxes) relation encoder of two directions, BUTD fusion, a
-two-layer classifier, sigmoid BCE over 3,129 answers, Adamax with a
-per-tensor gradient clip. It imports torch alone: no kernel, no graph, no
-batching trick, and nothing of the measured program.
+built from the boxes) relation encoder of two directions, the fusion and
+classifier that the configuration's "fusion" names (each in a file of its
+own under reference/fusion/), sigmoid BCE over 3,129 answers, Adamax with
+a per-tensor gradient clip. It imports torch alone: no kernel, no graph,
+no batching trick, and nothing of the measured program.
 
 Parameters are a dict name -> tensor under the names of the published
 TF/JAX parameter tree ("v_relation.gatt.neighbor.0.query.layers.0.v", ...),
@@ -54,6 +55,8 @@ import math
 from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import torch
+
+from . import fusion
 
 NEG_INF = -9e15
 WARMUP_FACTORS = (1.0, 1.0, 1.2, 1.3, 1.4)
@@ -150,6 +153,7 @@ class Model:
         self.nx = numerics or Numerics()
         self.drop = float(cfg["dropout"])
         self.graph_drop = 0.2 if self.drop > 0 else 0.0
+        self.fusion = fusion.load(cfg["fusion"])
 
     def wn(self, name: str) -> torch.Tensor:
         v, g = self.p[name + ".v"], self.p[name + ".g"]
@@ -260,13 +264,15 @@ class Model:
         input, its output; v2out's input (implicit); self_weights' input;
         per direction (explicit: the edge labels) the query's input, the
         key's input (implicit: the geometry keep-mask); the relation's
-        output; BUTD's joint; the classifier's hidden layer."""
+        output; then the fusion's own (reference/fusion/<fusion>.py)."""
         cfg = self.cfg
         feats, bb = batch["features"], batch["bb"]
         b, R, _ = feats.shape
         roi_mask = torch.arange(R, device=feats.device)[None, :] < batch["num_boxes"][:, None]
         seq = self.gru(self.embed(batch["question"], gen))
-        q_last = seq[:, -1]
+        # read before the self-attention reads seq: autograd then sums seq's
+        # gradient in one order whatever the fusion (fusion/__init__.py)
+        q_fused = self.fusion.question(seq)
         q_vec = self.question_attention(seq, gen)
         n = min(int(cfg["nongt_dim"]), R)
         key_mask = roi_mask[:, :n]
@@ -289,22 +295,7 @@ class Model:
             raise ValueError(f"relation_type {cfg['relation_type']!r} has no reference here")
         if not cfg.get("residual_connection", True):
             raise ValueError("the reference follows residual_connection = true")
-        return self.classify(self.butd(visual, q_last, roi_mask, gen), gen)
-
-    def butd(self, visual, q, roi_mask, gen) -> torch.Tensor:
-        j = self.dense("joint_emb.v2attention.layers.0", visual) * \
-            self.dense("joint_emb.q2attention.layers.0", q)[:, None, :]
-        j = drop(j, self.graph_drop, gen)
-        logits = self.dense("joint_emb.linear.layers.0", j)
-        logits = torch.where(roi_mask[..., None], logits, -1e9)
-        w = torch.softmax(logits, dim=1)
-        pooled = torch.sum(w * visual, dim=1)
-        return self.dense("joint_emb.visual_embed.layers.0", pooled) * \
-            self.dense("joint_emb.question_embed.layers.0", q)
-
-    def classify(self, x, gen) -> torch.Tensor:
-        h = drop(torch.relu(self.dense("classifier.fc1", x)), self.drop, gen)
-        return self.dense("classifier.fc2", h)
+        return self.fusion.logits(self, visual, q_fused, roi_mask, gen)
 
 
 # ------------------------------------------------------------------ geometry
@@ -404,10 +395,12 @@ def score_sum(logits: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     return torch.gather(target, 1, logits.argmax(dim=-1)[:, None]).sum()
 
 
-def frozen(names: Sequence[str]) -> List[str]:
+def frozen(cfg: dict, names: Sequence[str]) -> List[str]:
     """Leaves that take no update: the second word table (trained only after
-    a TF-IDF init) and the biases that feed a softmax directly."""
-    out = ["w_emb.emb_.table", "q_att.linear2.layers.0.b", "joint_emb.linear.layers.0.b"]
+    a TF-IDF init), the biases that feed a softmax directly, and the
+    fusion's own (its FROZEN)."""
+    out = ["w_emb.emb_.table", "q_att.linear2.layers.0.b"]
+    out += fusion.load(cfg["fusion"]).FROZEN
     out += [n for n in names if n.startswith("v_relation.gatt.neighbor.")
             and n.endswith(".key.layers.0.b")]
     return [n for n in out if n in names]
@@ -434,7 +427,7 @@ class Trainer:
         self.params = {k: v.detach().clone() for k, v in params.items()}
         self.mu = {k: torch.zeros_like(v) for k, v in self.params.items()}
         self.nu = {k: torch.zeros_like(v) for k, v in self.params.items()}
-        self.frozen = set(frozen(list(self.params)))
+        self.frozen = set(frozen(cfg, list(self.params)))
         self.numerics = numerics or Numerics()
         self.count = 0
 

@@ -1,6 +1,9 @@
 """One rank of a data-parallel cell on the CPU (gloo) at a small size, for
 test_bench_dp.py: python -m regat_bench.tests.dp_rank RANK WORLD PORT
-[no_exchange]. Rank 0 prints the result line."""
+[FAULT], FAULT one of no_exchange (the all-reduce of the summed gradients
+left out), unchanged (a step that leaves the parameters as they are), half
+(each rank's step on the first half of its rows). Rank 0 prints the result
+line."""
 
 import json
 import os
@@ -19,6 +22,7 @@ def main() -> int:
     from regat_bench import run
     from regat_bench.tests import small
     from tf_vqa_regat_tpu_torch.parallel import distributed
+    from tf_vqa_regat_tpu_torch.train import optim as optim_mod
     from tf_vqa_regat_tpu_torch.train import step as step_mod
 
     torch.set_num_threads(1)
@@ -32,6 +36,21 @@ def main() -> int:
                 pass
 
         step_mod.distributed = NoExchange()
+    elif fault == "unchanged":
+        def no_update(self, grads):
+            self.count += 1  # the step counts, and nothing moves
+
+        optim_mod.Adamax.step = no_update
+    elif fault == "half":
+        real = step_mod.grad_sums
+
+        def half(model, params, batch, *a, **k):
+            B = batch["features"].shape[0]
+            return real(model, params, {key: v[: B // 2] for key, v in batch.items()}, *a, **k)
+
+        step_mod.grad_sums = half
+    elif fault:
+        raise ValueError(f"no fault {fault!r}")
     distributed.maybe_initialize("cpu")
     args = run.parse(["--workload", "butd.train.dp4", "--seed", "77", "--seconds", "1",
                       "--pending"])

@@ -8,7 +8,8 @@ from regat_bench import flops
 
 SMALL = {"num_hid": 8, "relation_dim": 16, "num_heads": 4, "nongt_dim": 3, "max_boxes": 5,
          "max_q_len": 2, "op": "c", "num_ans": 7, "v_dim": 10, "dir_num": 2,
-         "imp_pos_emb_dim": 32, "spa_label_num": 11, "relation_type": "implicit"}
+         "imp_pos_emb_dim": 32, "spa_label_num": 11, "relation_type": "implicit",
+         "fusion": "butd"}
 
 
 def test_forward_flops_by_hand():
@@ -33,6 +34,12 @@ def test_spatial_swaps_the_pos_fc_for_the_label_fc():
     sp = dict(SMALL, relation_type="spatial")
     diff = flops.forward_flops(SMALL) - flops.forward_flops(sp)
     assert diff == 2 * (2 * 5 * 3 * 32 * 4) - 2 * (2 * 5 * 3 * 11)
+
+
+def test_semantic_label_fc_counts_the_semantic_labels():
+    sp = dict(SMALL, relation_type="spatial")
+    sem = dict(SMALL, relation_type="semantic", sem_label_num=15)
+    assert flops.forward_flops(sem) - flops.forward_flops(sp) == 2 * (2 * 5 * 3 * (15 - 11))
 
 
 def test_b1_and_b2_cost_by_hand():

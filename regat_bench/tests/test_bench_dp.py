@@ -1,6 +1,8 @@
 """The data-parallel cell's run on two CPU ranks (gloo) at a small size:
-sound, and with the exchange between the ranks left out of the train step,
-which `correct` has to catch."""
+sound, and with each fault the cell can have planted in the timed path
+(the exchange between the ranks left out of the train step, a step that
+leaves the state unchanged, half of each rank's rows left out), which
+`correct` has to catch."""
 
 import json
 import os
@@ -26,7 +28,8 @@ def _ranks(fault: str = "") -> dict:
     return json.loads(outs[0][0].strip().splitlines()[-1])
 
 
-@pytest.mark.parametrize("fault,correct", [("", True), ("no_exchange", False)])
+@pytest.mark.parametrize("fault,correct", [("", True), ("no_exchange", False),
+                                           ("unchanged", False), ("half", False)])
 def test_two_ranks(fault, correct):
     res = _ranks(fault)
     assert res["correct"] is correct, res["checks"]

@@ -8,6 +8,7 @@ import re
 import pytest
 
 from regat_bench import manifest
+from regat_bench.reference import fusion
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
@@ -82,6 +83,7 @@ def test_files_found_by_name(bench):
         for k in c["reduced"]:
             assert NAME.match(k) and k in cfg
             assert not any(w in k for w in WIDTHS)
+        assert callable(fusion.load(cfg["fusion"]).logits)
     for w in bench["workloads"]:
         mix = manifest.traffic(w["traffic"])
         assert callable(manifest.driver(mix["driver"]).run)

@@ -8,6 +8,7 @@ import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 
 from regat_bench import manifest
@@ -45,6 +46,22 @@ def test_tf32_control_fails(captured):
     assert got["grad"] > 10 * program["grad"] and got["change"] > 10 * program["change"], got
 
 
+def test_first_step_is_held_to_the_nearest_neighbour(captured):
+    """A reference whose first gradient sits across a kink (every leaf moved
+    by 1e-4 of itself) reads far from the program; a nudged copy of it on
+    the program's side of the kink brings the first step's numbers back."""
+    drv, ctx, cap, raw, n, ref32 = captured
+    assert len(drv.reference_outputs(ctx, raw, cap, n, neighbours=2)["first"]) == 2
+    across = dict(ref32, grad={k: v * (1 + 1e-4) for k, v in ref32["grad"].items()},
+                  first=[])
+    far = drv.numbers(cap, across)
+    near = drv.numbers(cap, dict(across, first=[{"grad": ref32["grad"],
+                                                 "change1": ref32["change1"]}]))
+    assert far["grad_median"] > 5e-5 and far["grad_median_exact"] == far["grad_median"]
+    assert near["grad_median"] == drv.numbers(cap, ref32)["grad_median"] < 1e-5
+    assert near["grad_median_exact"] == far["grad_median"]
+
+
 @pytest.mark.parametrize("fault", ["half", "unchanged"])
 def test_faults_fail(captured, fault):
     drv, ctx, cap, raw, n, ref32 = captured
@@ -53,17 +70,29 @@ def test_faults_fail(captured, fault):
     assert any(got[k] > limits[k] for k in limits), got
 
 
+def test_exchange_fault_fails_where_a_step_has_ranks(captured):
+    """The captured steps cut in two ranks' rows: the reference with rank
+    0's rows alone (the all-reduce left out) in the program's place."""
+    drv, ctx, cap, raw, n, ref32 = captured
+    two = dict(cap, steps=[(R, np.array_split(np.concatenate(parts), 2))
+                           for R, parts in cap["steps"]])
+    got = drv.numbers(drv.reference_outputs(ctx, raw, two, n, "f32", "exchange"), ref32)
+    assert got["train_n"] > manifest.limits(ctx.workload["name"])["train_n"], got
+
+
 def test_reference_imports_only_torch_numpy_and_stdlib():
-    allowed = {"torch", "numpy", "math", "contextlib", "typing", "__future__"}
-    for name in os.listdir(REF):
-        if not name.endswith(".py"):
-            continue
-        tree = ast.parse(open(os.path.join(REF, name)).read())
+    """Its own modules aside (relative imports, fusion files included)."""
+    allowed = {"torch", "numpy", "math", "contextlib", "typing", "__future__", "importlib",
+               "os", "types"}
+    files = [os.path.join(d, f) for d, _, fs in os.walk(REF) for f in fs if f.endswith(".py")]
+    assert os.path.join(REF, "fusion", "butd.py") in files
+    for name in files:
+        tree = ast.parse(open(name).read())
         for node in ast.walk(tree):
             if isinstance(node, ast.Import):
                 mods = [a.name for a in node.names]
             elif isinstance(node, ast.ImportFrom):
-                mods = [node.module or ""]
+                mods = [] if node.level else [node.module or ""]
             else:
                 continue
             for m in mods:
@@ -72,7 +101,7 @@ def test_reference_imports_only_torch_numpy_and_stdlib():
 
 def test_reference_loads_nothing_of_the_program():
     code = ("import sys; import regat_bench.reference.regat, regat_bench.reference.data, "
-            "regat_bench.reference.params; "
+            "regat_bench.reference.params, regat_bench.reference.fusion.butd; "
             "print(sorted({m.split('.')[0] for m in sys.modules} & "
             "{'tf_vqa_regat_tpu_torch', 'tf_vqa_regat_tpu', 'jax', 'jaxlib'}))")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
