@@ -271,7 +271,8 @@ def test_mark_kernels_are_the_modules_marks():
     declared = re.findall(r"__global__ void (regat_mark_\w+)\(\)", source)
     assert declared == [profiling.MARK_PREFIX + n for n in profiling.MARKS]
     listed = re.search(r"kNames\[\] = \{(.*?)\};", source, re.S).group(1)
-    assert re.findall(r'"(\w+)"', listed) == list(profiling.MARKS)
+    assert re.findall(r'"(\w+)"', listed) == list(profiling.KERNELS)
+    assert profiling.KERNELS[:len(declared)] == tuple(declared)
     for name in declared:
         assert not (kernels.is_b1_train(name) or kernels.is_b1_eval(name)
                     or kernels.is_b2(name))

@@ -11,6 +11,11 @@
 //
 // Cost: one node per mark (no memory, no arguments), about 1.5-3 us of device
 // timeline each.
+//
+// Span marks (`regat_span_<name>`) bracket a block that only some
+// configurations run, BAN's forward and backward, in the same way, from the
+// same table and launcher. Their prefix is not `regat_mark_`, so a reader that
+// parses a step's phase marks passes over them.
 
 #include <cuda_runtime.h>
 
@@ -27,14 +32,24 @@ __global__ void regat_mark_b1_backward_end() {}
 __global__ void regat_mark_b2_backward_begin() {}
 __global__ void regat_mark_b2_backward_end() {}
 
+__global__ void regat_span_ban_forward_begin() {}
+__global__ void regat_span_ban_forward_end() {}
+__global__ void regat_span_ban_backward_begin() {}
+__global__ void regat_span_ban_backward_end() {}
+
 }  // extern "C"
 
 namespace {
 
-// In the order of train/profiling.py's MARKS, which checks it at load.
+// Each mark's kernel name, in the order of train/profiling.py's MARKS and then
+// SPAN_MARKS, which checks it at load.
 const char* const kNames[] = {
-    "gather", "forward", "backward", "reduce", "optimizer", "end",
-    "b1_backward_begin", "b1_backward_end", "b2_backward_begin", "b2_backward_end",
+    "regat_mark_gather", "regat_mark_forward", "regat_mark_backward",
+    "regat_mark_reduce", "regat_mark_optimizer", "regat_mark_end",
+    "regat_mark_b1_backward_begin", "regat_mark_b1_backward_end",
+    "regat_mark_b2_backward_begin", "regat_mark_b2_backward_end",
+    "regat_span_ban_forward_begin", "regat_span_ban_forward_end",
+    "regat_span_ban_backward_begin", "regat_span_ban_backward_end",
 };
 constexpr int kCount = sizeof(kNames) / sizeof(kNames[0]);
 
@@ -44,7 +59,7 @@ extern "C" {
 
 int regat_mark_count() { return kCount; }
 
-// Mark i's name without the `regat_mark_` prefix, or null outside [0, count).
+// Mark i's kernel name, or null outside [0, count).
 const char* regat_mark_name(int i) { return i >= 0 && i < kCount ? kNames[i] : nullptr; }
 
 // Launches mark i on `stream` and returns cudaGetLastError() (0 = launched).
@@ -61,6 +76,10 @@ int regat_mark(int i, void* stream) {
     case 7: regat_mark_b1_backward_end<<<1, 1, 0, s>>>(); break;
     case 8: regat_mark_b2_backward_begin<<<1, 1, 0, s>>>(); break;
     case 9: regat_mark_b2_backward_end<<<1, 1, 0, s>>>(); break;
+    case 10: regat_span_ban_forward_begin<<<1, 1, 0, s>>>(); break;
+    case 11: regat_span_ban_forward_end<<<1, 1, 0, s>>>(); break;
+    case 12: regat_span_ban_backward_begin<<<1, 1, 0, s>>>(); break;
+    case 13: regat_span_ban_backward_end<<<1, 1, 0, s>>>(); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();

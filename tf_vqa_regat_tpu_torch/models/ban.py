@@ -25,6 +25,18 @@ sequence. The joint embedding is that sequence summed over tokens.
   from JAX's). The logits, the softmax over R*T and the question sequence
   with its residual updates stay f32 (f32 + bf16 promotes to f32 in both
   frameworks). At float32 every cast is the identity.
+- Contraction order, fixed (not left to torch.einsum, whose order and
+  intermediates depend on whether opt_einsum is installed): the logits
+  scale q_ by each glimpse's row of `h_mat` ([b, g*T, 3h]) and take one
+  batched product with v_ ([b, R, g*T], read as [b, g, R, T]), never a
+  [b, g, R, 3h] tensor; a glimpse's pooling is att[:, g] @ q1 ([b, R, h]),
+  then v1 times that, summed over the rois.
+- Tracing (train/profiling.py): the span marks `ban_forward_begin` /
+  `_end` bracket the forward on the device's clock, in train and eval
+  steps alike; under autograd, `ban_backward_begin` / `_end` are launched
+  from identity functions at the outputs and the inputs, so they bracket
+  the module's backward nodes. `profiling.BAN_CALLS` counts the forward
+  calls, train and eval apart (replay-aware, train/graphs.py).
 """
 
 from __future__ import annotations
@@ -36,6 +48,7 @@ from torch import nn
 
 from tf_vqa_regat_tpu_torch.nn import dropout
 from tf_vqa_regat_tpu_torch.ops.weight_norm import FCNet, wn_scale
+from tf_vqa_regat_tpu_torch.train.profiling import BAN_CALLS, mark
 
 K = 3  # bilinear rank multiplier of the attention maps (BCNet's k=3)
 
@@ -51,6 +64,38 @@ class WNTensor(nn.Module):
 
     def forward(self) -> torch.Tensor:
         return self.v * wn_scale(self.v, self.g)
+
+
+class _BackwardEnd(torch.autograd.Function):
+    """Identity on BAN's inputs; its backward, which runs once the whole
+    module's backward has, marks `ban_backward_end`."""
+
+    @staticmethod
+    def forward(ctx, visual, q_seq):
+        ctx.device = visual.device
+        ctx.set_materialize_grads(False)
+        return visual.view_as(visual), q_seq.view_as(q_seq)
+
+    @staticmethod
+    def backward(ctx, d_visual, d_q_seq):
+        mark("ban_backward_end", ctx.device)
+        return d_visual, d_q_seq
+
+
+class _BackwardBegin(torch.autograd.Function):
+    """Identity on BAN's outputs; its backward, the first of the module's,
+    marks `ban_backward_begin`."""
+
+    @staticmethod
+    def forward(ctx, joint, att):
+        ctx.device = joint.device
+        ctx.set_materialize_grads(False)
+        return joint.view_as(joint), att.view_as(att)
+
+    @staticmethod
+    def backward(ctx, d_joint, d_att):
+        mark("ban_backward_begin", ctx.device)
+        return d_joint, d_att
 
 
 class BAN(nn.Module):
@@ -87,11 +132,20 @@ class BAN(nn.Module):
         T = q_seq.shape[1]
         glimpse = self.h_bias.shape[0]
         cd = self.dtype
+        device = visual.device
+        mark("ban_forward_begin", device)
+        BAN_CALLS.add(self.training)
+        # the backward marks need a backward that reaches the inputs
+        bracket = torch.is_grad_enabled() and (visual.requires_grad or q_seq.requires_grad)
+        if bracket:
+            visual, q_seq = _BackwardEnd.apply(visual, q_seq)
         v_ = self.att_v_net(visual, generator)
         v_ = dropout(v_, self.drop_rate, self.training, generator)
         q_ = self.att_q_net(q_seq, generator)
         h_mat = self.h_mat().to(cd)
-        logits = torch.einsum("gk,bvk,bqk->bgvq", h_mat.float(), v_.float(), q_.float())
+        qh = (h_mat.float()[None, :, None, :] * q_.float()[:, None]).reshape(b, glimpse * T, -1)
+        logits = torch.bmm(v_.float(), qh.transpose(1, 2))  # [b, R, g*T]
+        logits = logits.view(b, R, glimpse, T).permute(0, 2, 1, 3)
         logits = logits + self.h_bias[None, :, None, None]
         logits = torch.where(
             roi_mask[:, None, :, None], logits, torch.full_like(logits, -1e9)
@@ -100,8 +154,11 @@ class BAN(nn.Module):
         for g in range(glimpse):
             v1 = self.b_v_net[g](visual, generator)
             q1 = self.b_q_net[g](q_seq, generator)
-            b_emb = torch.einsum(
-                "bvk,bvq,bqk->bk", v1.float(), att[:, g].to(cd).float(), q1.float()
-            )
+            aq = torch.bmm(att[:, g].to(cd).float(), q1.float())  # [b, R, h]
+            b_emb = (v1.float() * aq).sum(dim=1)
             q_seq = q_seq + self.q_prj[g](b_emb, generator)[:, None, :]
-        return q_seq.sum(dim=1), att
+        joint = q_seq.sum(dim=1)
+        if bracket:
+            joint, att = _BackwardBegin.apply(joint, att)
+        mark("ban_forward_end", device)
+        return joint, att

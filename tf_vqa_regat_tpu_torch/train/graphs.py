@@ -38,7 +38,8 @@ What a replay keeps, and what the callers take care of:
 - Launch counts. The kernel wrappers count in Python, which a replay does
   not run: the counts a capture adds are taken back and added again at
   every replay, so a count is the launches the card ran; a warm-up's
-  launches are not counted.
+  launches are not counted. BAN's forward calls
+  (`profiling.BAN_CALLS`) are kept the same way.
 - Captures run in `thread_local` mode: the host path's copy thread and the
   background checkpoint writer go on using the card while a graph is
   captured on the main thread. No garbage collection runs during a
@@ -72,20 +73,28 @@ WARMUP_CALLS = 1
 # the wrappers' launch counters: (kernel, its plain integer counters)
 _COUNTERS = ((_ia.KERNEL, ("launches", "train_launches", "backward_launches")),
              (_ga.KERNEL, ("launches", "per_head_launches")))
+# every replay-aware count: the launch counters, then BAN's forward calls
+_ALL = _COUNTERS + ((profiling.BAN_CALLS, ("train_calls", "eval_calls")),)
+
+
+def _counts(counters=_ALL) -> list:
+    return [({n: getattr(k, n) for n in names},
+             collections.Counter(getattr(k, "launches_by_rows", ())))
+            for k, names in counters]
 
 
 def launch_counts() -> list:
     """Every kernel wrapper's launch counters, copied."""
-    return [({n: getattr(k, n) for n in names}, collections.Counter(k.launches_by_rows))
-            for k, names in _COUNTERS]
+    return _counts(_COUNTERS)
 
 
 def _set_counts(counts: list) -> None:
-    for (kernel, _), (flat, rows) in zip(_COUNTERS, counts):
+    for (kernel, _), (flat, rows) in zip(_ALL, counts):
         for name, v in flat.items():
             setattr(kernel, name, v)
-        kernel.launches_by_rows.clear()
-        kernel.launches_by_rows.update(rows)
+        if hasattr(kernel, "launches_by_rows"):
+            kernel.launches_by_rows.clear()
+            kernel.launches_by_rows.update(rows)
 
 
 def _count_delta(after: list, before: list) -> list:
@@ -94,10 +103,11 @@ def _count_delta(after: list, before: list) -> list:
 
 
 def _add_counts(delta: list) -> None:
-    for (kernel, _), (flat, rows) in zip(_COUNTERS, delta):
+    for (kernel, _), (flat, rows) in zip(_ALL, delta):
         for name, v in flat.items():
             setattr(kernel, name, getattr(kernel, name) + v)
-        kernel.launches_by_rows.update(rows)
+        if hasattr(kernel, "launches_by_rows"):
+            kernel.launches_by_rows.update(rows)
 
 
 def to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -142,7 +152,7 @@ class _Graph:
         self.static = {k: v.detach().clone() for k, v in inputs.items()}
         self.generators = [torch.Generator(device=device) for _ in range(n_generators)]
         restore = keep() if keep is not None else None
-        before = launch_counts()
+        before = _counts()
         side = _capture_stream(device)
         side.wait_stream(torch.cuda.current_stream(device))
         with torch.cuda.stream(side):
@@ -172,7 +182,7 @@ class _Graph:
         finally:
             if enabled:
                 gc.enable()
-        self.delta = _count_delta(launch_counts(), before)
+        self.delta = _count_delta(_counts(), before)
         _set_counts(before)
         if restore is not None:
             restore()

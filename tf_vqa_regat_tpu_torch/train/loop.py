@@ -76,7 +76,8 @@ epoch's train steps with `data` spans around the fetch of each block
 (`_DataPath.train_stream`) and `step` and `upload` spans around its steps
 (train/step.py::TrainSteps) and the steps' phase marks on the device's
 clock; after the run's first eval pass the log carries the `[setup]` line
-of the process's set-up totals (train/profiling.py); --profile_port serves
+of the process's set-up totals (train/profiling.py), with BAN's forward
+calls for a BAN model; --profile_port serves
 `/capture` and starts and stops its profiler at the loop's step boundaries
 (train/profiling.py), and --debug_nans runs the steps eagerly under
 train/debug_nans.py's checks, inside `pending_joined`, so an async write
@@ -785,7 +786,7 @@ def run_training(
                     f"[DEBUG] train_score: {train_score:.4f} eval_score: {eval_score:.4f}"
                 )
                 if epoch == start_epoch:
-                    logger.write(profiling.setup_line())
+                    logger.write(profiling.setup_line(ban=model.fusion == "ban"))
                 metrics_writer.write({
                     "epoch": epoch,
                     "lr": lr_now,

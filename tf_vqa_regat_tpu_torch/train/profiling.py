@@ -16,7 +16,7 @@ tf_vqa_regat_tpu/train/profiling.py):
   such events out (profile_step.py does), or it counts the mirror as
   device work.
 - `mark(name, device)`: a phase mark inside a train step, on the device's
-  clock (below).
+  clock, or one of a block's span marks (below).
 - `timed(name)`: a span that also adds its host seconds to a process-wide
   set-up total, `setup_seconds()`: `init` (ReGAT's construction), `upload`
   (a device store's tables), `capture` (a graph's warm-up and capture,
@@ -48,6 +48,16 @@ between its mark and the next boundary mark (`phase_ns`). Eval steps are
 not marked. Off CUDA a mark launches nothing; inside `recording()` its
 name is appended to the list it yields (the CPU tests' view of the
 order).
+
+Span marks. A block that one configuration alone runs brackets its own
+work with span marks, launched by `mark` from the same table as kernels
+named `regat_span_<name>`: BAN's forward (`ban_forward_begin` / `_end`, in
+train and eval steps) and its backward (`ban_backward_begin` / `_end`,
+models/ban.py). Their prefix is not the phase marks', so a reader that
+parses a step's phase marks passes over them. `BAN_CALLS` counts BAN's
+forward calls, train and eval apart; train/graphs.py keeps the count
+replay-aware, as it keeps the kernels' launch counts, and
+`setup_line(ban=True)` prints it.
 
 A CUDA-graphed step appears in a trace as a graph launch and its kernels;
 the profiler changes nothing that runs (no step leaves its graph).
@@ -152,12 +162,34 @@ def setup_calls() -> Dict[str, int]:
     return {name: int(total[1]) for name, total in _SETUP.items()}
 
 
-def setup_line() -> str:
-    """The operator's reading of the set-up totals."""
+class ForwardCalls:
+    """A block's forward calls, train and eval apart (module docstring)."""
+
+    def __init__(self):
+        self.train_calls = 0
+        self.eval_calls = 0
+
+    def add(self, training: bool) -> None:
+        if training:
+            self.train_calls += 1
+        else:
+            self.eval_calls += 1
+
+
+BAN_CALLS = ForwardCalls()
+
+
+def setup_line(ban: bool = False) -> str:
+    """The operator's reading of the set-up totals; with `ban`, and BAN's
+    forward calls so far."""
     s, n = setup_seconds(), setup_calls()
-    return (f"[setup] model init {s.get('init', 0.0):.3f} s, tables upload "
+    line = (f"[setup] model init {s.get('init', 0.0):.3f} s, tables upload "
             f"{s.get('upload', 0.0):.3f} s, warm-up and capture {s.get('capture', 0.0):.3f} s "
             f"({n.get('capture', 0)} graphs)")
+    if ban:
+        line += (f"; BAN forward calls: train {BAN_CALLS.train_calls}, "
+                 f"eval {BAN_CALLS.eval_calls}")
+    return line
 
 
 # ---- phase marks -------------------------------------------------------------
@@ -171,7 +203,13 @@ BOUNDARIES = ("gather", "forward", "backward", "reduce", "optimizer", "end")
 PHASES = BOUNDARIES[:-1]
 # the bracketed spans inside `backward`
 PAIRS = ("b1_backward", "b2_backward")
-_INDEX = {name: i for i, name in enumerate(MARKS)}
+# the span marks (module docstring)
+SPAN_MARKS = ("ban_forward_begin", "ban_forward_end", "ban_backward_begin", "ban_backward_end")
+SPAN_PREFIX = "regat_span_"
+# every mark's kernel, in csrc/marks.cu's order (checked when it loads)
+KERNELS = (tuple(MARK_PREFIX + n for n in MARKS)
+           + tuple(SPAN_PREFIX + n for n in SPAN_MARKS))
+_INDEX = {name: i for i, name in enumerate(MARKS + SPAN_MARKS)}
 _LIB: List[ctypes.CDLL] = []
 _RECORDING: List[List[str]] = []
 
@@ -186,19 +224,21 @@ def _lib() -> ctypes.CDLL:
         lib.regat_mark_name.argtypes = [ctypes.c_int]
         lib.regat_mark_name.restype = ctypes.c_char_p
         names = tuple(lib.regat_mark_name(i).decode() for i in range(lib.regat_mark_count()))
-        if names != MARKS:
-            raise RuntimeError(f"csrc/marks.cu has the marks {names}, this module {MARKS}")
+        if names != KERNELS:
+            raise RuntimeError(f"csrc/marks.cu has the marks {names}, this module {KERNELS}")
         _LIB.append(lib)
     return _LIB[0]
 
 
 def mark(name: str, device: torch.device) -> None:
-    """Phase mark `name` (one of MARKS) on `device`'s current stream: a
-    kernel on CUDA (captured into a graph being captured), else nothing but
-    its name in the lists of the open `recording()`s."""
+    """Phase mark or span mark `name` (one of MARKS or SPAN_MARKS) on
+    `device`'s current stream: a kernel on CUDA (captured into a graph being
+    captured), else nothing but its name in the lists of the open
+    `recording()`s."""
     i = _INDEX.get(name)
     if i is None:
-        raise ValueError(f"no phase mark {name!r}; the marks are {MARKS}")
+        raise ValueError(f"no phase mark or span mark {name!r}; the marks are "
+                         f"{MARKS + SPAN_MARKS}")
     device = torch.device(device)
     if device.type != "cuda":
         for names in _RECORDING:
@@ -210,7 +250,7 @@ def mark(name: str, device: torch.device) -> None:
             return mark(name, device)
     err = _lib().regat_mark(i, torch._C._cuda_getCurrentRawStream(index))
     if err != 0:
-        raise RuntimeError(f"phase mark {name}: launch failed, CUDA error {err}")
+        raise RuntimeError(f"mark {name}: launch failed, CUDA error {err}")
 
 
 @contextlib.contextmanager
