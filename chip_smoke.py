@@ -38,7 +38,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
      `--baseline DIR` the B2 wrapper of DIR, built from DIR's source, is
      timed in turns with this one on the same inputs (v2, shared bias);
   6. B2's gradients: dq, dk, dvw and dbias through the `GraphAttention`
-     Function against torch autograd of the plain version at b = 32, 256;
+     Function (the kernel forward, which keeps v2's row maxima, and the
+     backward kernel) against torch autograd of the plain version at b =
+     32, 256, v2 and v1, with the shared and the per-head bias of 5 (its
+     rows with every key masked and with underflowing heads), one backward
+     launch per call;
   7. one train step at the full widths and b=256 of each of
      configs/butd_vqa.json, spatial_vqa.json, semantic_vqa.json, ban_vqa.json
      and mutan_vqa_cp.json (MuTAN twice: per-roi question masks, which take
@@ -47,7 +51,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
      gradients of the kernel path against the plain path (same parameters,
      batch and dropout masks), 2 launches of the family's kernel per
      forward; then the step's split into forward, backward and optimizer
-     (CUDA events, median of 10 steps) and its peak device memory. The
+     (CUDA events, median of 10 steps) and its peak device memory; through
+     B2, one backward launch per forward launch under grad. The
      spatial batch's edge labels, built on the card, are held to
      build_spatial_graph on the CPU. Then MuTAN's two formulations on one
      full-width eval batch (b=64): logits within MUTAN_BRANCH_RTOL, argmax
@@ -57,7 +62,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
      widths and batch size 256 (6 steps of a 1,536-question synthetic
      split, then an eval pass): finite, falling loss, median
      step time; kernel launches over the run, 2 per forward pass, and none
-     of the other relation's kernel;
+     of the other relation's kernel; B1's and B2's backward launches, one
+     per forward launch under grad;
   9. `--mode eval` on the written .npz: its loss equals the training run's
      last `eval_loss` (metrics.jsonl) to rel 1e-6, 2 launches per pass;
  10. `--mode serve` of that .npz, built by `main.build_server` as the entry
@@ -188,7 +194,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
      at R = 36 and 100, spatial at R = 100 and `--grad_accum 2`; then ban
      bf16, `--grad_accum 4` f32 and the host path at bf16, each at R = 36
      and 100; for every row 2 launches of the family's kernel per
-     microbatch in both modes (replay-aware counts), the step time of both
+     microbatch in both modes (replay-aware counts; through B2 as many
+     backward launches), the step time of both
      (host clock over 6 more steps), each graph's warm-up + capture seconds
      and both peak memories; (b) 9's eval pass (eval_block 8) graphed and
      eager: equal score and loss, 2 B1 launches per batch, its time;
@@ -297,6 +304,21 @@ Phases, each of which fails the run (non-zero exit, no result line):
      in 8-9. `--only 26` runs 4, 26 and 8-9 for the implicit family (whose
      train runs must count one backward launch per train launch) alone,
      without a result line.
+ 27. B2's backward kernel (`GraphAttention.backward` on the card) against
+     `graph_attention_backward`, the transcription the CPU runs, on the
+     same inputs (GRAPH_BACKWARD_CASES): b=256 at R = 100, 64 and 36, v2
+     and v1, shared and per-head bias; R=100 at b = 32 and 8, whose plans
+     cut the rows into chunks; 8 heads (one head group); then the general
+     instance at other widths (12 heads, dh=128, nongt_dim 10 and 7, o=32);
+     dq, dk, dvw and dbias within GRAPH_GRAD_RTOL, two launches giving
+     equal bits, the forward's row maxima against the plain version's; the
+     device memory one backward allocates (its outputs and workspace, no
+     [b, R, H, n] tensor); per direction, times of the kernel against the
+     transcription at b=256 and R = 100, 64, 36 and for the general
+     instance's first case, beside the kernel's bound, and of forward plus
+     backward against autograd of the plain version. `--only 27` runs 5,
+     6, 27, then 7 and 8-9 for the spatial family, alone, without a result
+     line.
 Counts of launches are set to 0 just before each path of 8-13, 17-21 and
 23-25 (in each rank's process in 23 (b), 24 and 25 (b)) runs and read just after it; the comparison launches of 3-7, 14-16 and 22
 and of the plain-path comparisons do not count; B1's backward launches of
@@ -309,8 +331,8 @@ Then it prints {"kernels": [...]} (each kernel's time, plain and library
 times, and its bound on an H100 SXM: the larger of the bytes it must move
 over 3.35 TB/s and its f32 operations over 67 TFLOP/s, from this run's
 inputs; the entries named "... R=36" and "... R=64" hold phase 14's numbers
-and the launches at that R, the others phases 3-5's at R=100 and the
-launches at every R over the paths of 8-21) and, last, {"ok": true, "device": {...}}.
+and the launches at that R, the others phases 3-5's at R=100 (B2's
+backward 27's) and the launches at every R over the paths of 8-21) and, last, {"ok": true, "device": {...}}.
 It imports nothing of JAX and nothing of the JAX package (tf_vqa_regat_tpu).
 """
 
@@ -513,7 +535,7 @@ def reset_counts() -> None:
     from tf_vqa_regat_tpu_torch.ops.kernels import implicit_attention as ia
 
     ia.KERNEL.launches = ia.KERNEL.train_launches = ia.KERNEL.backward_launches = 0
-    ga.KERNEL.launches = ga.KERNEL.per_head_launches = 0
+    ga.KERNEL.launches = ga.KERNEL.per_head_launches = ga.KERNEL.backward_launches = 0
     ia.KERNEL.launches_by_rows.clear()
     ga.KERNEL.launches_by_rows.clear()
 
@@ -545,6 +567,8 @@ def rows_counts() -> dict:
 PATH_ROWS = []
 # B1's backward launches of those paths
 PATH_BACKWARD = []
+# B2's backward launches of the paths of 8-21 that train through B2
+PATH_B2_BACKWARD = []
 # the split sizes of check_entry_point's last training run, and its train
 # batches that carried edge labels
 LAST_TRAIN = {}
@@ -559,6 +583,13 @@ def b1_backward_launches() -> int:
     from tf_vqa_regat_tpu_torch.ops.kernels import implicit_attention as ia
 
     return ia.KERNEL.backward_launches
+
+
+def b2_backward_launches() -> int:
+    """B2's backward launches since the last reset_counts()."""
+    from tf_vqa_regat_tpu_torch.ops.kernels import graph_attention as ga
+
+    return ga.KERNEL.backward_launches
 
 
 def rank_launches(rec, label) -> dict:
@@ -578,6 +609,7 @@ def read_path_counts() -> dict:
 
     PATH_ROWS.append(rows_counts())
     PATH_BACKWARD.append(ia.KERNEL.backward_launches)
+    PATH_B2_BACKWARD.append(b2_backward_launches())
     return counts()
 
 
@@ -858,18 +890,21 @@ BACKWARD_CASES = tuple((256, R, H, full, {}) for R in (100, 64, 36) for H in (16
 )
 
 
-def backward_resources() -> dict:
-    """The backward kernel's ptxas report: its specialised instance and its
-    general one (template arguments 0)."""
+def backward_resources(module, kernel, modes=("",)) -> dict:
+    """A backward kernel's ptxas report: its specialised instance and its
+    general one (template arguments 0), in each softmax mode of `modes`
+    (B2's " v2" and " v1", the `<..., false>` and `<..., true>` instances;
+    B1's backward has one)."""
     from tf_vqa_regat_tpu_torch.ops.kernels import build
-    from tf_vqa_regat_tpu_torch.ops.kernels import implicit_attention as ia
 
-    report = ptxas_report(build.library_path(ia.SOURCE).with_suffix(".log").read_text())
-    found = {("general" if "ILi0ELi0ELi0ELi0E" in name else "specialised"):
-             {"static_smem": 0, **res}
-             for name, res in report.items() if "implicit_attention_bwd_kernel" in name}
-    if set(found) != {"general", "specialised"}:
-        fail(f"no ptxas report for both backward instances: {sorted(report)}")
+    report = ptxas_report(build.library_path(module.SOURCE).with_suffix(".log").read_text())
+    found = {}
+    for name, res in report.items():
+        if kernel in name:
+            kind = "general" if "ILi0ELi0ELi0ELi0E" in name else "specialised"
+            found[kind + modes["Lb1E" in name]] = {"static_smem": 0, **res}
+    if set(found) != {k + m for k in ("general", "specialised") for m in modes}:
+        fail(f"no ptxas report for every instance of {kernel}: {sorted(report)}")
     return found
 
 
@@ -976,8 +1011,9 @@ def check_backward_kernel(device):
     return rows
 
 
-def graph_inputs(b, device, seed, R=SERVE_SHAPES["R"]):
-    """Inputs of one direction of B2 at the model's shapes and R query rows
+def graph_inputs(b, device, seed, R=SERVE_SHAPES["R"], H=SERVE_SHAPES["H"], widths=None):
+    """Inputs of one direction of B2 at the model's shapes (H heads and the
+    widths in `widths` aside) and R query rows
     (box counts 10-R), the bias built
     as the model builds it: spatial labels of random boxes (direction 0),
     a random label bias, non-edges and padded keys at -9e15. Example 0 has
@@ -994,8 +1030,8 @@ def graph_inputs(b, device, seed, R=SERVE_SHAPES["R"]):
         build_spatial_graph,
     )
 
-    s = SERVE_SHAPES
-    H, dh, o, n = s["H"], s["dh"], s["o"], s["n"]
+    s = {**SERVE_SHAPES, **(widths or {})}
+    dh, o, n = s["dh"], s["o"], s["n"]
     g = torch.Generator(device=device).manual_seed(seed)
 
     def randn(*shape, scale=1.0):
@@ -1168,44 +1204,181 @@ def check_graph_kernel(device, resources, baseline=None):
 
 
 def check_graph_grads(device):
-    """dq, dk, dvw, dbias through `GraphAttention` (kernel forward) vs torch
-    autograd of the plain version at b = 32 and 256, with the model's shared
-    bias. Returns per-b rows."""
+    """dq, dk, dvw, dbias through `GraphAttention` (the kernel forward and
+    the backward kernel) vs torch autograd of the plain version at b = 32
+    and 256, in both softmax modes (v2, v1) with the shared and the per-head
+    bias of graph_inputs (its rows with every key masked, and with heads
+    that underflow); one backward launch per Function call. Returns the
+    rows."""
     import torch
 
     from tf_vqa_regat_tpu_torch.ops.kernels import graph_attention as ga
 
-    names = ("q", "k", "vw", "shared")
     rows = []
     for b in (32, 256):
         x = graph_inputs(b, device, seed=300 + b)
         G = torch.randn(x["q"].shape, generator=torch.Generator(device=device).manual_seed(b),
                         device=device)
+        for per_head in (False, True):
+            for which in ("shared", "per_head"):
+                names = ("q", "k", "vw", which)
+                where = f"b={b}, {'v1' if per_head else 'v2'}, {which} bias"
 
-        def fwd_bwd(fn):
-            leaves = [x[n].clone().requires_grad_() for n in names]
-            out = fn(*leaves)
-            return out.detach(), torch.autograd.grad((out * G).sum(), leaves)
+                def fwd_bwd(fn):
+                    leaves = [x[n].clone().requires_grad_() for n in names]
+                    out = fn(*leaves, per_head)
+                    return out.detach(), torch.autograd.grad((out * G).sum(), leaves)
 
-        out_k, grads_k = fwd_bwd(ga.fused_graph_attention)
-        out_p, grads_p = fwd_bwd(ga.graph_attention_plain)
+                before = b2_backward_launches()
+                out_k, grads_k = fwd_bwd(ga.fused_graph_attention)
+                launched = b2_backward_launches() - before
+                out_p, grads_p = fwd_bwd(ga.graph_attention_plain)
+                with torch.no_grad():
+                    direct = ga.KERNEL(*(x[n] for n in names), per_head)
+                torch.cuda.synchronize()
+                row = {"b": b, "v1": per_head, "bias": which, "backward_launches": launched,
+                       "function_out": (out_k - direct).abs().max().item()}
+                for n, gk, gp in zip(("dq", "dk", "dvw", "dbias"), grads_k, grads_p):
+                    if not torch.isfinite(gk).all():
+                        fail(f"B2 gradient {n} not finite at {where}")
+                    row[n] = max_rel(gk, gp)
+                if not per_head and which == "shared":
+                    row["fwd_bwd_ms"], row["fwd_bwd_plain_ms"] = median_ms_interleaved(
+                        [lambda: fwd_bwd(ga.fused_graph_attention),
+                         lambda: fwd_bwd(ga.graph_attention_plain)], reps=21, calls=3)
+                print("kernel graph_attention gradients", json.dumps(row), flush=True)
+                if row["function_out"] != 0.0:
+                    fail(f"B2 Function forward differs from the launch at {where}")
+                if launched != 1:
+                    fail(f"B2 Function: {launched} backward launches for one call at {where}")
+                for n in ("dq", "dk", "dvw", "dbias"):
+                    if not row[n] <= GRAPH_GRAD_RTOL:
+                        fail(f"B2 gradient {n} differs by rel {row[n]} > {GRAPH_GRAD_RTOL} at "
+                             f"{where}")
+                rows.append(row)
+    return rows
+
+
+def graph_bwd_flops(b, R=SERVE_SHAPES["R"], H=SERVE_SHAPES["H"], n=SERVE_SHAPES["n"],
+                    dh=SERVE_SHAPES["dh"], o=SERVE_SHAPES["o"]):
+    """f32 operations of one B2 backward: per (row, head, key) the q.k and
+    g.vw dots rebuilt, the dq, dk and dvw sums."""
+    return 2.0 * b * R * H * n * (3 * dh + 2 * o)
+
+
+# phase 27's cases: (b, R, H, v1, bias, widths other than the model's); those
+# with other widths, or 12 heads, run the general instance
+GRAPH_BACKWARD_CASES = (
+    (256, 100, 16, False, "shared", {}),  # the model's: timed, its memory held
+    (256, 64, 16, False, "shared", {}),  # the roi buckets: timed
+    (256, 36, 16, False, "shared", {}),
+    (256, 100, 16, False, "per_head", {}),
+    (256, 100, 16, True, "shared", {}),
+    (256, 100, 16, True, "per_head", {}),
+    (32, 100, 16, False, "shared", {}),  # row chunks: the reduce adds dK and dVW
+    (8, 100, 16, False, "shared", {}),
+    (256, 100, 8, False, "shared", {}),  # one head group: no dbias sum to add
+    (64, 100, 12, False, "shared", {}),  # 12 heads: 4 a block, the general instance, timed
+    (64, 100, 8, False, "shared", dict(dh=128, o=128)),  # relation_dim 1024 over 8 heads
+    (64, 36, 16, False, "per_head", dict(n=10)),  # --nongt_dim 10
+    (64, 36, 16, True, "shared", dict(n=7)),  # keys not a multiple of 4
+    (64, 100, 16, False, "shared", dict(o=32)),  # a value width other than the head's
+)
+
+
+def check_graph_backward(device):
+    """Phase 27: B2's backward kernel against graph_attention_backward, the
+    transcription the CPU runs, on the same inputs (GRAPH_BACKWARD_CASES):
+    dq, dk, dvw and dbias within GRAPH_GRAD_RTOL, two launches giving equal
+    bits, the forward's row maxima against the plain version's affinities;
+    the device memory one backward allocates at the model's shapes (no
+    [b, R, H, n] tensor); the kernel's time against the transcription's and
+    its bound at R = 100, 64 and 36 (b=256) and for the general instance's
+    first case; forward plus backward against autograd of the plain version
+    at the model's shapes. Returns the rows."""
+    import torch
+
+    from tf_vqa_regat_tpu_torch.ops.kernels import graph_attention as ga
+
+    names = ("dq", "dk", "dvw", "dbias")
+    rows, general_timed = [], False
+    for i, (b, R, H, per_head, which, widths) in enumerate(GRAPH_BACKWARD_CASES):
+        s = {**SERVE_SHAPES, **widths}
+        n, dh, o = s["n"], s["dh"], s["o"]
+        x = graph_inputs(b, device, seed=500 + i, R=R, H=H, widths=widths)
+        q, k, vw, bias = x["q"], x["k"], x["vw"], x[which]
+        G = torch.randn(b, R, H, o, generator=torch.Generator(device=device).manual_seed(600 + i),
+                        device=device)
         with torch.no_grad():
-            direct = ga.KERNEL(*(x[n] for n in names))
+            _, rowmax = ga.KERNEL(q, k, vw, bias, per_head, save_max=True)
+
+        def kernel():
+            return ga.KERNEL.backward(G, q, k, vw, bias, rowmax, per_head)
+
+        def transcription():
+            return ga.graph_attention_backward(G, q, k, vw, bias, per_head)
+
+        plan = ga.backward_plan(b, R, n, H, dh, o)
+        general = (plan.heads, n, dh, o) not in ga.BWD_SPECIALISED
+        got, again, want = kernel(), kernel(), transcription()
         torch.cuda.synchronize()
-        row = {"b": b, "function_out": (out_k - direct).abs().max().item()}
-        for n, gk, gp in zip(("dq", "dk", "dvw", "dbias"), grads_k, grads_p):
-            if not torch.isfinite(gk).all():
-                fail(f"B2 gradient {n} not finite at b={b}")
-            row[n] = max_rel(gk, gp)
-        row["fwd_bwd_ms"], row["fwd_bwd_plain_ms"] = median_ms_interleaved(
-            [lambda: fwd_bwd(ga.fused_graph_attention),
-             lambda: fwd_bwd(ga.graph_attention_plain)], reps=21, calls=3)
-        print("kernel graph_attention gradients", json.dumps(row), flush=True)
-        if row["function_out"] != 0.0:
-            fail(f"B2 Function forward differs from the launch at b={b}")
-        for n in ("dq", "dk", "dvw", "dbias"):
-            if not row[n] <= GRAPH_GRAD_RTOL:
-                fail(f"B2 gradient {n} differs by rel {row[n]} > {GRAPH_GRAD_RTOL} at b={b}")
+        where = f"b={b}, R={R}, H={H}, {'v1' if per_head else 'v2'}, {which} bias, {widths}"
+        for name, t in zip(names, got):
+            if not torch.isfinite(t).all():
+                fail(f"B2 backward: {name} not finite at {where}")
+        errs = {m: max_rel(a, w) for m, a, w in zip(names[:3], got, want)}
+        errs["dbias"] = max_rel(got[3].sum_to_size(bias.shape), want[3].sum_to_size(bias.shape))
+        row = dict(b=b, R=R, H=H, v1=per_head, bias=which, widths=widths, general=general,
+                   plan=plan._asdict(), **errs,
+                   equal_bits_twice=all(torch.equal(a, c) for a, c in zip(got, again)))
+        if not per_head:
+            # the row max the backward rebuilds the weights against, vs the
+            # plain version's affinities (in the rows with an edge: others
+            # sit at the -9e15 masks)
+            aff = (torch.einsum("brhd,bnhd->brhn", q, k) / math.sqrt(dh) + bias).amax(dim=(2, 3))
+            live = aff > -1e15
+            row["rowmax"] = (rowmax - aff)[live].abs().max().item()
+            del aff
+        del got, again, want
+        if i == 0:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(device)
+            base = torch.cuda.memory_allocated(device)
+            res = kernel()
+            torch.cuda.synchronize()
+            row["bwd_peak_bytes"] = torch.cuda.max_memory_allocated(device) - base
+            workspace = (H // plan.heads) * b * R * n * 4 if H > plan.heads else 0
+            row["bwd_outputs_bytes"] = nbytes(*res) + workspace
+            row["weights_bytes"] = b * R * H * n * 4  # one [b, R, H, n] f32
+            del res
+
+            def fwd_bwd(fn):
+                leaves = [t.clone().requires_grad_() for t in (q, k, vw, bias)]
+                out = fn(*leaves, per_head)
+                return torch.autograd.grad((out * G).sum(), leaves)
+
+            row["fwd_bwd_ms"], row["fwd_bwd_plain_ms"] = median_ms_interleaved(
+                [lambda: fwd_bwd(ga.fused_graph_attention),
+                 lambda: fwd_bwd(ga.graph_attention_plain)], reps=21, calls=3)
+        if i in (0, 1, 2) or general and not general_timed:
+            general_timed |= general
+            row["bwd_ms"], row["bwd_transcription_ms"] = median_ms_interleaved(
+                [kernel, transcription], reps=21, calls=3)
+            # read: g, q, k, vw, the bias, the row maxima; written: dq, dk,
+            # dvw and dbias in the bias's own layout
+            moved = nbytes(G, q, k, vw, bias, rowmax, q, k, vw, bias)
+            row.update(bound(moved, graph_bwd_flops(b, R, H, n, dh, o)))
+        print("kernel graph_attention backward", json.dumps(row), flush=True)
+        if not row["equal_bits_twice"]:
+            fail(f"B2 backward: two launches on the same inputs differ at {where}")
+        limits = [(m, GRAPH_GRAD_RTOL) for m in names] + (
+            [] if per_head else [("rowmax", KERNEL_ATOL)])
+        for name, tol in limits:
+            if not row[name] <= tol:
+                fail(f"B2 backward: {name} differs by {row[name]} > {tol} at {where}")
+        if i == 0 and row["bwd_peak_bytes"] > row["bwd_outputs_bytes"] + 2**20:
+            fail(f"B2 backward allocated {row['bwd_peak_bytes']} B for "
+                 f"{row['bwd_outputs_bytes']} B of outputs and workspace")
         rows.append(row)
     return rows
 
@@ -1312,6 +1485,7 @@ def check_train_step(device, family, extra=()):
     with mutan_branches() as branches:
         loss_k, grads_k = loss_and_grads()
     launches = counts()
+    b2_backward = b2_backward_launches()
     if family == "mutan":
         # the attention block's formulation, then the answer block's (2-D: naive)
         want = ["reassociated" if cfg.mutan_shared_qdrop else "naive", "naive"]
@@ -1327,13 +1501,16 @@ def check_train_step(device, family, extra=()):
     print(f"{label} train step b={cfg.batch_size} kernel vs plain: loss {loss_k.item()} vs "
           f"{loss_p.item()} (rel {loss_err}), worst leaf {worst} rel {errs[worst]} (then "
           f"{', '.join(f'{n} {errs[n]}' for n in runners_up)}), "
-          f"launches per forward {json.dumps(launches)}, MuTAN formulations {branches}",
-          flush=True)
+          f"launches per forward {json.dumps(launches)}, B2 backward launches {b2_backward}, "
+          f"MuTAN formulations {branches}", flush=True)
     if not all(torch.isfinite(g).all() for g in grads_k):
         fail(f"{label} train step: a gradient is not finite")
     kernel = "B1 train" if family in B1_FAMILIES else "B2"
     if launches[kernel] != 2 or sum(launches.values()) != 2:
         fail(f"{label} train step: launches per forward {launches}, expected 2 of {kernel}")
+    if b2_backward != launches["B2"]:
+        fail(f"{label} train step: {b2_backward} B2 backward launches for {launches['B2']} "
+             "forward launches under grad")
     if not loss_err <= LOSS_RTOL:
         fail(f"{label} train step: loss differs by rel {loss_err} > {LOSS_RTOL}")
     if not errs[worst] <= STEP_GRAD_RTOL:
@@ -1506,6 +1683,12 @@ def check_entry_point(tmp, smi, family, extra=(), config=None, data=None, fallin
     if PATH_BACKWARD[-1] != launches["B1 train"]:
         fail(f"{label} --mode train: {PATH_BACKWARD[-1]} B1 backward launches for "
              f"{launches['B1 train']} train launches")
+    # B2's forward launches under grad: 2 per train step where B2 carries
+    # the family
+    b2_train = 0 if family in B1_FAMILIES else 2 * len(losses)
+    if PATH_B2_BACKWARD[-1] != b2_train:
+        fail(f"{label} --mode train: {PATH_B2_BACKWARD[-1]} B2 backward launches for "
+             f"{b2_train} train-forward launches")
 
     reset_counts()  # the eval path starts here
     score, loss = port_main.main(argv + ["--mode", "eval", "--checkpoint", path])
@@ -3258,7 +3441,7 @@ def graph_train_steps(device, cfg, ds, store, graphed):
 
     reset_counts()
     first = block(0)
-    launches = counts()
+    launches = {**counts(), "B2 backward": b2_backward_launches()}
     torch.cuda.synchronize()
     state = {"params": [p.detach().clone() for p in opt.params],
              "mu": [t.clone() for t in opt.mu], "nu": [t.clone() for t in opt.nu],
@@ -3293,6 +3476,8 @@ def check_graph_row(device, smi, family, extra, R, path, held=True):
     steps = GRAPH_STEPS
     want = {n: 0 for n in g_launch}
     want[kernel] = 2 * cfg.grad_accum * steps
+    if kernel == "B2":  # one backward per forward launch under grad
+        want["B2 backward"] = want[kernel]
     print(f"graphs {label}: {steps} steps graphed vs eager: bit-equal "
           f"{json.dumps(equal)} (params max abs diff {diff}), counts {g['count']} / "
           f"{e['count']}; launches graphed {json.dumps(g_launch)}, eager "
@@ -4835,7 +5020,8 @@ def run_phase_26(tmp_root, smi, device):
     from tf_vqa_regat_tpu_torch.ops.kernels import implicit_attention as ia
 
     resources = kernel_resources(ia, "implicit_attention_kernel", ("eval", "train"))
-    print("B1 backward ptxas", json.dumps(backward_resources()), flush=True)
+    print("B1 backward ptxas", json.dumps(backward_resources(ia, "implicit_attention_bwd_kernel")),
+          flush=True)
     with phase("4, B1 train variant"):
         check_train_kernel(device, resources)
     with phase("26, B1 backward"):
@@ -4846,6 +5032,32 @@ def run_phase_26(tmp_root, smi, device):
     with phase("26, implicit train and eval at other widths"):
         check_entry_point(os.path.join(tmp_root, "widths"), smi, "implicit",
                           SHORT_TRAIN + OTHER_WIDTHS)
+
+
+def run_phase_27(tmp_root, smi, device):
+    """`--only 27`: B2's phases 5, 6 and 27, then 7 and 8-9 for the spatial
+    family (whose train runs must count one B2 backward launch per forward
+    launch under grad)."""
+    import torch
+
+    from tf_vqa_regat_tpu_torch.ops.kernels import graph_attention as ga
+
+    print("B2 backward ptxas", json.dumps(backward_resources(
+        ga, "graph_attention_bwd_kernel", (" v2", " v1"))), flush=True)
+    with phase("5, B2"):
+        check_graph_kernel(device, kernel_resources(ga, "graph_attention_kernel", ("v2", "v1")))
+    with phase("6, B2 gradients"):
+        check_graph_grads(device)
+    with phase("27, B2 backward"):
+        check_graph_backward(device)
+    torch.cuda.empty_cache()
+    with phase("7, spatial train step"):
+        split, peak_gb = check_train_step(device, "spatial")
+    print(f"spatial train step split at b=256, median ms (CUDA events, TF32 off) on {smi}: "
+          f"{json.dumps(split)}; peak device memory {peak_gb:.2f} GB", flush=True)
+    torch.cuda.empty_cache()
+    with phase("8-9, spatial train and eval"):
+        check_entry_point(os.path.join(tmp_root, "spatial"), smi, "spatial", SHORT_TRAIN)
 
 
 def build_kernels():
@@ -4871,7 +5083,7 @@ def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--baseline", help="another checkout whose B1 and B2 phases 3-5 "
                         "time in turns with this one")
-    parser.add_argument("--only", choices=("23", "24", "25", "26"),
+    parser.add_argument("--only", choices=("23", "24", "25", "26", "27"),
                         help="build the kernels and run this phase alone (no result line)")
     parser.add_argument("--dp_child", nargs=2, metavar=("SPEC", "RANK"),
                         help=argparse.SUPPRESS)  # one rank of phase 23 (b)
@@ -4921,7 +5133,8 @@ def main() -> None:
     if args.only:
         with tempfile.TemporaryDirectory() as tmp_root:
             {"23": run_phase_23, "24": lambda *a: run_phase_24(*a, {}),
-             "25": run_phase_25, "26": run_phase_26}[args.only](tmp_root, smi_line, device)
+             "25": run_phase_25, "26": run_phase_26,
+             "27": run_phase_27}[args.only](tmp_root, smi_line, device)
         print(f"phase {args.only} alone: {time.perf_counter() - start:.1f} s wall; no result "
               f"line", flush=True)
         return
@@ -4934,7 +5147,8 @@ def main() -> None:
         rows = check_kernels(device, b1_resources, b1_baseline)
     with phase("4, B1 train variant"):
         train_rows = check_train_kernel(device, b1_resources, b1_baseline)
-    print("B1 backward ptxas", json.dumps(backward_resources()), flush=True)
+    print("B1 backward ptxas", json.dumps(backward_resources(ia, "implicit_attention_bwd_kernel")),
+          flush=True)
     with phase("26, B1 backward"):
         bwd_rows = check_backward_kernel(device)
     torch.cuda.empty_cache()
@@ -4944,6 +5158,11 @@ def main() -> None:
             load_baseline(args.baseline, "graph_attention"))
     with phase("6, B2 gradients"):
         check_graph_grads(device)
+    print("B2 backward ptxas", json.dumps(backward_resources(
+        ga, "graph_attention_bwd_kernel", (" v2", " v1"))), flush=True)
+    with phase("27, B2 backward"):
+        graph_bwd_rows = check_graph_backward(device)
+    torch.cuda.empty_cache()
     rows_at = {}
     for R in ROWS:
         with phase(f"14, B1 and B2 at R={R}"):
@@ -5040,6 +5259,7 @@ def main() -> None:
     # B1 eval at b=32, the largest serve batch; the others at b=256
     big = next(r for r in rows if r["b"] == 32)
     train_big, graph_big, bwd_big = train_rows[-1], graph_rows[-1], bwd_rows[0]
+    graph_bwd_big = graph_bwd_rows[0]
     bound_keys = ("bound_ms", "bound_by")
     def total(kernel):  # over every path of 8-21, all R
         return sum(run[kernel] for run in launches)
@@ -5129,6 +5349,18 @@ def main() -> None:
         "plain_ms": graph_big["plain_ms"],
         **{k: graph_big[k] for k in bound_keys},
         "library_ms": graph_big["sdpa_ms"],
+    }, {
+        "name": "graph_attention_backward",
+        "route": "cuda",
+        "source": b2_source,
+        "replaces": "tf_vqa_regat_tpu/ops/pallas/graph_attention.py:218",
+        "launches": sum(PATH_B2_BACKWARD),
+        "max_rel_err": max(max(r[n] for n in ("dq", "dk", "dvw", "dbias"))
+                           for r in graph_bwd_rows),
+        "ms": graph_bwd_big["bwd_ms"],
+        "plain_ms": graph_bwd_big["bwd_transcription_ms"],
+        **{k: graph_bwd_big[k] for k in bound_keys},
+        "library_ms": None,
     }, {
         "name": "graph_attention_per_head",
         "route": "cuda",

@@ -270,11 +270,10 @@ def backward_plan(b: int, R: int, n: int, H: int, dh: int, o: int, P: int) -> Ba
     [b, n, H, o] and P embedding lanes. Heads per block: those of a
     specialised instance (BWD_SPECIALISED) at (n, dh, P) that divides H,
     else the most of 8, 4, 2 and 1 that divides H and fits (`_bwd_fits`).
-    Rows per block: whole TILE-row tiles, as many as keep the
-    estimated time least: waves of SMS blocks (one block per SM) times the
-    block's tiles plus one for its staging and its dW_pos sums; the fewest
-    chunks on a tie (the whole example at b >= 64, R=100). Raises ValueError
-    on a shape the kernel does not take, before anything is built."""
+    Rows per block: B2's rule (`ga.backward_chunks`, one block per SM, the
+    staging and the dW_pos sums counted as one more tile; the whole example
+    at b >= 64, R=100). Raises ValueError on a shape the kernel does not
+    take, before anything is built."""
     if min(b, R, n, H, dh, o, P) < 1:
         raise ValueError(f"empty implicit attention: b={b} R={R} n={n} H={H} dh={dh} o={o} P={P}")
     if dh != o:
@@ -294,16 +293,10 @@ def backward_plan(b: int, R: int, n: int, H: int, dh: int, o: int, P: int) -> Ba
         raise ValueError(f"n={n}, dh={dh}, P={P}: no backward block of 1 head fits (at most "
                          f"{BWD_MAX_ROWS_D} dq rows and {BWD_MAX_KEYS} dK / dVW keys a thread, "
                          f"{BWD_THREADS} keys a block, {ga.SMEM_LIMIT} B of shared memory)")
-    smem = bwd_smem_bytes(hb, dh, n, P)
-    groups, tiles = H // hb, -(-R // BWD_TILE)
-    best = None
-    for per_chunk in range(tiles, 0, -1):  # tiles per block; fewer chunks first
-        chunks = -(-tiles // per_chunk)
-        cost = -(-b * groups * chunks // ga.SMS) * (per_chunk + 1)
-        if best is None or cost < best[0]:
-            best = (cost, per_chunk, chunks)
-    _, per_chunk, chunks = best
-    return BackwardPlan(hb, per_chunk * BWD_TILE, chunks, (groups * chunks, b), smem)
+    groups = H // hb
+    per_chunk, chunks = ga.backward_chunks(b, R, groups, BWD_TILE, 1)
+    return BackwardPlan(hb, per_chunk * BWD_TILE, chunks, (groups * chunks, b),
+                        bwd_smem_bytes(hb, dh, n, P))
 
 
 def _check_tensors(dev, items) -> None:

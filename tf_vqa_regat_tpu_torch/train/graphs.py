@@ -72,7 +72,7 @@ WARMUP_CALLS = 1
 
 # the wrappers' launch counters: (kernel, its plain integer counters)
 _COUNTERS = ((_ia.KERNEL, ("launches", "train_launches", "backward_launches")),
-             (_ga.KERNEL, ("launches", "per_head_launches")))
+             (_ga.KERNEL, ("launches", "per_head_launches", "backward_launches")))
 # every replay-aware count: the launch counters, then BAN's forward calls
 _ALL = _COUNTERS + ((profiling.BAN_CALLS, ("train_calls", "eval_calls")),)
 
