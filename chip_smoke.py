@@ -530,37 +530,33 @@ def bound(moved_bytes: int, flops: float) -> dict:
             "bytes": moved_bytes, "flops": flops}
 
 
-def reset_counts() -> None:
-    from tf_vqa_regat_tpu_torch.ops.kernels import graph_attention as ga
-    from tf_vqa_regat_tpu_torch.ops.kernels import implicit_attention as ia
+# B1's and B2's launch counters (ops/kernels/launch.py) by variant, under the
+# names this script prints
+VARIANTS = {"b1": {"eval": "B1 eval", "train": "B1 train"},
+            "b2": {"v2": "B2", "v1": "B2 per-head"}}
 
-    ia.KERNEL.launches = ia.KERNEL.train_launches = ia.KERNEL.backward_launches = 0
-    ga.KERNEL.launches = ga.KERNEL.per_head_launches = ga.KERNEL.backward_launches = 0
-    ia.KERNEL.launches_by_rows.clear()
-    ga.KERNEL.launches_by_rows.clear()
+
+def reset_counts() -> None:
+    from tf_vqa_regat_tpu_torch.ops.kernels import launch
+
+    for kernel in VARIANTS:
+        launch.counter(kernel).clear()
 
 
 def counts() -> dict:
-    from tf_vqa_regat_tpu_torch.ops.kernels import graph_attention as ga
-    from tf_vqa_regat_tpu_torch.ops.kernels import implicit_attention as ia
+    from tf_vqa_regat_tpu_torch.ops.kernels import launch
 
-    return {"B1 eval": ia.KERNEL.launches, "B1 train": ia.KERNEL.train_launches,
-            "B2": ga.KERNEL.launches, "B2 per-head": ga.KERNEL.per_head_launches}
+    return {name: sum(n for (v, _), n in launch.counter(kernel).items() if v == variant)
+            for kernel, names in VARIANTS.items() for variant, name in names.items()}
 
 
 def rows_counts() -> dict:
     """The launches since reset_counts() by (kernel, query rows R), with the
     names of `counts()`, zero entries left out."""
-    from tf_vqa_regat_tpu_torch.ops.kernels import graph_attention as ga
-    from tf_vqa_regat_tpu_torch.ops.kernels import implicit_attention as ia
+    from tf_vqa_regat_tpu_torch.ops.kernels import launch
 
-    names = {"eval": "B1 eval", "train": "B1 train", "v2": "B2", "v1": "B2 per-head"}
-    out = {}
-    for kernel in (ia.KERNEL, ga.KERNEL):
-        for (variant, R), n in kernel.launches_by_rows.items():
-            if n:
-                out[(names[variant], R)] = n
-    return out
+    return {(names[variant], R): n for kernel, names in VARIANTS.items()
+            for (variant, R), n in launch.counter(kernel).items() if variant in names and n}
 
 
 # the launches by (kernel, R) of every path of 8-21 that records them
@@ -578,18 +574,12 @@ LAST_TRAIN = {}
 LAST_ENSEMBLE = {}
 
 
-def b1_backward_launches() -> int:
-    """B1's backward launches since the last reset_counts()."""
-    from tf_vqa_regat_tpu_torch.ops.kernels import implicit_attention as ia
+def backward_launches(kernel: str) -> int:
+    """The backward launches of `kernel` ("b1", "b2") since the last
+    reset_counts()."""
+    from tf_vqa_regat_tpu_torch.ops.kernels import launch
 
-    return ia.KERNEL.backward_launches
-
-
-def b2_backward_launches() -> int:
-    """B2's backward launches since the last reset_counts()."""
-    from tf_vqa_regat_tpu_torch.ops.kernels import graph_attention as ga
-
-    return ga.KERNEL.backward_launches
+    return sum(n for (v, _), n in launch.counter(kernel).items() if v == "backward")
 
 
 def rank_launches(rec, label) -> dict:
@@ -605,11 +595,9 @@ def rank_launches(rec, label) -> dict:
 def read_path_counts() -> dict:
     """counts() of the path that just ran; its launches by R go to PATH_ROWS
     and its B1 backward launches to PATH_BACKWARD."""
-    from tf_vqa_regat_tpu_torch.ops.kernels import implicit_attention as ia
-
     PATH_ROWS.append(rows_counts())
-    PATH_BACKWARD.append(ia.KERNEL.backward_launches)
-    PATH_B2_BACKWARD.append(b2_backward_launches())
+    PATH_BACKWARD.append(backward_launches("b1"))
+    PATH_B2_BACKWARD.append(backward_launches("b2"))
     return counts()
 
 
@@ -1110,8 +1098,10 @@ def kernel_resources(module, kernel, modes) -> dict:
 
 def load_baseline(path, name):
     """The wrapper module `ops/kernels/{name}.py` of another checkout at
-    `path`, reading and building that checkout's `csrc/{name}.cu` (its own
-    library, named by the source's hash); None without `path`."""
+    `path` (one whose wrappers load through ops/kernels/launch.py), reading
+    and building that checkout's `csrc/{name}.cu` (its own library, named by
+    the source's hash; its launches count in this checkout's counters);
+    None without `path`."""
     if path is None:
         return None
     from pathlib import Path
@@ -1121,8 +1111,8 @@ def load_baseline(path, name):
         f"baseline_{name}", pkg / "ops" / "kernels" / f"{name}.py")
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    mod.SOURCE = pkg / "csrc" / f"{name}.cu"
-    mod.KERNEL.lib()
+    mod.SOURCE = mod.LIB.source = pkg / "csrc" / f"{name}.cu"
+    mod.LIB.load()
     return mod
 
 
@@ -1229,9 +1219,9 @@ def check_graph_grads(device):
                     out = fn(*leaves, per_head)
                     return out.detach(), torch.autograd.grad((out * G).sum(), leaves)
 
-                before = b2_backward_launches()
+                before = backward_launches("b2")
                 out_k, grads_k = fwd_bwd(ga.fused_graph_attention)
-                launched = b2_backward_launches() - before
+                launched = backward_launches("b2") - before
                 out_p, grads_p = fwd_bwd(ga.graph_attention_plain)
                 with torch.no_grad():
                     direct = ga.KERNEL(*(x[n] for n in names), per_head)
@@ -1485,7 +1475,7 @@ def check_train_step(device, family, extra=()):
     with mutan_branches() as branches:
         loss_k, grads_k = loss_and_grads()
     launches = counts()
-    b2_backward = b2_backward_launches()
+    b2_backward = backward_launches("b2")
     if family == "mutan":
         # the attention block's formulation, then the answer block's (2-D: naive)
         want = ["reassociated" if cfg.mutan_shared_qdrop else "naive", "naive"]
@@ -3441,7 +3431,7 @@ def graph_train_steps(device, cfg, ds, store, graphed):
 
     reset_counts()
     first = block(0)
-    launches = {**counts(), "B2 backward": b2_backward_launches()}
+    launches = {**counts(), "B2 backward": backward_launches("b2")}
     torch.cuda.synchronize()
     state = {"params": [p.detach().clone() for p in opt.params],
              "mu": [t.clone() for t in opt.mu], "nu": [t.clone() for t in opt.nu],
@@ -3828,7 +3818,7 @@ def dp_child(spec_path, rank):
         torch.cuda.synchronize()
         steps = rec.pop("steps")
         rec.update(wall_s=time.perf_counter() - t0, launches=counts(),
-                   backward=b1_backward_launches(), preempted=result is None,
+                   backward=backward_launches("b1"), preempted=result is None,
                    train_steps=len(steps),
                    step_ms=[a.elapsed_time(b) for (a, b), cap in steps if not cap])
         records.append(rec)
@@ -4216,7 +4206,7 @@ def tp_child(spec_path, rank):
         torch.cuda.synchronize()
         steps = rec.pop("steps")
         rec.update(wall_s=time.perf_counter() - t0, launches=counts(),
-                   backward=b1_backward_launches(), heads=sorted(heads),
+                   backward=backward_launches("b1"), heads=sorted(heads),
                    train_steps=len(steps), step_ms=[a.elapsed_time(b) for a, b in steps])
         records.append(rec)
     distributed.barrier()
@@ -5069,8 +5059,8 @@ def build_kernels():
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=2) as pool:
         libs = list(pool.map(build.build, (ia.SOURCE, ga.SOURCE)))
-    ia.KERNEL.lib()
-    ga.KERNEL.lib()
+    ia.LIB.load()
+    ga.LIB.load()
     print(f"built {[os.path.relpath(so, REPO) for so in libs]} in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     for so in libs:

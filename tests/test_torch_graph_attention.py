@@ -8,7 +8,10 @@ kernel in interpret mode, on the CPU:
   and against a jnp oracle built on `jax.nn.softmax`;
 - the `GraphAttention` Function's gradients (dq, dk, dvw, dbias) against
   `jax.grad` through `_fused`'s custom VJP (`_fused_bwd`) in both modes, and
-  against torch autograd of the plain version.
+  against torch autograd of the plain version;
+- without a card, the wrapper around its launches: the v2 backward needs
+  the forward's row maxima, and the forward under grad keeps them (v2
+  only), while a launch without grad keeps none.
 
 Inputs are built as the model builds them: edge labels and a label bias,
 non-edges at -9e15, then the key mask at -9e15 (b=4, R=16, H=4, dh=o=24,
@@ -23,7 +26,9 @@ Tolerance: atol/rtol 1e-5 (f32 sums of at most dh products in another
 order).
 """
 
+import collections
 import functools
+import types
 
 import jax
 import jax.numpy as jnp
@@ -32,6 +37,8 @@ import pytest
 import torch
 
 from tf_vqa_regat_tpu.ops.pallas import graph_attention as jga
+from tf_vqa_regat_tpu_torch.ops.kernels import build
+from tf_vqa_regat_tpu_torch.ops.kernels import graph_attention as ga
 from tf_vqa_regat_tpu_torch.ops.kernels.graph_attention import (
     KERNEL,
     GraphAttention,
@@ -165,3 +172,45 @@ def test_no_call_drops_a_gradient():
     assert type(out.grad_fn).__name__ == GraphAttention.__name__ + "Backward"
     with torch.no_grad():
         assert fused_graph_attention(x["q"], x["k"], x["vw"], bias).grad_fn is None
+
+
+def test_v2_backward_needs_the_row_maxima(monkeypatch):
+    def no_build(*_):
+        raise AssertionError("the kernel was built for a shape it does not take")
+
+    monkeypatch.setattr(build, "build", no_build)
+    monkeypatch.setattr(build, "load", no_build)
+    b, R, H, n, d = 2, 3, 4, 5, 8
+    args = (torch.zeros(b, R, H, d), torch.zeros(b, R, H, d), torch.zeros(b, n, H, d),
+            torch.zeros(b, n, H, d), torch.zeros(b, R, 1, n), None)
+    with pytest.raises(ValueError, match="row maxima"):
+        ga._Kernel().backward(*args)
+
+
+def test_forward_under_grad_keeps_the_row_maxima(monkeypatch):
+    """The Function's forward on the card asks the launch for v2's row
+    maxima and saves them for the backward; a launch without grad keeps
+    none (the eval, serve and predict path is the one it was)."""
+    calls = []
+
+    def fwd(*args):
+        calls.append(args)
+        return 0
+
+    monkeypatch.setattr(ga.LIB, "load", lambda: types.SimpleNamespace(
+        regat_graph_attention_fwd=fwd, regat_graph_attention_set_smem=lambda _s: 0))
+    monkeypatch.setattr(ga.LIB, "_smem", {})
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: None)
+    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream", lambda _index: 0, raising=False)
+    monkeypatch.setattr(ga, "COUNTS", collections.Counter())  # leave the registry's as it was
+    kernel = ga._Kernel()
+    b, R, H, n, d = 2, 3, 4, 5, 8
+    x = (torch.zeros(b, R, H, d), torch.zeros(b, n, H, d), torch.zeros(b, n, H, d),
+         torch.zeros(b, R, 1, n))
+    with torch.no_grad():
+        assert kernel(*x).shape == (b, R, H, d)
+        out, rowmax = kernel(*x, save_max=True)
+        assert rowmax.shape == (b, R)
+        assert kernel(*x, True, save_max=True)[1] is None  # v1: its own max per head
+    assert [c[5] is None for c in calls] == [True, False, True]
+    assert [c[7] for c in calls] == [0, 0, 1]

@@ -1,7 +1,8 @@
 """The port's fused implicit attention (B1) on the CPU, where it runs its plain
 PyTorch version, against the JAX package: the Pallas kernel in interpret mode
 (`fused_implicit_graph_attention(..., interpret=True)`) and the layer's jnp
-path (`graph_attention_apply(impl="jnp")`).
+path (`graph_attention_apply(impl="jnp")`); and, without a card, the
+wrapper's hold on a sliced key mask (its row stride, no copy).
 
 Shapes: b=4, R=16, H=4, dh=o=24, n=10, P=64. Tolerances: 1e-5 against the
 interpret kernel, which computes the same function in the same f32 steps.
@@ -27,6 +28,8 @@ from tf_vqa_regat_tpu.ops.graph_attention import (
 from tf_vqa_regat_tpu.ops.pallas import implicit_attention as jia
 from tf_vqa_regat_tpu.ops.position import position_matrix
 from tf_vqa_regat_tpu_torch.ops.graph_attention import GraphSelfAttention
+from tf_vqa_regat_tpu_torch.ops.kernels import build
+from tf_vqa_regat_tpu_torch.ops.kernels import implicit_attention as ia
 from tf_vqa_regat_tpu_torch.ops.kernels.implicit_attention import (
     fused_implicit_graph_attention,
 )
@@ -156,3 +159,26 @@ def test_no_fallback_off_the_cpu():
         fused_implicit_graph_attention(
             x["q"], x["k"], x["vw"], x["pos_mat"], x["w_pos"], x["b_pos"], x["key_mask"]
         )
+
+
+def test_a_sliced_key_mask_is_read_through_its_row_stride(monkeypatch):
+    """The model passes roi_mask[:, :n], a slice of a wider mask: the launch
+    takes its row stride and copies nothing; a mask whose keys are not
+    contiguous is refused before any build."""
+
+    def built(*_):
+        raise RuntimeError("built")
+
+    monkeypatch.setattr(build, "build", built)
+    monkeypatch.setattr(build, "load", built)
+    monkeypatch.setattr(ia.LIB, "_handle", None)
+    b, R, n, H, P = 2, 3, 20, 16, 64
+    args = (torch.zeros(b, R, H, 64), torch.zeros(b, n, H, 64), torch.zeros(b, n, H, 64),
+            torch.zeros(b, R, n, 4), torch.zeros(P, H), torch.zeros(H))
+    wide = torch.ones(b, 100, dtype=torch.bool)
+    kernel = ia._Kernel()
+    with torch.no_grad(), pytest.raises(RuntimeError, match="built"):
+        kernel(*args, wide[:, :n], 0.0, None)
+    assert [a.sm for a in kernel._launch_args.values()] == [100]
+    with torch.no_grad(), pytest.raises(ValueError, match="keys must be contiguous"):
+        kernel(*args, wide[:, ::5], 0.0, None)

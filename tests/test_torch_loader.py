@@ -43,6 +43,7 @@ from tf_vqa_regat_tpu_torch.data.features import load_vqa_dataset
 from tf_vqa_regat_tpu_torch.data.loader import BatchLoader, prefetch_to_device, widen_features
 from tf_vqa_regat_tpu_torch.data.store import DeviceStore, gather_batch
 from tf_vqa_regat_tpu_torch.data.synthetic import make_dictionary, write_dataset
+from tf_vqa_regat_tpu_torch.ops.kernels import build
 
 # small CPU ops run fastest on one thread, and the suite runs several
 # workers on the same cores
@@ -134,9 +135,9 @@ def test_gather_refuses_what_it_cannot_take():
 
 
 def test_native_library_is_named_by_its_source():
-    so = native.library_path()
-    assert so.parent == native.BUILD_DIR and so.name.startswith("libpack-")
-    native.lib()
+    so = build.library_path(native.SOURCE)
+    assert so.parent == build.BUILD_DIR and so.name.startswith("libpack-")
+    native.LIB.load()
     assert so.exists()
 
 

@@ -14,7 +14,7 @@ debugging (train/debug_nans.py), through `run_training` at tiny widths:
   complete on disk; a clean --debug_nans run gives the per-epoch metrics of
   a run without the flag exactly (both eager on the CPU), and logs why its
   steps run eagerly;
-- the phase marks (train/profiling.py::mark) of an eager train step, in
+- the phase marks (ops/kernels/marks.py::mark) of an eager train step, in
   order, for B1 (butd), B2 (spatial) and --grad_accum 2; none in an eval
   step; csrc/marks.cu's kernels are the module's marks, none named like B1
   or B2;
@@ -42,7 +42,7 @@ from tf_vqa_regat_tpu_torch.config import Config
 from tf_vqa_regat_tpu_torch.data.store import DeviceStore
 from tf_vqa_regat_tpu_torch.data.synthetic import synthetic_dataset
 from tf_vqa_regat_tpu_torch.models.regat import ReGAT, trainable_mask
-from tf_vqa_regat_tpu_torch.ops.kernels import build
+from tf_vqa_regat_tpu_torch.ops.kernels import build, marks
 from tf_vqa_regat_tpu_torch.params import load_npz
 from tf_vqa_regat_tpu_torch.train import checkpoint as ckpt
 from tf_vqa_regat_tpu_torch.train import profiling
@@ -241,7 +241,7 @@ def test_train_step_marks_its_phases_in_order(tmp_path, relation_type, grad_accu
     model, store, steps = _steps_on(cfg, train)
     assert len(model.v_relation.gatt.neighbor) == 2
     idx = next(store.epoch_indices(0, cfg.batch_size, True, cfg.seed))
-    with profiling.recording() as names:
+    with marks.recording() as names:
         m = steps.block(cfg.num_rois, idx[None, :], 1)
     kernel = "b1" if relation_type == "implicit" else "b2"
     pair = [f"{kernel}_backward_begin", f"{kernel}_backward_end"]
@@ -256,12 +256,12 @@ def test_eval_steps_and_no_recording_mark_nothing(tmp_path):
     model = ReGAT(cfg, train.ntoken, V_DIM, NUM_ANS)
     store = DeviceStore(val, CPU, include_adj=False)
     blk = next(store.epoch_indices(0, 8, False, cfg.seed))[None, :]
-    with profiling.recording() as names:
+    with marks.recording() as names:
         EvalSteps(model, CPU, store).block(cfg.num_rois, blk)
     assert names == []
-    profiling.mark("gather", CPU)  # outside a recording: nothing, no error
+    marks.mark("gather", CPU)  # outside a recording: nothing, no error
     with pytest.raises(ValueError, match="no phase mark"):
-        profiling.mark("gahter", CPU)
+        marks.mark("gahter", CPU)
 
 
 def test_mark_kernels_are_the_modules_marks():
@@ -269,10 +269,10 @@ def test_mark_kernels_are_the_modules_marks():
     and no mark's kernel matches the benchmark's B1 or B2 kernel tests."""
     source = (build.CSRC_DIR / "marks.cu").read_text()
     declared = re.findall(r"__global__ void (regat_mark_\w+)\(\)", source)
-    assert declared == [profiling.MARK_PREFIX + n for n in profiling.MARKS]
+    assert declared == [marks.MARK_PREFIX + n for n in marks.MARKS]
     listed = re.search(r"kNames\[\] = \{(.*?)\};", source, re.S).group(1)
-    assert re.findall(r'"(\w+)"', listed) == list(profiling.KERNELS)
-    assert profiling.KERNELS[:len(declared)] == tuple(declared)
+    assert re.findall(r'"(\w+)"', listed) == list(marks.KERNELS)
+    assert marks.KERNELS[:len(declared)] == tuple(declared)
     for name in declared:
         assert not (kernels.is_b1_train(name) or kernels.is_b1_eval(name)
                     or kernels.is_b2(name))
@@ -305,7 +305,7 @@ def test_setup_line_and_upload_span_in_a_run(tmp_path):
     assert names.count("upload") == 4 and names.count("step") == 4
 
 
-P = profiling.MARK_PREFIX
+P = marks.MARK_PREFIX
 # two marked steps in one train pass [0, 1000): (name, start, end) in ns. In
 # step 1 two kernels of `forward` overlap ([12, 30) and [20, 40): 28 ns busy);
 # step 2 has a B1 pair in each direction and an idle gap inside `backward`

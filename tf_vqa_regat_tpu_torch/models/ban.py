@@ -31,12 +31,13 @@ sequence. The joint embedding is that sequence summed over tokens.
   batched product with v_ ([b, R, g*T], read as [b, g, R, T]), never a
   [b, g, R, 3h] tensor; a glimpse's pooling is att[:, g] @ q1 ([b, R, h]),
   then v1 times that, summed over the rois.
-- Tracing (train/profiling.py): the span marks `ban_forward_begin` /
+- Tracing (ops/kernels/marks.py): the span marks `ban_forward_begin` /
   `_end` bracket the forward on the device's clock, in train and eval
   steps alike; under autograd, `ban_backward_begin` / `_end` are launched
   from identity functions at the outputs and the inputs, so they bracket
-  the module's backward nodes. `profiling.BAN_CALLS` counts the forward
-  calls, train and eval apart (replay-aware, train/graphs.py).
+  the module's backward nodes. `CALLS` counts the forward calls under
+  "train" and "eval" (a counter of ops/kernels/launch.py, so
+  train/graphs.py keeps it replay-aware).
 """
 
 from __future__ import annotations
@@ -48,9 +49,11 @@ from torch import nn
 
 from tf_vqa_regat_tpu_torch.nn import dropout
 from tf_vqa_regat_tpu_torch.ops.weight_norm import FCNet, wn_scale
-from tf_vqa_regat_tpu_torch.train.profiling import BAN_CALLS, mark
+from tf_vqa_regat_tpu_torch.ops.kernels import launch
+from tf_vqa_regat_tpu_torch.ops.kernels.marks import mark
 
 K = 3  # bilinear rank multiplier of the attention maps (BCNet's k=3)
+CALLS = launch.counter("ban")
 
 
 class WNTensor(nn.Module):
@@ -134,7 +137,7 @@ class BAN(nn.Module):
         cd = self.dtype
         device = visual.device
         mark("ban_forward_begin", device)
-        BAN_CALLS.add(self.training)
+        CALLS["train" if self.training else "eval"] += 1
         # the backward marks need a backward that reaches the inputs
         bracket = torch.is_grad_enabled() and (visual.requires_grad or q_seq.requires_grad)
         if bracket:

@@ -1,11 +1,13 @@
-"""Build a CUDA source of this package into a shared library and load it.
+"""Build a C source of this package into a shared library and load it.
 
-Each `.cu` file under `tf_vqa_regat_tpu_torch/csrc/` has a plain C interface
-(no PyTorch headers), so `nvcc` builds it in seconds. The library goes into
+Each source under `tf_vqa_regat_tpu_torch/csrc/` has a plain C interface (no
+PyTorch headers). Its suffix picks the compiler: nvcc builds a `.cu` file in
+seconds, g++ a `.cc` file. The library goes into
 `tf_vqa_regat_tpu_torch/_build/` (git-ignored), named by a hash of the source
 and the flags, so an edited source is rebuilt and a stale library is never
-loaded. The build runs at first use, inside the call that launches a kernel:
-nothing here runs at import time, and the CPU tests never reach it.
+loaded. The build runs at first use, inside the call that needs the library
+(launch.py's `Library.load`): nothing here runs at import time, and the CPU
+tests build only the host gather (`pack.cc`).
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ import ctypes
 import hashlib
 import os
 import subprocess
+import threading
 from pathlib import Path
 
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
@@ -27,6 +30,8 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
+CXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared", "-pthread")
+FLAGS = {".cu": NVCC_FLAGS, ".cc": CXX_FLAGS}
 
 
 def _nvcc() -> str:
@@ -41,24 +46,28 @@ def _nvcc() -> str:
 
 
 def library_path(source: Path) -> Path:
-    digest = hashlib.sha1(source.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha1(source.read_bytes() + " ".join(FLAGS[source.suffix]).encode())
     return BUILD_DIR / f"lib{source.stem}-{digest.hexdigest()[:16]}.so"
 
 
 def build(source: Path) -> Path:
-    """Compile `source` unless its library exists. The compiler's resource
-    report (`-Xptxas -v`: registers, shared memory, spills) is kept beside the
-    library as `.log`."""
+    """Compile `source` unless its library exists. The compiler's report
+    (for nvcc `-Xptxas -v`: registers, shared memory, spills) is kept beside
+    the library as `.log`."""
     so = library_path(source)
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    tmp = so.with_name(f"{so.name}.{os.getpid()}.{threading.get_ident()}.tmp")
+    compiler = _nvcc() if source.suffix == ".cu" else "g++"
+    cmd = [compiler, *FLAGS[source.suffix], "-o", str(tmp), str(source)]
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+    except OSError as e:
+        raise RuntimeError(f"cannot run {compiler} for {source.name}: {e}") from e
     if proc.returncode != 0:
         raise RuntimeError(
-            f"nvcc failed ({proc.returncode}) on {source.name}:\n"
+            f"{os.path.basename(compiler)} failed ({proc.returncode}) on {source.name}:\n"
             f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
         )
     so.with_suffix(".log").write_text(proc.stdout + proc.stderr)

@@ -41,23 +41,27 @@ launches give equal bits).
 
 from __future__ import annotations
 
-import collections
 import ctypes
 import functools
 import math
-from typing import NamedTuple, Optional
+from typing import Optional
 
 import numpy as np
 import torch
 
 from tf_vqa_regat_tpu_torch.nn import drop_threshold
-from tf_vqa_regat_tpu_torch.ops.kernels import build
-from tf_vqa_regat_tpu_torch.ops.kernels import graph_attention as ga
-from tf_vqa_regat_tpu_torch.train.profiling import mark
+from tf_vqa_regat_tpu_torch.ops.kernels import build, launch
+from tf_vqa_regat_tpu_torch.ops.kernels.launch import SMEM_LIMIT, BackwardPlan, TilingPlan, up4
+from tf_vqa_regat_tpu_torch.ops.kernels.marks import mark
 
 NEG_INF = -9e15  # additive key mask (reference graph_att_layer.py:95)
 SOURCE = build.CSRC_DIR / "implicit_attention.cu"
-MAX_HEADS = 16  # the kernel's kMaxHeads: pos-FC sums a thread keeps in registers
+# The kernel's constants (the source's kGroups, kTile, kMaxHeads): thread
+# groups per block (each with its own tile buffers), query rows per tile,
+# and the pos-FC sums a thread keeps in registers.
+GROUPS = 2
+TILE = 5
+MAX_HEADS = 16
 
 # The backward kernel's constants (the source's kBwd*): threads per block,
 # query rows per tile, and at most: heads per block, keys per thread in the
@@ -180,10 +184,6 @@ def implicit_attention_backward(g, q, k, vw, pos_mat, w_pos, mrow, keep, inv_kee
     return dq, dk, dvw, dw_pos, db_pos
 
 
-def _up4(x: int) -> int:
-    return -(-x // 4) * 4
-
-
 def smem_bytes(H: int, dh: int, n: int, o: int, P: int) -> int:
     """Shared memory of one block (the kernel's `Layout`): K [H, n, dh] (B2
     pads its rows to dh+4; B1 rotates them instead) and VW [nP, H, o]; the
@@ -192,17 +192,17 @@ def smem_bytes(H: int, dh: int, n: int, o: int, P: int) -> int:
     row [nP]; and per group a q tile [TILE, H, dh+4], the bias / weights
     [TILE, H, nP] and the row maxima [TILE] (rounded up to 4), in f32
     words; nP = n rounded up to 4."""
-    nP, dP = _up4(n), dh + 4
-    group = ga.TILE * H * dP + ga.TILE * H * nP + _up4(ga.TILE)
-    return 4 * (H * n * dh + nP * H * o + 2 * P * H + 16 + _up4(H) + P + nP
-                + ga.GROUPS * group)
+    nP, dP = up4(n), dh + 4
+    group = TILE * H * dP + TILE * H * nP + up4(TILE)
+    return 4 * (H * n * dh + nP * H * o + 2 * P * H + 16 + up4(H) + P + nP
+                + GROUPS * group)
 
 
-def tiling_plan(b: int, R: int, n: int, H: int, dh: int, o: int, P: int) -> ga.TilingPlan:
+def tiling_plan(b: int, R: int, n: int, H: int, dh: int, o: int, P: int) -> TilingPlan:
     """The launch's plan for q [b, R, H, dh], k [b, n, H, dh], vw [b, n, H, o]
-    and a pos-FC kernel [P, H]: B2's chunk rule (`ga.chunk_rows`), this
-    kernel's shared memory. Raises ValueError on a shape the kernel does not
-    take, before anything is built."""
+    and a pos-FC kernel [P, H]: the chunk rule B2 takes too
+    (`launch.chunk_rows`), this kernel's shared memory. Raises ValueError on
+    a shape the kernel does not take, before anything is built."""
     if min(b, R, n, H, dh, o, P) < 1:
         raise ValueError(f"empty implicit attention: b={b} R={R} n={n} H={H} dh={dh} o={o} P={P}")
     if dh % 4 or o % 4:
@@ -216,24 +216,10 @@ def tiling_plan(b: int, R: int, n: int, H: int, dh: int, o: int, P: int) -> ga.T
         raise ValueError(f"{H} heads: the kernel keeps up to {MAX_HEADS} pos-FC sums per "
                          "thread and reads them 4 at a time")
     smem = smem_bytes(H, dh, n, o, P)
-    if smem > ga.SMEM_LIMIT:
+    if smem > SMEM_LIMIT:
         raise ValueError(f"H={H}, dh={dh}, n={n}, o={o}, P={P} need {smem} B of shared memory "
-                         f"per block, over the {ga.SMEM_LIMIT} B a block may use")
-    rows = ga.chunk_rows(b, R)
-    return ga.TilingPlan(rows, (-(-R // rows), b), smem)
-
-
-class BackwardPlan(NamedTuple):
-    """How one backward launch cuts the work: a block per (example, group of
-    `heads` heads, chunk of `rows` query rows), a grid of `grid` = (head
-    groups x `chunks`, b) blocks, and the dynamic shared memory each block
-    takes."""
-
-    heads: int
-    rows: int
-    chunks: int
-    grid: tuple[int, int]
-    smem_bytes: int
+                         f"per block, over the {SMEM_LIMIT} B a block may use")
+    return launch.tiling(b, R, smem)
 
 
 def bwd_smem_bytes(hb: int, dh: int, n: int, P: int) -> int:
@@ -245,9 +231,9 @@ def bwd_smem_bytes(hb: int, dh: int, n: int, P: int) -> int:
     nP], the denominators and sums [TILE, hb] (each rounded up to 4) and dpwr
     in f64 [TILE, nP, hb]; in f32 words, or the warps' f64 dW_pos sums
     [warps, P + 1, hb] written over them at the end, whichever is larger."""
-    nP, dP, T = _up4(n), dh + 4, BWD_TILE
+    nP, dP, T = up4(n), dh + 4, BWD_TILE
     buf = 2 * T * hb * dP + T * hb * nP + T * n * 4 + T * n * P // 4 + T
-    total = (2 * hb * n * dP + nP + P + 2 * buf + 2 * T * hb * nP + 2 * _up4(T * hb)
+    total = (2 * hb * n * dP + nP + P + 2 * buf + 2 * T * hb * nP + 2 * up4(T * hb)
              + 2 * T * nP * hb)
     return 4 * max(total, 2 * (BWD_THREADS // 32) * (P + 1) * hb)
 
@@ -262,7 +248,7 @@ def _bwd_fits(hb: int, n: int, dh: int, P: int) -> bool:
         return False
     return (-(-BWD_TILE // (BWD_THREADS // qc)) <= BWD_MAX_ROWS_D
             and -(-n // (BWD_THREADS // 2 // qc)) <= BWD_MAX_KEYS
-            and bwd_smem_bytes(hb, dh, n, P) <= ga.SMEM_LIMIT)
+            and bwd_smem_bytes(hb, dh, n, P) <= SMEM_LIMIT)
 
 
 def backward_plan(b: int, R: int, n: int, H: int, dh: int, o: int, P: int) -> BackwardPlan:
@@ -270,9 +256,9 @@ def backward_plan(b: int, R: int, n: int, H: int, dh: int, o: int, P: int) -> Ba
     [b, n, H, o] and P embedding lanes. Heads per block: those of a
     specialised instance (BWD_SPECIALISED) at (n, dh, P) that divides H,
     else the most of 8, 4, 2 and 1 that divides H and fits (`_bwd_fits`).
-    Rows per block: B2's rule (`ga.backward_chunks`, one block per SM, the
-    staging and the dW_pos sums counted as one more tile; the whole example
-    at b >= 64, R=100). Raises ValueError on a shape the kernel does not
+    Rows per block: the rule B2 takes too (`launch.backward_chunks`, one
+    block per SM, the staging and the dW_pos sums counted as one more tile;
+    the whole example at b >= 64, R=100). Raises ValueError on a shape the kernel does not
     take, before anything is built."""
     if min(b, R, n, H, dh, o, P) < 1:
         raise ValueError(f"empty implicit attention: b={b} R={R} n={n} H={H} dh={dh} o={o} P={P}")
@@ -286,30 +272,12 @@ def backward_plan(b: int, R: int, n: int, H: int, dh: int, o: int, P: int) -> Ba
         raise ValueError(f"pos embedding width {P}: the backward's dW_pos products take 16 "
                          f"lanes a set of warps, at most one set a warp, so P must be a "
                          f"multiple of 16 and at most {BWD_THREADS // 2}")
-    hb = next((i[0] for i in BWD_SPECIALISED if i[1:] == (n, dh, P) and H % i[0] == 0), None)
-    if hb is None:
-        hb = next((h for h in (8, 4, 2, 1) if H % h == 0 and _bwd_fits(h, n, dh, P)), None)
+    hb = launch.heads_per_block(H, (n, dh, P), BWD_SPECIALISED, _bwd_fits)
     if hb is None:
         raise ValueError(f"n={n}, dh={dh}, P={P}: no backward block of 1 head fits (at most "
                          f"{BWD_MAX_ROWS_D} dq rows and {BWD_MAX_KEYS} dK / dVW keys a thread, "
-                         f"{BWD_THREADS} keys a block, {ga.SMEM_LIMIT} B of shared memory)")
-    groups = H // hb
-    per_chunk, chunks = ga.backward_chunks(b, R, groups, BWD_TILE, 1)
-    return BackwardPlan(hb, per_chunk * BWD_TILE, chunks, (groups * chunks, b),
-                        bwd_smem_bytes(hb, dh, n, P))
-
-
-def _check_tensors(dev, items) -> None:
-    """Raise unless each (name, tensor or None, dtype, alignment) is that
-    dtype on `dev`, contiguous and aligned to that many bytes."""
-    for name, t, dtype, align in items:
-        if t is None:
-            continue
-        if t.device != dev or t.dtype != dtype:
-            raise ValueError(f"{name} is {t.dtype} on {t.device}, the kernel takes {dtype} "
-                             f"on {dev}")
-        if not t.is_contiguous() or t.data_ptr() % align:
-            raise ValueError(f"{name} must be contiguous and {align}-byte aligned")
+                         f"{BWD_THREADS} keys a block, {SMEM_LIMIT} B of shared memory)")
+    return launch.backward_tiling(b, R, H, hb, BWD_TILE, 1, bwd_smem_bytes(hb, dh, n, P))
 
 
 class _Launch(ctypes.Structure):
@@ -329,64 +297,36 @@ class _BwdLaunch(ctypes.Structure):
                 ("scale", ctypes.c_float)]
 
 
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+LIB = launch.Library(
+    SOURCE,
+    {"regat_implicit_attention_fwd": ([_P] * 9 + [_F] + [_P] * 5, _I),
+     "regat_implicit_attention_smem_bytes": ([_I] * 5, ctypes.c_size_t),
+     "regat_implicit_attention_set_smem": ([_I], _I),
+     "regat_implicit_attention_bwd": ([_P] * 8 + [_F] + [_P] * 11, _I),
+     "regat_implicit_attention_bwd_smem_bytes": ([_I] * 4, ctypes.c_size_t),
+     "regat_implicit_attention_bwd_specialised": ([_I] * 4, _I),
+     "regat_implicit_attention_bwd_set_smem": ([_I] * 5, _I)},
+    # the backward plan's specialised instances are the source's, and the
+    # plans' shared memory the kernels'
+    specialised=("regat_implicit_attention_bwd_specialised", "(hb, n, dh, P)", BWD_SPECIALISED),
+    plans=(("tiling plan", smem_bytes, "regat_implicit_attention_smem_bytes",
+            ((16, 64, 20, 64, 64), (4, 8, 10, 12, 32), (12, 4, 1, 4, 96))),
+           ("backward plan", bwd_smem_bytes, "regat_implicit_attention_bwd_smem_bytes",
+            ((8, 64, 20, 64), (4, 128, 20, 64), (2, 36, 7, 32), (1, 4, 1, 96)))))
+# launches by (variant, query rows R): "eval" and "train" of the forward,
+# "backward" (one per train launch in training)
+COUNTS = launch.counter("b1")
+
+
 class _Kernel:
-    """The compiled kernels, built at first launch, and their launch counts:
-    `launches` of the eval variant, `train_launches` of the train variant,
-    both by query rows R in `launches_by_rows[("eval" | "train", R)]`, and
-    `backward_launches` of the backward (one per train launch in training).
-    Per-shape work (the checks of shapes, the tiling plans, the launches'
-    scalars, the shared-memory attributes per device) is done once and
-    cached."""
+    """The kernels' launches (counted in `COUNTS`). Per-shape work (the
+    checks of shapes, the tiling plans, the launches' scalars) is done once
+    and cached."""
 
     def __init__(self):
-        self.launches = 0
-        self.train_launches = 0
-        self.backward_launches = 0
-        self.launches_by_rows = collections.Counter()
-        self._lib = None
         self._launch_args = {}  # shapes and key-mask strides -> _Launch
         self._bwd_args = {}  # shapes -> _BwdLaunch
-        self._smem_set = {}  # device index -> dynamic shared memory allowed
-        self._bwd_smem_set = {}  # (device index, specialised instance or None) -> the same
-
-    def lib(self) -> ctypes.CDLL:
-        if self._lib is None:
-            lib = build.load(SOURCE)
-            p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-            lib.regat_implicit_attention_fwd.argtypes = [p] * 9 + [f] + [p] * 5
-            lib.regat_implicit_attention_fwd.restype = i
-            lib.regat_implicit_attention_smem_bytes.argtypes = [i] * 5
-            lib.regat_implicit_attention_smem_bytes.restype = ctypes.c_size_t
-            lib.regat_implicit_attention_set_smem.argtypes = [i]
-            lib.regat_implicit_attention_set_smem.restype = i
-            lib.regat_implicit_attention_bwd.argtypes = [p] * 8 + [f] + [p] * 11
-            lib.regat_implicit_attention_bwd.restype = i
-            lib.regat_implicit_attention_bwd_smem_bytes.argtypes = [i] * 4
-            lib.regat_implicit_attention_bwd_smem_bytes.restype = ctypes.c_size_t
-            lib.regat_implicit_attention_bwd_specialised.argtypes = [i] * 4
-            lib.regat_implicit_attention_bwd_specialised.restype = i
-            lib.regat_implicit_attention_bwd_set_smem.argtypes = [i] * 5
-            lib.regat_implicit_attention_bwd_set_smem.restype = i
-            # the backward plan's specialised instances are the source's
-            for hb, n, dh, P in BWD_SPECIALISED:
-                if not lib.regat_implicit_attention_bwd_specialised(hb, n, dh, P):
-                    raise RuntimeError(f"the backward kernel has no specialised instance for "
-                                       f"(hb, n, dh, P) = {(hb, n, dh, P)}, which "
-                                       "backward_plan chooses")
-            # the plans' shared memory must be the kernels'
-            for what, plan, kernel, shapes in (
-                ("tiling plan", smem_bytes, lib.regat_implicit_attention_smem_bytes,
-                 ((16, 64, 20, 64, 64), (4, 8, 10, 12, 32), (12, 4, 1, 4, 96))),
-                ("backward plan", bwd_smem_bytes, lib.regat_implicit_attention_bwd_smem_bytes,
-                 ((8, 64, 20, 64), (4, 128, 20, 64), (2, 36, 7, 32), (1, 4, 1, 96))),
-            ):
-                for shape in shapes:
-                    want = kernel(*shape)
-                    if plan(*shape) != want:
-                        raise RuntimeError(f"{what} and kernel disagree on shared memory "
-                                           f"for {shape}: {plan(*shape)} vs {want}")
-            self._lib = lib
-        return self._lib
 
     def _args(self, q, k, vw, pos_mat, w_pos, b_pos, key_mask, keep) -> _Launch:
         """The launch's scalars for these inputs, after the checks that depend
@@ -435,47 +375,26 @@ class _Kernel:
         keep, inv_keep = _keep(drop_rate, dropmask)
         args = self._args(q, k, vw, pos_mat, w_pos, b_pos, key_mask, keep)
         dev, f32 = q.device, torch.float32
-        # (name, tensor, dtype, alignment the kernel's vector reads need)
-        _check_tensors(dev, (
+        # (name, tensor, dtype, alignment the kernel's vector reads need; the
+        # key mask's layout is checked in `_args`)
+        launch.check_tensors(dev, (
             ("q", q, f32, 16), ("k", k, f32, 16), ("vw", vw, f32, 16),
             ("pos_mat", pos_mat, f32, 16), ("w_pos", w_pos, f32, 4), ("b_pos", b_pos, f32, 4),
-            ("dropmask", keep, torch.uint8, 4)))
-        if key_mask.device != dev or key_mask.dtype != torch.bool:  # layout: `_args`
-            raise ValueError(f"key_mask is {key_mask.dtype} on {key_mask.device}, the kernel "
-                             f"takes {torch.bool} on {dev}")
-        lib = self.lib()
-        if dev.index != torch.cuda.current_device():
-            with torch.cuda.device(dev):
-                return self(q, k, vw, pos_mat, w_pos, b_pos, key_mask, drop_rate, dropmask,
-                            save_pwr)
-        if self._smem_set.get(dev.index, 0) < args.smem:
-            err = lib.regat_implicit_attention_set_smem(args.smem)
-            if err != 0:
-                raise RuntimeError(f"implicit attention kernel: {args.smem} B of shared memory "
-                                   f"refused: CUDA error {err}")
-            self._smem_set[dev.index] = args.smem
+            ("dropmask", keep, torch.uint8, 4), ("key_mask", key_mask, torch.bool, None)))
         out = q.new_empty((args.b, args.R, args.H, args.o))
         pwr = q.new_empty((args.b, args.R, args.H, args.n)) if save_pwr else None
         rowmax = q.new_empty((args.b, args.R)) if save_pwr else None
-        err = lib.regat_implicit_attention_fwd(
+        LIB.launch(
+            "implicit attention kernel", "regat_implicit_attention_fwd", dev,
             q.data_ptr(), k.data_ptr(), vw.data_ptr(), pos_mat.data_ptr(), w_pos.data_ptr(),
             None if b_pos is None else b_pos.data_ptr(), key_mask.data_ptr(),
             _lane_frequencies_on(args.P, dev).data_ptr(),
             None if keep is None else keep.data_ptr(), inv_keep,
             out.data_ptr(), None if pwr is None else pwr.data_ptr(),
             None if rowmax is None else rowmax.data_ptr(), ctypes.addressof(args),
-            # the raw handle of the current stream (what `.cuda_stream` gives,
-            # without building a Stream object on every call)
-            torch._C._cuda_getCurrentRawStream(dev.index),
-        )
-        if err != 0:
-            raise RuntimeError(f"implicit attention kernel launch failed: CUDA error {err}")
-        self.launches_by_rows["train" if save_pwr else "eval", args.R] += 1
-        if save_pwr:
-            self.train_launches += 1
-            return out, pwr, rowmax
-        self.launches += 1
-        return out
+            smem=("regat_implicit_attention_set_smem", args.smem))
+        COUNTS["train" if save_pwr else "eval", args.R] += 1
+        return (out, pwr, rowmax) if save_pwr else out
 
     def _backward_args(self, g, q, k, vw, pos_mat, mrow, keep, pwr, rowmax, P) -> _BwdLaunch:
         """The backward launch's scalars for these inputs, after the checks
@@ -509,24 +428,10 @@ class _Kernel:
             raise ValueError("the backward kernel needs the train variant's row maxima")
         args = self._backward_args(g, q, k, vw, pos_mat, mrow, keep, pwr, rowmax, P)
         dev, f32 = q.device, torch.float32
-        _check_tensors(dev, (
+        launch.check_tensors(dev, (
             ("g", g, f32, 16), ("q", q, f32, 16), ("k", k, f32, 16), ("vw", vw, f32, 16),
             ("pos_mat", pos_mat, f32, 16), ("mrow", mrow, f32, 4), ("pwr", pwr, f32, 4),
             ("rowmax", rowmax, f32, 4), ("dropmask", keep, torch.uint8, 16)))
-        lib = self.lib()
-        if dev.index != torch.cuda.current_device():
-            with torch.cuda.device(dev):
-                return self.backward(g, q, k, vw, pos_mat, mrow, keep, inv_keep, pwr, rowmax, P)
-        instance = (args.hb, args.n, args.dh, args.P)
-        # the attribute is the kernel's: the general instance's serves every
-        # shape it runs, so it only grows
-        which = dev.index, instance if instance in BWD_SPECIALISED else None
-        if self._bwd_smem_set.get(which, 0) < args.smem:
-            err = lib.regat_implicit_attention_bwd_set_smem(*instance, args.smem)
-            if err != 0:
-                raise RuntimeError(f"implicit attention backward: {args.smem} B of shared "
-                                   f"memory refused: CUDA error {err}")
-            self._bwd_smem_set[which] = args.smem
         dq, dk, dvw = torch.empty_like(q), torch.empty_like(k), torch.empty_like(vw)
         dw_pos, db_pos = q.new_empty((P, args.H)), q.new_empty((args.H,))
         # the blocks' f64 sums of dW_pos and db_pos; with several row chunks
@@ -535,17 +440,16 @@ class _Kernel:
                            device=dev)
         ws_kv = (q.new_empty((2, args.chunks, args.b, args.n, args.H, args.dh))
                  if args.chunks > 1 else None)
-        err = lib.regat_implicit_attention_bwd(
+        LIB.launch(
+            "implicit attention backward", "regat_implicit_attention_bwd", dev,
             g.data_ptr(), q.data_ptr(), k.data_ptr(), vw.data_ptr(), pos_mat.data_ptr(),
             mrow.data_ptr(), _lane_frequencies_on(P, dev).data_ptr(),
             None if keep is None else keep.data_ptr(), inv_keep, pwr.data_ptr(),
             rowmax.data_ptr(), dq.data_ptr(), dk.data_ptr(), dvw.data_ptr(), dw_pos.data_ptr(),
             db_pos.data_ptr(), None if ws_kv is None else ws_kv.data_ptr(), ws_w.data_ptr(),
-            ctypes.addressof(args), torch._C._cuda_getCurrentRawStream(dev.index),
-        )
-        if err != 0:
-            raise RuntimeError(f"implicit attention backward launch failed: CUDA error {err}")
-        self.backward_launches += 1
+            ctypes.addressof(args), smem=("regat_implicit_attention_bwd_set_smem", args.smem),
+            instance=(args.hb, args.n, args.dh, args.P))
+        COUNTS["backward", args.R] += 1
         return dq, dk, dvw, dw_pos, db_pos
 
 
@@ -559,7 +463,7 @@ class ImplicitAttention(torch.autograd.Function):
     `implicit_attention_backward` on a CPU tensor. No gradient w.r.t. the
     position matrix, the key mask or the keep-mask. The backward is
     bracketed by the phase marks `b1_backward_begin` / `b1_backward_end`
-    (train/profiling.py)."""
+    (ops/kernels/marks.py)."""
 
     @staticmethod
     def forward(ctx, q, k, vw, pos_mat, w_pos, b_pos, key_mask, drop_rate, dropmask):

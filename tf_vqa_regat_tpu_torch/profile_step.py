@@ -20,7 +20,7 @@ Prints, per mode (graphed, eager): the capture's seconds (graphed), the
 step time on the host clock with and without the profiler, the device's
 busy time (the union of the device operations' intervals, so overlapping
 kernels count once) and idle share, the step's phases from its marks
-(train/profiling.py: gather, forward, backward with B1's and B2's
+(ops/kernels/marks.py: gather, forward, backward with B1's and B2's
 backward inside it, optimizer; device ms per step), kernels launched per
 step, the shares of B1 (both variants), B2 and the GEMMs, the peak device
 memory, and the kernels that took the most time. Flags it does not know go
@@ -47,9 +47,10 @@ from tf_vqa_regat_tpu_torch.data.loader import prefetch_to_device
 from tf_vqa_regat_tpu_torch.data.store import DeviceStore
 from tf_vqa_regat_tpu_torch.main import build_dataset
 from tf_vqa_regat_tpu_torch.models.regat import ReGAT, trainable_mask
+from tf_vqa_regat_tpu_torch.ops.kernels.marks import PAIRS, PHASES
 from tf_vqa_regat_tpu_torch.train.loop import check_grad_accum, host_loader
 from tf_vqa_regat_tpu_torch.train.optim import Adamax, make_lr_schedule
-from tf_vqa_regat_tpu_torch.train.profiling import PAIRS, PHASES, phase_ns, union_ns
+from tf_vqa_regat_tpu_torch.train.profiling import phase_ns, union_ns
 from tf_vqa_regat_tpu_torch.train.step import TrainSteps
 
 CONFIG = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),

@@ -36,10 +36,11 @@ What a replay keeps, and what the callers take care of:
 - Set-up. Each graph's warm-up and capture is a `capture` span; its host
   seconds (`capture_s`) add to train/profiling.py's `capture` total.
 - Launch counts. The kernel wrappers count in Python, which a replay does
-  not run: the counts a capture adds are taken back and added again at
-  every replay, so a count is the launches the card ran; a warm-up's
-  launches are not counted. BAN's forward calls
-  (`profiling.BAN_CALLS`) are kept the same way.
+  not run: every counter registered with ops/kernels/launch.py (the
+  kernels' launches, BAN's forward calls) is snapshotted before a warm-up,
+  set back after it and after the capture, and the capture's delta is
+  added at every replay, so a count is the launches the card ran; a
+  warm-up's launches are not counted.
 - Captures run in `thread_local` mode: the host path's copy thread and the
   background checkpoint writer go on using the card while a graph is
   captured on the main thread. No garbage collection runs during a
@@ -59,8 +60,7 @@ from typing import Any, Callable, Dict, Hashable, List, Optional, Sequence
 import numpy as np
 import torch
 
-from tf_vqa_regat_tpu_torch.ops.kernels import graph_attention as _ga
-from tf_vqa_regat_tpu_torch.ops.kernels import implicit_attention as _ia
+from tf_vqa_regat_tpu_torch.ops.kernels import launch
 from tf_vqa_regat_tpu_torch.train import profiling
 
 Inputs = Dict[str, torch.Tensor]
@@ -70,44 +70,24 @@ StepFn = Callable[[Hashable, Inputs, List[torch.Generator]], Any]
 # every cache a capture may not fill
 WARMUP_CALLS = 1
 
-# the wrappers' launch counters: (kernel, its plain integer counters)
-_COUNTERS = ((_ia.KERNEL, ("launches", "train_launches", "backward_launches")),
-             (_ga.KERNEL, ("launches", "per_head_launches", "backward_launches")))
-# every replay-aware count: the launch counters, then BAN's forward calls
-_ALL = _COUNTERS + ((profiling.BAN_CALLS, ("train_calls", "eval_calls")),)
-
-
-def _counts(counters=_ALL) -> list:
-    return [({n: getattr(k, n) for n in names},
-             collections.Counter(getattr(k, "launches_by_rows", ())))
-            for k, names in counters]
+# B1's and B2's counters as the benchmark reads them: per kernel, its
+# variants' totals under these names
+_VIEW = (("b1", {"eval": "launches", "train": "train_launches", "backward": "backward_launches"}),
+         ("b2", {"v2": "launches", "v1": "per_head_launches", "backward": "backward_launches"}))
 
 
 def launch_counts() -> list:
-    """Every kernel wrapper's launch counters, copied."""
-    return _counts(_COUNTERS)
-
-
-def _set_counts(counts: list) -> None:
-    for (kernel, _), (flat, rows) in zip(_ALL, counts):
-        for name, v in flat.items():
-            setattr(kernel, name, v)
-        if hasattr(kernel, "launches_by_rows"):
-            kernel.launches_by_rows.clear()
-            kernel.launches_by_rows.update(rows)
-
-
-def _count_delta(after: list, before: list) -> list:
-    return [({n: a[n] - b[n] for n in a}, ra - rb)
-            for (a, ra), (b, rb) in zip(after, before)]
-
-
-def _add_counts(delta: list) -> None:
-    for (kernel, _), (flat, rows) in zip(_ALL, delta):
-        for name, v in flat.items():
-            setattr(kernel, name, getattr(kernel, name) + v)
-        if hasattr(kernel, "launches_by_rows"):
-            kernel.launches_by_rows.update(rows)
+    """The harness's view of the launch counters (regat_bench/kernels.py):
+    for B1 and B2, (its launches by variant, under the names of `_VIEW`; its
+    forward launches by (variant, query rows R)), zeros for a kernel not
+    launched yet."""
+    out = []
+    for name, names in _VIEW:
+        c = launch.counter(name)
+        out.append(({key: sum(n for (v, _), n in c.items() if v == variant)
+                     for variant, key in names.items()},
+                    collections.Counter({k: n for k, n in c.items() if k[0] != "backward"})))
+    return out
 
 
 def to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -152,7 +132,7 @@ class _Graph:
         self.static = {k: v.detach().clone() for k, v in inputs.items()}
         self.generators = [torch.Generator(device=device) for _ in range(n_generators)]
         restore = keep() if keep is not None else None
-        before = _counts()
+        before = launch.counts()
         side = _capture_stream(device)
         side.wait_stream(torch.cuda.current_stream(device))
         with torch.cuda.stream(side):
@@ -161,7 +141,7 @@ class _Graph:
                     g.manual_seed(0)
                 fn(key, self.static, self.generators)
         torch.cuda.current_stream(device).wait_stream(side)
-        _set_counts(before)
+        launch.set_counts(before)
         self.graph = torch.cuda.CUDAGraph()
         for g in self.generators:
             self.graph.register_generator_state(g)
@@ -182,8 +162,9 @@ class _Graph:
         finally:
             if enabled:
                 gc.enable()
-        self.delta = _count_delta(_counts(), before)
-        _set_counts(before)
+        self.delta = {name: c - before.get(name, collections.Counter())
+                      for name, c in launch.counts().items()}
+        launch.set_counts(before)
         if restore is not None:
             restore()
         torch.cuda.synchronize(device)
@@ -200,7 +181,7 @@ class _Graph:
         for g, s in zip(self.generators, seeds):
             g.manual_seed(s)
         self.graph.replay()
-        _add_counts(self.delta)
+        launch.add_counts(self.delta)
         return self.out
 
 

@@ -15,8 +15,6 @@ tf_vqa_regat_tpu/train/profiling.py):
   it and flagged as a user annotation: a reader of device intervals leaves
   such events out (profile_step.py does), or it counts the mirror as
   device work.
-- `mark(name, device)`: a phase mark inside a train step, on the device's
-  clock, or one of a block's span marks (below).
 - `timed(name)`: a span that also adds its host seconds to a process-wide
   set-up total, `setup_seconds()`: `init` (ReGAT's construction), `upload`
   (a device store's tables), `capture` (a graph's warm-up and capture,
@@ -33,31 +31,11 @@ tf_vqa_regat_tpu/train/profiling.py):
   request that finds an epoch trace running (--profile_dir) is answered
   409, one that no step boundary reaches before training ends 503.
 
-Phase marks. A train step is one CUDA graph replay, and a host range
-inside it runs at capture only. A mark is an empty kernel
-(`csrc/marks.cu`, one per name, `regat_mark_<name>`) launched <<<1, 1>>> on
-the current stream, so a capture takes it into the graph and every replay
-runs it; the profiler records it beside the step's other kernels. Every
-train step, graphed or eager, marks `gather` (before the batch's gather),
-then per microbatch `forward` and `backward`, then under a process group
-`reduce` (before the gradient sums are written for the all-reduce), then
-`optimizer` (before the clip and Adamax update) and `end`. Inside
-`backward`, each B1 or B2 backward is bracketed by `b1_backward_begin` /
-`b1_backward_end` (`b2_...`). A phase's device time is the device work
-between its mark and the next boundary mark (`phase_ns`). Eval steps are
-not marked. Off CUDA a mark launches nothing; inside `recording()` its
-name is appended to the list it yields (the CPU tests' view of the
-order).
-
-Span marks. A block that one configuration alone runs brackets its own
-work with span marks, launched by `mark` from the same table as kernels
-named `regat_span_<name>`: BAN's forward (`ban_forward_begin` / `_end`, in
-train and eval steps) and its backward (`ban_backward_begin` / `_end`,
-models/ban.py). Their prefix is not the phase marks', so a reader that
-parses a step's phase marks passes over them. `BAN_CALLS` counts BAN's
-forward calls, train and eval apart; train/graphs.py keeps the count
-replay-aware, as it keeps the kernels' launch counts, and
-`setup_line(ban=True)` prints it.
+Phase marks and span marks (`mark`, `recording`, the marks' names) live
+in ops/kernels/marks.py, beside the kernels they launch; `phase_ns` here
+reads a traced stretch of marked steps. BAN's forward calls are counted in
+models/ban.py (`CALLS`, replay-aware through train/graphs.py), and
+`setup_line(ban=True)` prints them.
 
 A CUDA-graphed step appears in a trace as a graph launch and its kernels;
 the profiler changes nothing that runs (no step leaves its graph).
@@ -66,7 +44,6 @@ the profiler changes nothing that runs (no step leaves its graph).
 from __future__ import annotations
 
 import contextlib
-import ctypes
 import json
 import os
 import queue
@@ -78,7 +55,8 @@ from typing import Dict, Iterable, Iterator, List, Optional, Sequence, Tuple
 
 import torch
 
-from tf_vqa_regat_tpu_torch.ops.kernels import build
+from tf_vqa_regat_tpu_torch.ops.kernels import launch
+from tf_vqa_regat_tpu_torch.ops.kernels.marks import BOUNDARIES, MARK_PREFIX, PAIRS, PHASES
 from tf_vqa_regat_tpu_torch.parallel import distributed
 
 
@@ -162,23 +140,6 @@ def setup_calls() -> Dict[str, int]:
     return {name: int(total[1]) for name, total in _SETUP.items()}
 
 
-class ForwardCalls:
-    """A block's forward calls, train and eval apart (module docstring)."""
-
-    def __init__(self):
-        self.train_calls = 0
-        self.eval_calls = 0
-
-    def add(self, training: bool) -> None:
-        if training:
-            self.train_calls += 1
-        else:
-            self.eval_calls += 1
-
-
-BAN_CALLS = ForwardCalls()
-
-
 def setup_line(ban: bool = False) -> str:
     """The operator's reading of the set-up totals; with `ban`, and BAN's
     forward calls so far."""
@@ -187,81 +148,9 @@ def setup_line(ban: bool = False) -> str:
             f"{s.get('upload', 0.0):.3f} s, warm-up and capture {s.get('capture', 0.0):.3f} s "
             f"({n.get('capture', 0)} graphs)")
     if ban:
-        line += (f"; BAN forward calls: train {BAN_CALLS.train_calls}, "
-                 f"eval {BAN_CALLS.eval_calls}")
+        calls = launch.counter("ban")
+        line += f"; BAN forward calls: train {calls['train']}, eval {calls['eval']}"
     return line
-
-
-# ---- phase marks -------------------------------------------------------------
-
-# in csrc/marks.cu's order (checked when it loads)
-MARKS = ("gather", "forward", "backward", "reduce", "optimizer", "end",
-         "b1_backward_begin", "b1_backward_end", "b2_backward_begin", "b2_backward_end")
-MARK_PREFIX = "regat_mark_"
-# the marks that end one phase and open the next, and the phases they open
-BOUNDARIES = ("gather", "forward", "backward", "reduce", "optimizer", "end")
-PHASES = BOUNDARIES[:-1]
-# the bracketed spans inside `backward`
-PAIRS = ("b1_backward", "b2_backward")
-# the span marks (module docstring)
-SPAN_MARKS = ("ban_forward_begin", "ban_forward_end", "ban_backward_begin", "ban_backward_end")
-SPAN_PREFIX = "regat_span_"
-# every mark's kernel, in csrc/marks.cu's order (checked when it loads)
-KERNELS = (tuple(MARK_PREFIX + n for n in MARKS)
-           + tuple(SPAN_PREFIX + n for n in SPAN_MARKS))
-_INDEX = {name: i for i, name in enumerate(MARKS + SPAN_MARKS)}
-_LIB: List[ctypes.CDLL] = []
-_RECORDING: List[List[str]] = []
-
-
-def _lib() -> ctypes.CDLL:
-    """The marks' library, built at first use."""
-    if not _LIB:
-        lib = build.load(build.CSRC_DIR / "marks.cu")
-        lib.regat_mark.argtypes = [ctypes.c_int, ctypes.c_void_p]
-        lib.regat_mark.restype = ctypes.c_int
-        lib.regat_mark_count.restype = ctypes.c_int
-        lib.regat_mark_name.argtypes = [ctypes.c_int]
-        lib.regat_mark_name.restype = ctypes.c_char_p
-        names = tuple(lib.regat_mark_name(i).decode() for i in range(lib.regat_mark_count()))
-        if names != KERNELS:
-            raise RuntimeError(f"csrc/marks.cu has the marks {names}, this module {KERNELS}")
-        _LIB.append(lib)
-    return _LIB[0]
-
-
-def mark(name: str, device: torch.device) -> None:
-    """Phase mark or span mark `name` (one of MARKS or SPAN_MARKS) on
-    `device`'s current stream: a kernel on CUDA (captured into a graph being
-    captured), else nothing but its name in the lists of the open
-    `recording()`s."""
-    i = _INDEX.get(name)
-    if i is None:
-        raise ValueError(f"no phase mark or span mark {name!r}; the marks are "
-                         f"{MARKS + SPAN_MARKS}")
-    device = torch.device(device)
-    if device.type != "cuda":
-        for names in _RECORDING:
-            names.append(name)
-        return
-    index = torch.cuda.current_device() if device.index is None else device.index
-    if index != torch.cuda.current_device():
-        with torch.cuda.device(index):
-            return mark(name, device)
-    err = _lib().regat_mark(i, torch._C._cuda_getCurrentRawStream(index))
-    if err != 0:
-        raise RuntimeError(f"mark {name}: launch failed, CUDA error {err}")
-
-
-@contextlib.contextmanager
-def recording() -> Iterator[List[str]]:
-    """The names of the marks made off CUDA while it is open, in order."""
-    names: List[str] = []
-    _RECORDING.append(names)
-    try:
-        yield names
-    finally:
-        _RECORDING.remove(names)
 
 
 Op = Tuple[str, int, int]  # name, start ns, end ns

@@ -44,7 +44,7 @@ forward pass gathers its rows over the data group (--ref_compat_q_att at
 dp > 1), and, under --debug_nans, the train steps and in-training eval
 passes (train/debug_nans.py).
 
-Phase marks (train/profiling.py::mark): every train step, graphed or
+Phase marks (ops/kernels/marks.py::mark): every train step, graphed or
 eager, marks `gather` before its batch's gather, `forward` and `backward`
 per microbatch, `reduce` before a process group's sums are written,
 `optimizer` before the clip and update and `end` after it; a capture takes
@@ -63,12 +63,13 @@ from tf_vqa_regat_tpu_torch.config import Config
 from tf_vqa_regat_tpu_torch.data.store import DeviceStore, gather_batch
 from tf_vqa_regat_tpu_torch.models.regat import ReGAT
 from tf_vqa_regat_tpu_torch.nn import step_generator, step_seed
+from tf_vqa_regat_tpu_torch.ops.kernels.marks import mark
 from tf_vqa_regat_tpu_torch.parallel import distributed
 from tf_vqa_regat_tpu_torch.parallel.mesh import Mesh, batch_slice
 from tf_vqa_regat_tpu_torch.train.graphs import StepGraphs, to_device
 from tf_vqa_regat_tpu_torch.train.loss import bce_with_logits_sum, vqa_score_sum
 from tf_vqa_regat_tpu_torch.train.optim import Adamax
-from tf_vqa_regat_tpu_torch.train.profiling import annotate, mark
+from tf_vqa_regat_tpu_torch.train.profiling import annotate
 
 Batch = Dict[str, torch.Tensor]
 
