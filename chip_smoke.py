@@ -319,11 +319,34 @@ Phases, each of which fails the run (non-zero exit, no result line):
      backward against autograd of the plain version. `--only 27` runs 5,
      6, 27, then 7 and 8-9 for the spatial family, alone, without a result
      line.
+ 28. Dropout's kernel (`ops/kernels/dropout.py`, `csrc/dropout.cu`): one
+     eager train step and one eval step of the benchmark's configurations
+     (butd, spatial, ban) at full width, b=256, recording every dropout
+     site's layout; per train step the kernel's forward launches must equal
+     the sites and its backward launches the sites whose input takes a
+     gradient, with none in eval. At every recorded layout (the strided key
+     input and the explicit label drop's transposed direction among them)
+     and at two tensor-parallel parts of the classifier's draw, in f32 and
+     bf16: nn.dropout's output and input gradient inside a CUDA graph
+     replayed at two seeds equal the parent's `torch.where` formulation on
+     the draw of the same seed bit for bit and in strides, each replay
+     adding one launch each way to the counter. Per layout, the kernel's forward and backward
+     times against the parent's chain (20 calls captured in one CUDA graph,
+     as a graphed step runs them; events around its replays, median of 15
+     rounds in turns) and its bound (9 B an element in f32, 5 in bf16, over
+     3.35 TB/s), and their sums over a train step's sites. `--only 28` runs
+     it alone, without a result line.
 Counts of launches are set to 0 just before each path of 8-13, 17-21 and
 23-25 (in each rank's process in 23 (b), 24 and 25 (b)) runs and read just after it; the comparison launches of 3-7, 14-16 and 22
 and of the plain-path comparisons do not count; B1's backward launches of
 those paths, the rank processes' included, must sum to their B1 train
-launches (one backward per train forward). Every step of 8-21 is a
+launches (one backward per train forward). Dropout's launches of a path
+that trained with dropout on must be, per train microbatch (2 B1 train or
+2 B2 backward launches), the dropout sites of its configuration forward
+and those whose input takes a gradient backward (an eager step of that
+configuration's model on 8 questions, recorded, gives the sites); every
+other path, eval, serve, predict and the ensemble among them, launches
+none. Every step of 8-21 is a
 CUDA graph replay, whose wrapper counts are added per replay (a capture's
 are taken back), so a count is the launches the card ran. Each phase prints its wall
 time. Phases 8-13 run at the configs' full widths and depths, as before.
@@ -332,13 +355,18 @@ times, and its bound on an H100 SXM: the larger of the bytes it must move
 over 3.35 TB/s and its f32 operations over 67 TFLOP/s, from this run's
 inputs; the entries named "... R=36" and "... R=64" hold phase 14's numbers
 and the launches at that R, the others phases 3-5's at R=100 (B2's
-backward 27's) and the launches at every R over the paths of 8-21) and, last, {"ok": true, "device": {...}}.
+backward 27's) and the launches at every R over the paths of 8-21; dropout's
+at the largest butd site, its launches over the paths, by direction, and
+phase 28's per train and eval step, and the largest difference phase 28
+measured)
+and, last, {"ok": true, "device": {...}}.
 It imports nothing of JAX and nothing of the JAX package (tf_vqa_regat_tpu).
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import importlib.util
 import json
@@ -516,6 +544,29 @@ def median_ms_interleaved(fns, reps=25, calls=10, warmup=3):
     return [statistics.median(t) for t in times]
 
 
+def median_graph_ms(fns, reps=15, calls=20):
+    """Per-call device time of each function as a graphed step pays it:
+    `calls` calls captured into one CUDA graph per function (after a
+    warm-up on the capture stream), CUDA events around each replay, median
+    over `reps` rounds, the functions taking turns round by round."""
+    import torch
+
+    side = torch.cuda.Stream()
+    graphs = []
+    for f in fns:
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for _ in range(3):
+                f()
+        torch.cuda.current_stream().wait_stream(side)
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            for _ in range(calls):
+                f()
+        graphs.append(g)
+    return median_ms_interleaved([g.replay for g in graphs], reps=reps, calls=1, warmup=1)
+
+
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
@@ -539,7 +590,7 @@ VARIANTS = {"b1": {"eval": "B1 eval", "train": "B1 train"},
 def reset_counts() -> None:
     from tf_vqa_regat_tpu_torch.ops.kernels import launch
 
-    for kernel in VARIANTS:
+    for kernel in (*VARIANTS, "dropout"):
         launch.counter(kernel).clear()
 
 
@@ -565,6 +616,16 @@ PATH_ROWS = []
 PATH_BACKWARD = []
 # B2's backward launches of the paths of 8-21 that train through B2
 PATH_B2_BACKWARD = []
+# the dropout launches of every path that reads its counts (read_path_counts)
+PATH_DROPOUT = []
+# (sites, sites whose input takes a gradient) of a train microbatch, by
+# configuration (dropout_sites), keyed by the fields that shape the model
+DROPOUT_SITES = {}
+DROPOUT_KEY = ("adaptive", "relation_type", "fusion", "op", "num_hid", "imp_pos_emb_dim",
+               "spa_label_num", "sem_label_num", "dir_num", "relation_dim", "nongt_dim",
+               "num_heads", "num_steps", "residual_connection", "label_bias", "dropout",
+               "ban_glimpse", "mutan_rank", "mutan_gamma", "mutan_shared_qdrop", "num_rois",
+               "compute_dtype", "fold_dual_attention", "ref_compat_q_att", "ref_compat_pos")
 # the split sizes of check_entry_point's last training run, and its train
 # batches that carried edge labels
 LAST_TRAIN = {}
@@ -592,13 +653,79 @@ def rank_launches(rec, label) -> dict:
     return rec["launches"]
 
 
-def read_path_counts() -> dict:
-    """counts() of the path that just ran; its launches by R go to PATH_ROWS
-    and its B1 backward launches to PATH_BACKWARD."""
+def dropout_sites(cfg) -> tuple:
+    """(the dropout sites one train microbatch of `cfg`'s model draws, those
+    whose input takes a gradient): one eager train step of the model at
+    cfg's widths on 8 synthetic questions, recorded by `recorded_dropouts`
+    and held to the kernel's launches; kept per configuration. Every
+    counter and the random state are as they were after it."""
+    import torch
+
+    from tf_vqa_regat_tpu_torch.data.store import DeviceStore, gather_batch
+    from tf_vqa_regat_tpu_torch.data.synthetic import synthetic_dataset
+    from tf_vqa_regat_tpu_torch.models.regat import ReGAT
+    from tf_vqa_regat_tpu_torch.ops.kernels import launch
+    from tf_vqa_regat_tpu_torch.train.step import train_forward
+
+    key = tuple(getattr(cfg, f) for f in DROPOUT_KEY)
+    if key in DROPOUT_SITES:
+        return DROPOUT_SITES[key]
+    device = torch.device("cuda")
+    saved, drops, sites = launch.counts(), launch.counter("dropout"), []
+    drops.clear()
+    try:
+        with torch.random.fork_rng(devices=[torch.cuda.current_device()]):
+            ds = synthetic_dataset(num_images=4, num_questions=8, v_dim=64, num_ans=16,
+                                   semantic=cfg.relation_type == "semantic",
+                                   adaptive=cfg.adaptive)
+            store = DeviceStore(ds, device)
+            idx = next(store.epoch_indices(0, 8, True, cfg.seed))
+            batch = gather_batch(store, torch.from_numpy(idx).to(device),
+                                 cfg.resolved_num_rois())
+            model = ReGAT(cfg, ds.ntoken, ds.v_dim, ds.num_ans).to(device)
+            with recorded_dropouts(sites):
+                loss, _ = train_forward(model, batch, 0, cfg.seed)
+                torch.autograd.grad(loss, list(model.parameters()))
+        got = (drops["forward"], drops["backward"])
+    finally:
+        launch.set_counts(saved)
+    want = (len(sites), sum(s["grad"] for s in sites))
+    if got != want:
+        fail(f"dropout: an eager step of {cfg.fusion}/{cfg.relation_type} launched {got} "
+             f"(forward, backward) for {want} sites (all, with a gradient)")
+    DROPOUT_SITES[key] = want
+    return want
+
+
+def dropout_launches() -> dict:
+    """The dropout kernel's launches since the last reset_counts()."""
+    from tf_vqa_regat_tpu_torch.ops.kernels import launch
+
+    return {k: launch.counter("dropout")[k] for k in ("forward", "backward")}
+
+
+def read_path_counts(cfg=None) -> dict:
+    """counts() of the path that just ran; its launches by R go to PATH_ROWS,
+    its B1 backward launches to PATH_BACKWARD, and its dropout launches,
+    held to the path's train microbatches, to PATH_DROPOUT. `cfg`: the
+    configuration the path trained, whose every microbatch (2 B1 train
+    launches, or 2 B2 backward launches) must launch the kernel forward at
+    each of its dropout sites and backward at each whose input takes a
+    gradient; without it the path trained nothing with dropout, and
+    launched none."""
     PATH_ROWS.append(rows_counts())
     PATH_BACKWARD.append(backward_launches("b1"))
     PATH_B2_BACKWARD.append(backward_launches("b2"))
-    return counts()
+    launches = counts()
+    got = dropout_launches()
+    micro = (launches["B1 train"] + PATH_B2_BACKWARD[-1]) // 2
+    sites, grads = (0, 0) if cfg is None else dropout_sites(cfg)
+    want = {"forward": sites * micro, "backward": grads * micro}
+    if got != want:
+        fail(f"dropout launches {got} for {micro} train microbatches of "
+             f"{sites} sites ({grads} with a gradient): want {want}")
+    PATH_DROPOUT.append(dict(got, microbatches=micro if sites else 0))
+    return launches
 
 
 @contextlib.contextmanager
@@ -1642,7 +1769,8 @@ def check_entry_point(tmp, smi, family, extra=(), config=None, data=None, fallin
     finally:
         port_main.run_training = real_run
     wall = time.perf_counter() - t0
-    launches = read_path_counts()
+    cfg = port_main.parse(argv + ["--mode", "train"])[0]
+    launches = read_path_counts(cfg)
     torch.cuda.synchronize()
     # the steps that replayed a graph captured before them
     step_ms = [ev[0].elapsed_time(ev[1]) for _, ev, _, _, cap in records if not cap]
@@ -1660,8 +1788,8 @@ def check_entry_point(tmp, smi, family, extra=(), config=None, data=None, fallin
           f"included); median step {statistics.median(step_ms)} ms (CUDA events, the "
           f"steps after the first, which captures) on {smi}, "
           f"TF32 off; losses {losses}; launches {json.dumps(launches)}; splits "
-          f"{json.dumps(LAST_TRAIN)}; last metrics {json.dumps(last)}", flush=True)
-    cfg = port_main.parse(argv + ["--mode", "train"])[0]
+          f"{json.dumps(LAST_TRAIN)}; last metrics {json.dumps(last)}; dropout launches "
+          f"{json.dumps(PATH_DROPOUT[-1])}", flush=True)
     if len(losses) != -(-sizes["train"] // cfg.batch_size):
         fail(f"{label} --mode train took {len(losses)} steps for {sizes['train']} questions")
     if not all(map(math.isfinite, losses)) or (falling and not losses[-1] < losses[0]):
@@ -1683,6 +1811,8 @@ def check_entry_point(tmp, smi, family, extra=(), config=None, data=None, fallin
     reset_counts()  # the eval path starts here
     score, loss = port_main.main(argv + ["--mode", "eval", "--checkpoint", path])
     eval_launches = counts()
+    if any(dropout_launches().values()):
+        fail(f"{label} --mode eval launched dropout: {dropout_launches()}")
     rel = abs(loss - last["eval_loss"]) / abs(last["eval_loss"])
     print(f"{label} --mode eval on {os.path.basename(path)}: score {score} loss {loss} vs "
           f"the training run's {last['eval_loss']} (rel {rel}); launches "
@@ -1903,9 +2033,10 @@ def preempted_then_resumed(out, flags):
     if any(f.endswith(".npz") for f in os.listdir(out)):
         fail("the preempted run wrote a final .npz")
     reset_counts()  # the resumed path starts here
+    argv = entry_argv("implicit", out, *flags, "--resume")
     with recorded_saves() as saves:
-        path = port_main.main(entry_argv("implicit", out, *flags, "--resume"))
-    launches = read_path_counts()
+        path = port_main.main(argv)
+    launches = read_path_counts(port_main.parse(argv)[0])
     if path is None:
         fail("the resumed run was preempted")
     return read_run(out), launches, saves
@@ -2104,10 +2235,10 @@ def check_ensemble(tmp, smi, npz, device):
 
     out = os.path.join(tmp, "ensemble")
     reset_counts()  # the member's training path starts here
-    member = port_main.main(entry_argv(
-        "semantic", os.path.join(out, "implicit"), "--relation_type", "implicit", "--mode",
-        "train", "--epochs", "1", "--synthetic_train_size", "1536"))
-    train_launches = read_path_counts()
+    argv = entry_argv("semantic", os.path.join(out, "implicit"), "--relation_type", "implicit",
+                      "--mode", "train", "--epochs", "1", "--synthetic_train_size", "1536")
+    member = port_main.main(argv)
+    train_launches = read_path_counts(port_main.parse(argv)[0])
     print(f"ensemble implicit member trained under semantic_vqa.json: {member}; launches "
           f"{json.dumps(train_launches)}", flush=True)
     cfg = full_width_config("semantic", ["--mode", "train"])
@@ -2575,7 +2706,7 @@ def check_grad_accum(device, smi, family, force_naive=False):
         with mutan_branches(force_naive) as branches:
             m = train_step(model, opt, batch, 0, cfg.seed, k)
             after[k] = {n: p.detach().clone() for n, p in model.named_parameters()}
-            launches = read_path_counts()
+            launches = read_path_counts(cfg)
             path_launches.append(launches)
             opt.step = real_step
             ms = []
@@ -2651,10 +2782,11 @@ def check_grad_accum_resume(tmp, smi):
              "--checkpoint_every_steps", "2", "--grad_accum", "2", "--train_block", "2"]
     reset_counts()  # the uninterrupted path starts here
     t0 = time.perf_counter()
-    if port_main.main(entry_argv("implicit", os.path.join(tmp, "a"), *flags)) is None:
+    argv = entry_argv("implicit", os.path.join(tmp, "a"), *flags)
+    if port_main.main(argv) is None:
         fail("the --grad_accum 2 run (a) was preempted")
     wall = time.perf_counter() - t0
-    launches_a = read_path_counts()
+    launches_a = read_path_counts(port_main.parse(argv)[0])
     uninterrupted = read_run(os.path.join(tmp, "a"))
     resumed, launches_c, _ = preempted_then_resumed(os.path.join(tmp, "b"), flags)
     diff, excess, metric, bits = run_distance(uninterrupted, resumed)
@@ -2712,7 +2844,7 @@ def check_bench_settings(tmp, smi, family, extra=()):
     with timed_steps() as records:
         path = port_main.main(argv + ["--mode", "train", "--epochs", "1"])
     rows = rows_counts()
-    launches = read_path_counts()
+    launches = read_path_counts(cfg)
     torch.cuda.synchronize()
     per_bucket = {R: [ev[0].elapsed_time(ev[1]) for r, ev, *_ in records if r == R]
                   for R in buckets}
@@ -3283,10 +3415,10 @@ def check_host_preemption(tmp_root, smi, host_out):
         fail(f"preempted host run left meta {meta}")
     alive = [t.name for t in threading.enumerate() if t.name == "regat-prefetch"]
     reset_counts()  # the resumed path starts here
-    if port_main.main(entry_argv("implicit", outs["host"], *flags, *HOST_FLAGS,
-                                 "--resume")) is None:
+    argv = entry_argv("implicit", outs["host"], *flags, *HOST_FLAGS, "--resume")
+    if port_main.main(argv) is None:
         fail("the resumed host run was preempted")
-    launches = read_path_counts()
+    launches = read_path_counts(port_main.parse(argv)[0])
     diff, excess, metric, bits = run_distance(read_run(host_out), read_run(outs["host"]))
     try:
         port_main.main(entry_argv("implicit", outs["device"], *flags, *HOST_FLAGS, "--resume"))
@@ -5003,6 +5135,281 @@ def run_phase_25(tmp_root, smi, device):
     return launches
 
 
+# the configurations of the benchmark's three cells, whose dropout sites phase
+# 28 holds to the parent's formulation
+DROPOUT_FAMILIES = ("implicit", "spatial", "ban")
+# two seeds a graph replays with (the second above 2**31, as the benchmark's)
+DROPOUT_SEEDS = (20251019, 3_000_000_019)
+# tensor-parallel parts a slice of the draw is checked at: (index, parts)
+DROPOUT_PARTS = ((0, 2), (1, 2))
+
+
+@contextlib.contextmanager
+def recorded_dropouts(sites):
+    """Every dropout call of the port that draws (train, 0 < rate < 1): its
+    input's layout, dtype, rate, part and whether it takes a gradient,
+    appended to `sites` while open."""
+    from tf_vqa_regat_tpu_torch import nn as tnn
+
+    real = tnn.dropout
+
+    def spy(x, rate, train, generator=None, part=None):
+        if train and 0.0 < rate < 1.0:
+            sites.append({"shape": tuple(x.shape), "stride": tuple(x.stride()),
+                          "offset": x.storage_offset(),
+                          "storage": x.untyped_storage().nbytes() // x.element_size(),
+                          "dtype": x.dtype, "rate": rate, "part": part,
+                          "grad": x.requires_grad})
+        return real(x, rate, train, generator, part)
+
+    users = [m for name, m in list(sys.modules.items())
+             if name.startswith("tf_vqa_regat_tpu_torch") and getattr(m, "dropout", None) is real]
+    for m in users:
+        m.dropout = spy
+    try:
+        yield sites
+    finally:
+        for m in users:
+            m.dropout = real
+
+
+def dropout_step_sites(device, family):
+    """One eager train step (forward and gradients) and one eval step of the
+    family's full-width model at b=256 (phase 7's batch) -> (the dropout
+    sites the train step drew, its kernel launches, the eval step's)."""
+    import torch
+
+    from tf_vqa_regat_tpu_torch.data.store import DeviceStore, gather_batch
+    from tf_vqa_regat_tpu_torch.main import build_dataset
+    from tf_vqa_regat_tpu_torch.models.regat import ReGAT
+    from tf_vqa_regat_tpu_torch.ops.kernels import dropout as kd
+    from tf_vqa_regat_tpu_torch.train.step import eval_step, train_forward
+
+    cfg = full_width_config(family, ["--mode", "train"])
+    ds = build_dataset(cfg, "train")
+    store = DeviceStore(ds, device)
+    idx = next(store.epoch_indices(0, cfg.batch_size, True, cfg.seed))
+    batch = gather_batch(store, torch.from_numpy(idx).to(device), cfg.resolved_num_rois())
+    model = ReGAT(cfg, ds.ntoken, ds.v_dim, ds.num_ans).to(device)
+    sites = []
+    kd.COUNTS.clear()
+    with recorded_dropouts(sites):
+        loss, _ = train_forward(model, batch, 0, cfg.seed)
+        torch.autograd.grad(loss, list(model.parameters()))
+        train = dict(kd.COUNTS)
+        kd.COUNTS.clear()
+        with torch.no_grad():
+            eval_step(model, batch)
+        evals = dict(kd.COUNTS)
+        if len(sites) != train.get("forward", 0):
+            fail(f"dropout {family}: {len(sites)} sites drew in the train step, the kernel "
+                 f"ran {train.get('forward', 0)} forward launches")
+    torch.cuda.synchronize()
+    del model, store, batch
+    torch.cuda.empty_cache()
+    kd.COUNTS.clear()
+    return sites, train, evals
+
+
+def dropout_parent(x, bits, t, scale, dy):
+    """The parent's formulation and its autograd: (out, dx)."""
+    import torch
+
+    out = torch.where(bits >= t, x * scale, torch.zeros_like(x))
+    return out, torch.autograd.grad(out, x, dy)[0]
+
+
+def same_bits(a, b) -> bool:
+    import torch
+
+    view = torch.int32 if a.element_size() == 4 else torch.int16
+    return a.shape == b.shape and torch.equal(a.contiguous().view(view),
+                                              b.contiguous().view(view))
+
+
+def check_dropout_layout(device, site, dtype):
+    """Site `site`'s layout in `dtype`: nn.dropout forward and its gradient
+    inside a captured graph replayed at DROPOUT_SEEDS, bit for bit against
+    the parent's formulation on the draw of the same seed, in bits and in
+    strides, and the launches each replay adds. Returns (the values
+    compared, their largest absolute difference)."""
+    import torch
+
+    from tf_vqa_regat_tpu_torch import nn as tnn
+    from tf_vqa_regat_tpu_torch.ops.kernels import dropout as kd
+    from tf_vqa_regat_tpu_torch.train.graphs import StepGraphs
+
+    shape, stride, offset, rate, part = (site[k] for k in ("shape", "stride", "offset", "rate",
+                                                            "part"))
+    gen = torch.Generator(device=device).manual_seed(7)
+    base = torch.randn(site["storage"], generator=gen, device=device).to(dtype)
+    base.requires_grad_(True)
+    dy = torch.randn(shape, generator=gen, device=device).to(dtype)
+
+    def step(key, inputs, generators):
+        x = base.as_strided(shape, stride, offset)
+        out = tnn.dropout(x, rate, True, generators[0], part)
+        return {"out": out, "dx": torch.autograd.grad(out, x, dy)[0]}
+
+    graphs = StepGraphs(step, device, generators=1)
+    t = tnn.drop_threshold(rate)
+    scale = 256.0 / (256 - t)
+    if dtype != torch.float32:
+        scale = float(torch.tensor(scale, dtype=dtype))
+    outs, err = [], 0.0
+    for i, seed in enumerate(DROPOUT_SEEDS):
+        before = dict(kd.COUNTS)
+        got = {k: v.clone() for k, v in graphs("step", {}, (seed,)).items()}
+        added = {k: kd.COUNTS[k] - before.get(k, 0) for k in ("forward", "backward")}
+        if added != {"forward": 1, "backward": 1}:
+            fail(f"dropout {shape} {dtype}: a replay added {added} launches")
+        g = torch.Generator(device=device).manual_seed(seed)
+        if part is None:
+            bits = torch.randint(0, 256, shape, generator=g, dtype=torch.uint8, device=device)
+        else:
+            j, n = part
+            w = shape[-1]
+            bits = torch.randint(0, 256, shape[:-1] + (w * n,), generator=g,
+                                 dtype=torch.uint8, device=device)[..., j * w:(j + 1) * w]
+        leaf = base.detach().requires_grad_(True)
+        want = dropout_parent(leaf.as_strided(shape, stride, offset), bits, t, scale, dy)
+        for name, a, b in (("out", got["out"], want[0]), ("dx", got["dx"], want[1])):
+            diff = (a.float() - b.float()).abs().max().item()
+            err = max(err, diff)
+            # the layout too: the layers after a site read what they read before
+            if not same_bits(a, b) or a.stride() != b.stride():
+                fail(f"dropout {shape} strides {stride} part {part} {dtype} seed {seed}: "
+                     f"{name} differs from the parent's formulation (max abs {diff}, "
+                     f"strides {a.stride()} vs {b.stride()})")
+        outs.append(got["out"])
+    if same_bits(outs[0], outs[1]):
+        fail(f"dropout {shape} {dtype}: two seeds drew the same mask")
+    del graphs
+    return 2 * len(DROPOUT_SEEDS) * math.prod(shape), err
+
+
+def dropout_bound_ms(numel, itemsize) -> float:
+    """Input and output once each and a byte of bits, over the HBM rate."""
+    return numel * (2 * itemsize + 1) / HBM_BYTES_PER_S * 1e3
+
+
+def time_dropout(device, site, dtype):
+    """The kernel's forward (on x) and backward (on dy) against the parent's
+    chain (`>= t`, `x * scale`, `zeros_like`, `where`; autograd's `where`
+    against 0 and `* scale`) at the site's layout, timed in turns."""
+    import torch
+
+    from tf_vqa_regat_tpu_torch import nn as tnn
+    from tf_vqa_regat_tpu_torch.ops.kernels import dropout as kd
+
+    shape, stride, offset = site["shape"], site["stride"], site["offset"]
+    gen = torch.Generator(device=device).manual_seed(11)
+    x = torch.randn(site["storage"], generator=gen, device=device).to(dtype).as_strided(
+        shape, stride, offset)
+    dy = torch.randn(shape, generator=gen, device=device).to(dtype)
+    bits = torch.randint(0, 256, shape, generator=gen, dtype=torch.uint8, device=device)
+    t = tnn.drop_threshold(site["rate"])
+    scale = float(torch.tensor(256.0 / (256 - t), dtype=dtype))
+    zero = torch.zeros((), dtype=dtype, device=device)
+    keep = bits >= t
+    calls = 20
+    fwd, bwd, fwd_p, bwd_p = (ms / calls for ms in median_graph_ms([
+        lambda: kd.kernel(x, bits, t, scale, "forward"),
+        lambda: kd.kernel(dy, bits, t, scale, "backward"),
+        lambda: torch.where(bits >= t, x * scale, torch.zeros_like(x)),
+        lambda: torch.where(keep, dy, zero) * scale], calls=calls))
+    kd.COUNTS.clear()
+    numel = math.prod(shape)
+    xr, br = kd.launch_rows(x, bits)
+    return {"forward_ms": fwd, "backward_ms": bwd, "parent_forward_ms": fwd_p,
+            "parent_backward_ms": bwd_p, "bound_ms": dropout_bound_ms(numel, x.element_size()),
+            "copied": [n for n, a, b in (("x", x, xr), ("bits", bits, br))
+                       if a.data_ptr() != b.data_ptr()]}
+
+
+def check_dropout(device, smi):
+    """Phase 28: dropout's kernel at every dropout site of the benchmark
+    cells' train steps. Returns the kernels-line entry."""
+    import torch
+
+    from tf_vqa_regat_tpu_torch.ops.kernels import dropout as kd
+
+    kd.LIB.load()
+    per_step, layouts = {}, {}
+    for family in DROPOUT_FAMILIES:
+        sites, train, evals = dropout_step_sites(device, family)
+        grads = sum(s["grad"] for s in sites)
+        per_step[CONFIGS[family]] = {"sites": len(sites), "sites_with_grad": grads,
+                                     "train": train, "eval": evals}
+        print(f"dropout {family} b={sites[0]['shape'][0]}: {len(sites)} sites draw in a train step "
+              f"({grads} take a gradient), launches train {json.dumps(train)}, eval "
+              f"{json.dumps(evals)}; sites "
+              f"{[(s['shape'], s['stride'], s['rate'], s['grad']) for s in sites]}", flush=True)
+        if train.get("backward", 0) != grads or evals:
+            fail(f"dropout {family}: {train} train launches for {len(sites)} sites "
+                 f"({grads} with a gradient), eval launches {evals}")
+        for s in sites:
+            key = (s["shape"], s["stride"], s["offset"], s["storage"], s["rate"], s["part"])
+            site = layouts.setdefault(key, dict(s, uses=collections.Counter(),
+                                                grads=collections.Counter()))
+            site["uses"][family] += 1
+            site["grads"][family] += s["grad"]
+    # the tensor-parallel slices of the draw, at the classifier's hidden layer
+    cls = max((s for s in layouts.values() if len(s["shape"]) == 2),
+              key=lambda s: s["shape"][-1])
+    for part in DROPOUT_PARTS:
+        w = cls["shape"][-1] // part[1]
+        shape = cls["shape"][:-1] + (w,)
+        layouts[("part", part)] = dict(cls, shape=shape, stride=(w, 1), offset=0,
+                                       storage=math.prod(shape), part=part)
+    compared, err = 0, 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for site in layouts.values():
+            n, e = check_dropout_layout(device, site, dtype)
+            compared, err = compared + n, max(err, e)
+            torch.cuda.empty_cache()
+    print(f"dropout: {len(layouts)} layouts x f32, bf16 x {len(DROPOUT_SEEDS)} seeds, "
+          f"forward and gradient in a replayed graph: {compared} values equal the parent's "
+          f"formulation bit for bit and in layout (max abs difference {err})", flush=True)
+    rows = []
+    for key, site in layouts.items():
+        if key[0] == "part":
+            continue
+        for dtype in (torch.float32, torch.bfloat16):
+            row = time_dropout(device, site, dtype)
+            row.update(shape=site["shape"], stride=site["stride"], dtype=str(dtype)[6:],
+                       uses=dict(site["uses"]), grads=dict(site["grads"]))
+            rows.append(row)
+            print(f"dropout {site['shape']} strides {site['stride']} {row['dtype']}: "
+                  f"{json.dumps({k: v for k, v in row.items() if k.endswith('ms') or k == 'copied'})}"
+                  f" on {smi}", flush=True)
+            torch.cuda.empty_cache()
+    totals = {}
+    for family in DROPOUT_FAMILIES:
+        tot = collections.Counter()
+        for r in rows:
+            if r["dtype"] != "float32":
+                continue
+            n, g = r["uses"].get(family, 0), r["grads"].get(family, 0)
+            for what, k in (("forward", n), ("backward", g)):
+                tot[f"{what}_ms"] += k * r[f"{what}_ms"]
+                tot[f"parent_{what}_ms"] += k * r[f"parent_{what}_ms"]
+                tot["bound_ms"] += k * r["bound_ms"]
+        totals[CONFIGS[family]] = {k: round(v, 4) for k, v in tot.items()}
+    print(f"dropout per f32 train step (sum over its sites, the draw left out): "
+          f"{json.dumps(totals)} on {smi}", flush=True)
+    big = max((r for r in rows if r["dtype"] == "float32" and r["uses"].get("implicit")),
+              key=lambda r: math.prod(r["shape"]))
+    return {
+        "name": "dropout", "route": "cuda", "source": "tf_vqa_regat_tpu_torch/csrc/dropout.cu",
+        "replaces": None, "launches_per_step": per_step, "max_abs_err": err,
+        "ms": big["forward_ms"], "backward_ms": big["backward_ms"],
+        "plain_ms": big["parent_forward_ms"], "plain_backward_ms": big["parent_backward_ms"],
+        "bound_ms": big["bound_ms"], "bound_by": "bytes", "shape": big["shape"],
+        "library_ms": None, "per_step": totals,
+    }
+
+
 def run_phase_26(tmp_root, smi, device):
     """`--only 26`: phase 4, phase 26, and 8-9 for the implicit family."""
     import torch
@@ -5050,17 +5457,24 @@ def run_phase_27(tmp_root, smi, device):
         check_entry_point(os.path.join(tmp_root, "spatial"), smi, "spatial", SHORT_TRAIN)
 
 
+def run_phase_28(tmp_root, smi, device):
+    """`--only 28`: dropout's kernel alone."""
+    with phase("28, dropout"):
+        check_dropout(device, smi)
+
+
 def build_kernels():
     """Build every CUDA source of the port, one nvcc each, all at once."""
     from tf_vqa_regat_tpu_torch.ops.kernels import build
+    from tf_vqa_regat_tpu_torch.ops.kernels import dropout as kd
     from tf_vqa_regat_tpu_torch.ops.kernels import graph_attention as ga
     from tf_vqa_regat_tpu_torch.ops.kernels import implicit_attention as ia
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=2) as pool:
-        libs = list(pool.map(build.build, (ia.SOURCE, ga.SOURCE)))
-    ia.LIB.load()
-    ga.LIB.load()
+    with ThreadPoolExecutor(max_workers=3) as pool:
+        libs = list(pool.map(build.build, (ia.SOURCE, ga.SOURCE, kd.SOURCE)))
+    for module in (ia, ga, kd):
+        module.LIB.load()
     print(f"built {[os.path.relpath(so, REPO) for so in libs]} in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     for so in libs:
@@ -5073,7 +5487,7 @@ def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--baseline", help="another checkout whose B1 and B2 phases 3-5 "
                         "time in turns with this one")
-    parser.add_argument("--only", choices=("23", "24", "25", "26", "27"),
+    parser.add_argument("--only", choices=("23", "24", "25", "26", "27", "28"),
                         help="build the kernels and run this phase alone (no result line)")
     parser.add_argument("--dp_child", nargs=2, metavar=("SPEC", "RANK"),
                         help=argparse.SUPPRESS)  # one rank of phase 23 (b)
@@ -5123,8 +5537,8 @@ def main() -> None:
     if args.only:
         with tempfile.TemporaryDirectory() as tmp_root:
             {"23": run_phase_23, "24": lambda *a: run_phase_24(*a, {}),
-             "25": run_phase_25, "26": run_phase_26,
-             "27": run_phase_27}[args.only](tmp_root, smi_line, device)
+             "25": run_phase_25, "26": run_phase_26, "27": run_phase_27,
+             "28": run_phase_28}[args.only](tmp_root, smi_line, device)
         print(f"phase {args.only} alone: {time.perf_counter() - start:.1f} s wall; no result "
               f"line", flush=True)
         return
@@ -5168,6 +5582,9 @@ def main() -> None:
               flush=True)
     with phase("7, mutan formulations"):
         check_mutan_branches(device)
+    torch.cuda.empty_cache()
+    with phase("28, dropout"):
+        dropout_row = check_dropout(device, smi_line)
     torch.cuda.empty_cache()
     with phase("15, feature tables"):
         check_tables(device)
@@ -5257,6 +5674,14 @@ def main() -> None:
     if sum(PATH_BACKWARD) != total("B1 train"):
         fail(f"{sum(PATH_BACKWARD)} B1 backward launches over the paths for "
              f"{total('B1 train')} train launches")
+
+    # dropout's launches over every path that read its counts, each held to
+    # its train microbatches' sites
+    if not any(d["microbatches"] for d in PATH_DROPOUT):
+        fail("no path trained with dropout on")
+    by_direction = {k: sum(d[k] for d in PATH_DROPOUT) for k in ("forward", "backward")}
+    dropout_row.update(launches=sum(by_direction.values()), launches_by_direction=by_direction,
+                       train_microbatches=sum(d["microbatches"] for d in PATH_DROPOUT))
 
     def at_rows(kernel, R):  # over every path of 8-21, at R
         return sum(run.get((kernel, R), 0) for run in PATH_ROWS)
@@ -5362,7 +5787,7 @@ def main() -> None:
         "plain_ms": graph_big["v1_plain_ms"],
         **{k: graph_big[k] for k in bound_keys},
         "library_ms": graph_big["sdpa_ms"],
-    }, *(e for R in ROWS for e in rows_entries(R))]}), flush=True)
+    }, dropout_row, *(e for R in ROWS for e in rows_entries(R))]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

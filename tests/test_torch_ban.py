@@ -116,15 +116,15 @@ def test_dropout_sites_and_keep_rate(monkeypatch):
     )
 
     sites, masks = [], []
-    real = tnn.keep_mask
+    real = tnn.dropout_draw
 
     def recorder(shape, rate, generator, device):
-        keep = real(shape, rate, generator, device)
+        bits, t = real(shape, rate, generator, device)
         sites.append((tuple(shape), rate))
-        masks.append(keep)
-        return keep
+        masks.append(bits >= t)
+        return bits, t
 
-    monkeypatch.setattr(tnn, "keep_mask", recorder)
+    monkeypatch.setattr(tnn, "dropout_draw", recorder)
     port.train()(
         torch.from_numpy(v), torch.from_numpy(q), torch.from_numpy(roi_mask),
         torch.Generator().manual_seed(5),

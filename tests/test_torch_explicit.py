@@ -179,13 +179,13 @@ def test_dropout_sites_and_rates(family, monkeypatch):
     batch = batches[0]
     want = _record_jax_sites(cfg, params, ntoken, batch, monkeypatch)
     sites = []
-    real = tnn.keep_mask
+    real = tnn.dropout_draw
 
     def recorder(shape, rate, generator, device):
         sites.append((tuple(shape), rate))
         return real(shape, rate, generator, device)
 
-    monkeypatch.setattr(tnn, "keep_mask", recorder)
+    monkeypatch.setattr(tnn, "dropout_draw", recorder)
     model = _port_model(cfg, flat, ntoken)
     train_forward(model, batch, 4, cfg.seed)
     assert sites == want

@@ -45,7 +45,6 @@ from tf_vqa_regat_tpu_torch.config import Config
 from tf_vqa_regat_tpu_torch.data.store import DeviceStore, gather_batch
 from tf_vqa_regat_tpu_torch.data.synthetic import synthetic_dataset
 from tf_vqa_regat_tpu_torch.models.regat import ReGAT, trainable_mask
-from tf_vqa_regat_tpu_torch.ops import graph_attention as tgraph_attention
 from tf_vqa_regat_tpu_torch.ops.kernels import implicit_attention as b1
 from tf_vqa_regat_tpu_torch.params import flatten_tree, load_jax_arrays
 from tf_vqa_regat_tpu_torch.train import step as tstep
@@ -191,15 +190,15 @@ def test_microbatch_generators(setup, monkeypatch):
     cfg = _port_cfg(CFG.replace(dropout=0.2))
     model = ReGAT(cfg, ntoken, V_DIM, NUM_ANS)
     masks = []
-    real = tnn.keep_mask
+    real = tnn.dropout_draw
 
     def recorder(shape, rate, generator, device):
-        keep = real(shape, rate, generator, device)
-        masks.append(keep)
-        return keep
+        bits, t = real(shape, rate, generator, device)
+        masks.append(bits >= t)
+        return bits, t
 
-    monkeypatch.setattr(tnn, "keep_mask", recorder)
-    monkeypatch.setattr(tgraph_attention, "keep_mask", recorder)
+    # every draw, B1's keep-mask's included, goes through nn.dropout_draw
+    monkeypatch.setattr(tnn, "dropout_draw", recorder)
 
     def draws(step, a):
         masks.clear()

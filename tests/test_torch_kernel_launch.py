@@ -1,10 +1,11 @@
 """The port's native-code layer (ops/kernels/launch.py) and the kernel
 wrappers around their launches, on the CPU:
 
-- every `Library` that declares load-time checks (B1, B2, the marks) refuses
-  a library whose shared-memory layout is not its plans', that lacks a
-  specialised instance its backward plan chooses, or whose names are not
-  the module's; one with no checks (the host gather) just loads;
+- every `Library` that declares load-time checks (B1, B2, the marks)
+  refuses a library whose shared-memory layout is not its plans', that
+  lacks a specialised instance its backward plan chooses, or whose names
+  are not the module's; one with no checks (the host gather, dropout) just
+  loads;
 - a `Library` loads once when two threads ask at the same time;
 - `launch` runs a function with the tensors' device current and that
   device's current raw stream, raises the shared-memory attribute only
@@ -45,6 +46,7 @@ from regat_bench import kernels as bench_kernels
 from tf_vqa_regat_tpu_torch.data import native
 from tf_vqa_regat_tpu_torch.models import ban
 from tf_vqa_regat_tpu_torch.ops.kernels import build, launch, marks
+from tf_vqa_regat_tpu_torch.ops.kernels import dropout as kd
 from tf_vqa_regat_tpu_torch.ops.kernels import graph_attention as ga
 from tf_vqa_regat_tpu_torch.ops.kernels import implicit_attention as ia
 from tf_vqa_regat_tpu_torch.train import graphs, profiling
@@ -54,7 +56,8 @@ from tf_vqa_regat_tpu_torch.train import graphs, profiling
 torch.set_num_threads(1)
 
 PACKAGE = Path(tf_vqa_regat_tpu_torch.__file__).resolve().parent
-LIBRARIES = {"b1": ia.LIB, "b2": ga.LIB, "marks": marks.LIB, "pack": native.LIB}
+LIBRARIES = {"b1": ia.LIB, "b2": ga.LIB, "marks": marks.LIB, "pack": native.LIB,
+             "dropout": kd.LIB}
 
 
 @pytest.fixture(autouse=True)
@@ -101,7 +104,8 @@ LOAD_CASES = ([(k, off, error) for k in ("b1", "b2") for off, error in (
     (None, None), ("tiling plan", "tiling plan and kernel disagree on shared memory"),
     ("backward plan", "backward plan and kernel disagree on shared memory"),
     ("specialised", "no specialised instance"))]
-    + [("marks", None, None), ("marks", "names", "has the marks"), ("pack", None, None)])
+    + [("marks", None, None), ("marks", "names", "has the marks"), ("pack", None, None),
+       ("dropout", None, None)])
 
 
 @pytest.mark.parametrize("which, off, error", LOAD_CASES)

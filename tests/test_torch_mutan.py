@@ -195,15 +195,15 @@ def test_branch_and_dropout_sites(monkeypatch, train, drop, shared_qdrop, want_b
         params,
     )
     sites, masks = [], []
-    real_keep = tnn.keep_mask
+    real_draw = tnn.dropout_draw
 
     def recorder(shape, rate, generator, device):
-        keep = real_keep(shape, rate, generator, device)
+        bits, t = real_draw(shape, rate, generator, device)
         sites.append((tuple(shape), rate))
-        masks.append(keep)
-        return keep
+        masks.append(bits >= t)
+        return bits, t
 
-    monkeypatch.setattr(tnn, "keep_mask", recorder)
+    monkeypatch.setattr(tnn, "dropout_draw", recorder)
     port.train(train)(
         torch.from_numpy(v), torch.from_numpy(q), torch.from_numpy(roi_mask),
         torch.Generator().manual_seed(6),

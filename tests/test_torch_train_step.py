@@ -42,7 +42,6 @@ from tf_vqa_regat_tpu_torch import nn as tnn
 from tf_vqa_regat_tpu_torch.data.store import DeviceStore, gather_batch
 from tf_vqa_regat_tpu_torch.data.synthetic import synthetic_dataset
 from tf_vqa_regat_tpu_torch.models.regat import ReGAT, trainable_mask
-from tf_vqa_regat_tpu_torch.ops import graph_attention as tgraph_attention
 from tf_vqa_regat_tpu_torch.params import flatten_tree, load_jax_arrays
 from tf_vqa_regat_tpu_torch.train.optim import Adamax, make_lr_schedule
 from tf_vqa_regat_tpu_torch.train.step import train_forward, train_step
@@ -218,16 +217,16 @@ def test_dropout_sites_rates_and_masks(data, monkeypatch, fusion, drop):
     want = _record_jax_sites(cfg, flat, ntoken, batch, monkeypatch)
 
     masks, sites = [], []
-    real = tnn.keep_mask
+    real = tnn.dropout_draw
 
     def recorder(shape, rate, generator, device):
-        keep = real(shape, rate, generator, device)
+        bits, t = real(shape, rate, generator, device)
         sites.append((tuple(shape), rate))
-        masks.append(keep)
-        return keep
+        masks.append(bits >= t)
+        return bits, t
 
-    monkeypatch.setattr(tnn, "keep_mask", recorder)
-    monkeypatch.setattr(tgraph_attention, "keep_mask", recorder)
+    # every draw, B1's keep-mask's included, goes through nn.dropout_draw
+    monkeypatch.setattr(tnn, "dropout_draw", recorder)
     model = _port_model(flat, ntoken, cfg)
     loss, _ = train_forward(model, batch, 4, cfg.seed)
     assert sites == want

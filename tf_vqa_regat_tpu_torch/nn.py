@@ -18,6 +18,8 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
+from tf_vqa_regat_tpu_torch.ops.kernels.dropout import Dropout
+
 # --compute_dtype -> torch dtype (JAX models/regat.py `_DTYPES`)
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -95,19 +97,28 @@ def drop_threshold(rate: float) -> int:
     return min(255, max(1, int(round(rate * 256.0))))
 
 
-def keep_mask(
+def dropout_draw(
     shape: Sequence[int], rate: float, generator: Optional[torch.Generator],
     device: torch.device,
-) -> torch.Tensor:
-    """Bool keep-mask: one uint8 draw per element on `device`, kept where it
-    is >= t (nn.py:74-77). Raises without a generator, or when the generator
-    lives on another device."""
+) -> Tuple[torch.Tensor, int]:
+    """One dropout site's draw at `rate`: (one uint8 per element on `device`,
+    the threshold t it is kept at, where it is >= t). Raises without a
+    generator, or when the generator lives on another device."""
     if generator is None:
         raise ValueError("dropout in train mode needs a torch.Generator")
     bits = torch.randint(
         0, 256, tuple(shape), generator=generator, dtype=torch.uint8, device=device
     )
-    return bits >= drop_threshold(rate)
+    return bits, drop_threshold(rate)
+
+
+def keep_mask(
+    shape: Sequence[int], rate: float, generator: Optional[torch.Generator],
+    device: torch.device,
+) -> torch.Tensor:
+    """Bool keep-mask: the draw, kept where it is >= t (nn.py:74-77)."""
+    bits, t = dropout_draw(shape, rate, generator, device)
+    return bits >= t
 
 
 def dropout(
@@ -123,7 +134,9 @@ def dropout(
     first (1.25 for rate 0.2 in bf16), as JAX's is. Identity unless
     `train`. With `part` (i, n), x is part i of n of a tensor split on its
     last axis: the mask is drawn for the whole tensor and its part i taken,
-    so the parts draw what the whole draws."""
+    so the parts draw what the whole draws. The draw is applied by
+    ops/kernels/dropout.py's `Dropout` (one kernel forward and one backward
+    on the card, saving only the draw; `torch.where` on the CPU)."""
     if not train or rate <= 0.0:
         return x
     if generator is None:
@@ -131,12 +144,13 @@ def dropout(
     if rate >= 1.0:
         return torch.zeros_like(x)
     if part is None:
-        keep = keep_mask(x.shape, rate, generator, x.device)
+        bits, t = dropout_draw(x.shape, rate, generator, x.device)
     else:
         i, n = part
         w = x.shape[-1]
-        keep = keep_mask(x.shape[:-1] + (w * n,), rate, generator, x.device)[..., i * w:(i + 1) * w]
-    scale = 256.0 / (256 - drop_threshold(rate))
+        bits, t = dropout_draw(x.shape[:-1] + (w * n,), rate, generator, x.device)
+        bits = bits[..., i * w:(i + 1) * w]
+    scale = 256.0 / (256 - t)
     if x.dtype != torch.float32:
         scale = float(torch.tensor(scale, dtype=x.dtype))
-    return torch.where(keep, x * scale, torch.zeros_like(x))
+    return Dropout.apply(x, bits, t, scale)

@@ -77,11 +77,11 @@ epoch's train steps with `data` spans around the fetch of each block
 (train/step.py::TrainSteps) and the steps' phase marks on the device's
 clock; after the run's first eval pass the log carries the `[setup]` line
 of the process's set-up totals (train/profiling.py), with BAN's forward
-calls for a BAN model; --profile_port serves
-`/capture` and starts and stops its profiler at the loop's step boundaries
-(train/profiling.py), and --debug_nans runs the steps eagerly under
-train/debug_nans.py's checks, inside `pending_joined`, so an async write
-issued before its FloatingPointError is complete on disk.
+calls for a BAN model and the dropout kernel's launches on the card;
+--profile_port serves `/capture` and starts and stops its profiler at the
+loop's step boundaries (train/profiling.py), and --debug_nans runs the
+steps eagerly under train/debug_nans.py's checks, inside `pending_joined`,
+so an async write issued before its FloatingPointError is complete on disk.
 """
 
 from __future__ import annotations

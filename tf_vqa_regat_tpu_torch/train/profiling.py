@@ -35,7 +35,9 @@ Phase marks and span marks (`mark`, `recording`, the marks' names) live
 in ops/kernels/marks.py, beside the kernels they launch; `phase_ns` here
 reads a traced stretch of marked steps. BAN's forward calls are counted in
 models/ban.py (`CALLS`, replay-aware through train/graphs.py), and
-`setup_line(ban=True)` prints them.
+`setup_line(ban=True)` prints them; `setup_line` also prints the dropout
+kernel's launches (ops/kernels/dropout.py, counted alike) once it has
+launched.
 
 A CUDA-graphed step appears in a trace as a graph launch and its kernels;
 the profiler changes nothing that runs (no step leaves its graph).
@@ -142,7 +144,8 @@ def setup_calls() -> Dict[str, int]:
 
 def setup_line(ban: bool = False) -> str:
     """The operator's reading of the set-up totals; with `ban`, and BAN's
-    forward calls so far."""
+    forward calls so far; and the dropout kernel's launches so far where it
+    launched (on the card)."""
     s, n = setup_seconds(), setup_calls()
     line = (f"[setup] model init {s.get('init', 0.0):.3f} s, tables upload "
             f"{s.get('upload', 0.0):.3f} s, warm-up and capture {s.get('capture', 0.0):.3f} s "
@@ -150,6 +153,10 @@ def setup_line(ban: bool = False) -> str:
     if ban:
         calls = launch.counter("ban")
         line += f"; BAN forward calls: train {calls['train']}, eval {calls['eval']}"
+    drops = launch.counter("dropout")
+    if drops:
+        line += (f"; dropout launches: forward {drops['forward']}, "
+                 f"backward {drops['backward']}")
     return line
 
 
